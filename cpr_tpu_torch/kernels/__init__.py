@@ -1,0 +1,322 @@
+"""Build, load and launch the port's CUDA kernels.
+
+Each source under `cpr_tpu_torch/csrc/` (`*.cu`) is compiled by `nvcc`
+for sm_90a into its own shared library with a plain C interface, at
+first use, into `build/cpr_tpu_torch/` beside the package (or
+`$CPR_TORCH_BUILD_DIR`). The file name carries a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads at once.
+All sources compile in parallel, one `nvcc` each. The libraries are
+loaded with ctypes; every pointer and the stream pass as `c_void_p`, and
+each C entry point returns the launch's `cudaError_t`, which the wrapper
+turns into an exception.
+
+The wrappers here launch only: they take CUDA tensors, check device,
+dtype, shape, contiguity and alignment, allocate the outputs with
+`torch.empty`, launch on PyTorch's current stream without synchronising,
+and add one to `launches[<kernel>]` per launch. Dispatch between a
+kernel and its plain twin happens in the calling modules, on the device
+of the tensor: a CUDA tensor never reaches a plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("random.cu", "nakamoto_stream.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# launches per kernel since the last reset_launches()
+launches = {"K1": 0, "K2": 0, "K3": 0}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+_p = ctypes.c_void_p
+_i64 = ctypes.c_int64
+_int = ctypes.c_int
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def build_dir() -> Path:
+    env = os.environ.get("CPR_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return CSRC.parent.parent / "build" / "cpr_tpu_torch"
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_paths() -> dict[str, Path]:
+    d, tag = build_dir(), _digest()
+    return {src: d / f"lib{Path(src).stem}-{tag}.so" for src in SOURCES}
+
+
+def build() -> dict[str, Path]:
+    """Compile every source whose library is missing, all at once; the
+    compiler's `-Xptxas -v` report goes beside each library as `.log`.
+    Returns {source: library path}."""
+    paths = library_paths()
+    todo = {s: p for s, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    next(iter(todo.values())).parent.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for src, out in todo.items():
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        log = open(out.with_suffix(".log"), "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT), log, tmp)
+    failed = []
+    for src, (proc, log, tmp) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(src)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, todo[src])
+    if failed:
+        logs = "\n".join(todo[s].with_suffix(".log").read_text()[-4000:]
+                         for s in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return paths
+
+
+class _StatePtrs(ctypes.Structure):
+    _fields_ = [(f, _p) for f in (
+        "a", "h", "event", "match_h", "ca_atk", "ca_def", "ca_progress",
+        "time", "t_priv", "t_pub", "steps", "n_activations",
+        "last_reward_attacker", "last_reward_defender", "last_progress",
+        "last_chain_time", "last_sim_time", "key")]
+
+
+class _Params(ctypes.Structure):
+    _fields_ = [("alpha", ctypes.c_float), ("gamma", ctypes.c_float),
+                ("activation_delay", ctypes.c_float),
+                ("max_progress", ctypes.c_float),
+                ("max_time", ctypes.c_float), ("max_steps", ctypes.c_int32)]
+
+
+class _TrajPtrs(ctypes.Structure):
+    _fields_ = [(f, _p) for f in ("obs", "action", "reward", "done", "info")]
+
+
+def _load() -> dict[str, ctypes.CDLL]:
+    with _lock:
+        if _libs:
+            return _libs
+        paths = build()
+        rnd = ctypes.CDLL(str(paths["random.cu"]))
+        rnd.cpr_k1_threefry.argtypes = [_p, _i64, _i64, ctypes.c_uint32,
+                                        _int, _p, _p]
+        rnd.cpr_k1_threefry.restype = _int
+        rnd.cpr_k1_error_string.argtypes = [_int]
+        rnd.cpr_k1_error_string.restype = ctypes.c_char_p
+        nak = ctypes.CDLL(str(paths["nakamoto_stream.cu"]))
+        sp, pp = ctypes.POINTER(_StatePtrs), ctypes.POINTER(_Params)
+        nak.cpr_k2_stream.argtypes = [sp, _p, _p, _int, _i64, _int, pp, _int,
+                                      _int, _int, _p, _p,
+                                      ctypes.POINTER(_TrajPtrs), _p]
+        nak.cpr_k2_stream.restype = _int
+        nak.cpr_k3_step_lanes.argtypes = [sp, _p, _p, _p, sp, _p, _p, _i64,
+                                          pp, _int, _int, _p, _p, _p, _p, _p]
+        nak.cpr_k3_step_lanes.restype = _int
+        nak.cpr_k23_error_string.argtypes = [_int]
+        nak.cpr_k23_error_string.restype = ctypes.c_char_p
+        _libs.update(random=rnd, nakamoto=nak)
+        return _libs
+
+
+def _check(rc: int, lib, errfn: str, what: str) -> None:
+    if rc != 0:
+        msg = getattr(lib, errfn)(rc).decode()
+        raise RuntimeError(f"{what}: CUDA launch failed ({rc}: {msg})")
+
+
+def _want(t: torch.Tensor, name: str, dtype, shape, device, align=4):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: must be {align}-byte aligned")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# -- K1 -----------------------------------------------------------------------
+
+def threefry(keys: torch.Tensor, n: int, offset: int, mode: int):
+    """K1: for each key in `keys` [B, 2] (int32 words, CUDA) and j < n,
+    threefry2x32(key, (0, offset + j)); mode 0 returns keys [B, n, 2]
+    int32, mode 1 bits [B, n] int32, modes 2/3 uniform/exponential
+    [B, n] float32."""
+    if not keys.is_cuda:
+        raise ValueError("K1 takes CUDA tensors")
+    dev = keys.device
+    _want(keys, "keys", torch.int32, (keys.shape[0], 2), dev, align=8)
+    shape = (keys.shape[0], n, 2) if mode == 0 else (keys.shape[0], n)
+    dtype = torch.int32 if mode in (0, 1) else torch.float32
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    lib = _load()["random"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k1_threefry(keys.data_ptr(), keys.shape[0], n,
+                                 offset & 0xFFFFFFFF, mode, out.data_ptr(),
+                                 _stream(dev))
+    _check(rc, lib, "cpr_k1_error_string", "K1 threefry")
+    launches["K1"] += 1
+    return out
+
+
+# -- K2 / K3 ------------------------------------------------------------------
+
+def _state_ptrs(state, n, dev, name) -> _StatePtrs:
+    from cpr_tpu_torch.envs.nakamoto import INT_FIELDS, STATE_FIELDS
+    ptrs = _StatePtrs()
+    for f in STATE_FIELDS:
+        t = getattr(state, f)
+        if f == "key":
+            _want(t, f"{name}.key", torch.int32, (n, 2), dev, align=8)
+        else:
+            dt = torch.int32 if f in INT_FIELDS else torch.float32
+            _want(t, f"{name}.{f}", dt, (n,), dev)
+        setattr(ptrs, f, t.data_ptr())
+    return ptrs
+
+
+def _params(params) -> _Params:
+    for f in ("alpha", "gamma", "activation_delay", "max_progress",
+              "max_time", "max_steps"):
+        if getattr(params, f).dim() != 0:
+            raise NotImplementedError(
+                "per-lane stacked params in the CUDA stream kernels are "
+                "not ported yet (ROADMAP item 5, left out of slice 1); "
+                "pass scalar EnvParams")
+    return _Params(float(params.alpha), float(params.gamma),
+                   float(params.activation_delay),
+                   float(params.max_progress), float(params.max_time),
+                   int(params.max_steps))
+
+
+def stream(state, obs, keys, init_mode: int, length: int, params,
+           policy_id: int, strict_match: bool, unit_obs: bool,
+           with_sums: bool = True, store_traj: bool = False):
+    """K2: run `length` auto-resetting steps of every lane under the
+    scripted policy `policy_id`, updating the carry (`state`, `obs`
+    [L, 4]) IN PLACE. init_mode 1/2 first (re)initialises each lane from
+    `keys` [L, 2] (stream prologue / raw reset); 0 continues the carry.
+
+    Returns (sums [7, L] float32, n_done [L] int32, traj) — sums/n_done
+    None unless `with_sums`, traj None unless `store_traj`, else
+    (obs [T, L, 4], action [T, L], reward [T, L], done [T, L],
+    info [12, T, L])."""
+    dev = obs.device
+    if dev.type != "cuda":
+        raise ValueError("K2 takes CUDA tensors")
+    n = obs.shape[0]
+    sp = _state_ptrs(state, n, dev, "state")
+    _want(obs, "obs", torch.float32, (n, 4), dev, align=16)
+    kp = None
+    if init_mode != 0:
+        _want(keys, "keys", torch.int32, (n, 2), dev, align=8)
+        kp = keys.data_ptr()
+    sums = n_done = traj = None
+    if with_sums:
+        sums = torch.empty((7, n), dtype=torch.float32, device=dev)
+        n_done = torch.empty((n,), dtype=torch.int32, device=dev)
+    tp = None
+    if store_traj:
+        f32 = dict(dtype=torch.float32, device=dev)
+        traj = (torch.empty((length, n, 4), **f32),
+                torch.empty((length, n), dtype=torch.int32, device=dev),
+                torch.empty((length, n), **f32),
+                torch.empty((length, n), dtype=torch.bool, device=dev),
+                torch.empty((12, length, n), **f32))
+        tp = ctypes.byref(_TrajPtrs(*(t.data_ptr() for t in traj)))
+    p = _params(params)
+    lib = _load()["nakamoto"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k2_stream(
+            ctypes.byref(sp), obs.data_ptr(), kp, init_mode, n, length,
+            ctypes.byref(p), policy_id, int(strict_match), int(unit_obs),
+            None if sums is None else sums.data_ptr(),
+            None if n_done is None else n_done.data_ptr(), tp, _stream(dev))
+    _check(rc, lib, "cpr_k23_error_string", "K2 stream")
+    launches["K2"] += 1
+    return sums, n_done, traj
+
+
+def step_lanes(state, obs, actions, admit_mask, fresh_state, fresh_obs,
+               step_mask, params, strict_match: bool, unit_obs: bool):
+    """K3: one tick of the resident lane block; the carry (`state`,
+    `obs`) is updated IN PLACE. Returns (out_obs [L, 4], reward [L],
+    done [L] bool, info [12, L])."""
+    dev = obs.device
+    if dev.type != "cuda":
+        raise ValueError("K3 takes CUDA tensors")
+    n = obs.shape[0]
+    sp = _state_ptrs(state, n, dev, "state")
+    fp = _state_ptrs(fresh_state, n, dev, "fresh_state")
+    _want(obs, "obs", torch.float32, (n, 4), dev, align=16)
+    _want(fresh_obs, "fresh_obs", torch.float32, (n, 4), dev, align=16)
+    _want(actions, "actions", torch.int32, (n,), dev)
+    _want(admit_mask, "admit_mask", torch.bool, (n,), dev, align=1)
+    _want(step_mask, "step_mask", torch.bool, (n,), dev, align=1)
+    out_obs = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    reward = torch.empty((n,), dtype=torch.float32, device=dev)
+    done = torch.empty((n,), dtype=torch.bool, device=dev)
+    info = torch.empty((12, n), dtype=torch.float32, device=dev)
+    p = _params(params)
+    lib = _load()["nakamoto"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k3_step_lanes(
+            ctypes.byref(sp), obs.data_ptr(), actions.data_ptr(),
+            admit_mask.data_ptr(), ctypes.byref(fp), fresh_obs.data_ptr(),
+            step_mask.data_ptr(), n, ctypes.byref(p), int(strict_match),
+            int(unit_obs), out_obs.data_ptr(), reward.data_ptr(),
+            done.data_ptr(), info.data_ptr(), _stream(dev))
+    _check(rc, lib, "cpr_k23_error_string", "K3 step_lanes")
+    launches["K3"] += 1
+    return out_obs, reward, done, info

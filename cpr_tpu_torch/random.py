@@ -1,0 +1,180 @@
+"""Counter-based threefry2x32 that matches `jax.random` bit for bit
+(kernel K1: plain twin and wrapper).
+
+The stream is the one jax draws with `jax_threefry_partitionable=True`
+(the default from jax 0.5 on) and 64-bit mode off, the setting the
+reference runs with:
+
+    PRNGKey(s)       = (0, s mod 2**32)
+    split(k, n)[i]   = threefry2x32(k, (0, i))
+    fold_in(k, d)    = threefry2x32(k, (0, d))
+    bits(k, shape)   = x0 ^ x1 of threefry2x32(k, (0, j)), j the flat index
+    uniform(k)       = bitcast_f32((bits >> 9) | 0x3f800000) - 1
+    exponential(k)   = -log1p(-uniform(k))
+
+A key is a tensor `[..., 2]` of 32-bit words, stored as int32 bit
+patterns because torch's uint32 has few operations; a leading batch of
+keys acts as `jax.vmap` over them. `to_numpy_words`/`from_numpy_words`
+cross to numpy's uint32.
+
+On a CUDA tensor every function launches the K1 kernel
+(`csrc/random.cu`); on a CPU tensor it runs the plain version below,
+which does its arithmetic in int64 masked to 32 bits.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from cpr_tpu_torch import _device
+
+M32 = 0xFFFFFFFF
+ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+KS_PARITY = 0x1BD11BDA
+
+# K1 output modes (csrc/random.cu)
+MODE_KEYS, MODE_BITS, MODE_UNIFORM, MODE_EXPONENTIAL = 0, 1, 2, 3
+
+
+# -- plain version ------------------------------------------------------------
+
+def words(t: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their uint32 values in int64."""
+    return t.to(torch.int64) & M32
+
+
+def from_words(t: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> int32 bit patterns."""
+    return t.to(torch.int32)
+
+
+def _rotl(x, r):
+    return ((x << r) & M32) | (x >> (32 - r))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """20-round threefry2x32 on broadcastable int64 tensors holding
+    uint32 values; returns the two output words the same way."""
+    ks = (k0, k1, k0 ^ k1 ^ KS_PARITY)
+    x0 = (x0 + k0) & M32
+    x1 = (x1 + k1) & M32
+    for i in range(5):
+        for r in ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & M32
+    return x0, x1
+
+
+def _counters(key, n, offset):
+    return (torch.arange(n, dtype=torch.int64, device=key.device)
+            + offset) & M32
+
+
+def uniform_of_bits(b: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> jax.random.uniform's float32 on [0, 1)."""
+    return ((b >> 9) & 0x7FFFFF | 0x3F800000).view(torch.float32) - 1.0
+
+
+def exponential_of_bits(b: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> jax.random.exponential's float32."""
+    return -torch.log1p(-uniform_of_bits(b))
+
+
+def threefry_plain(key: torch.Tensor, n: int, offset: int = 0,
+                   mode: int = MODE_KEYS) -> torch.Tensor:
+    """Plain twin of the K1 kernel: for each key in `key[..., 2]` and
+    j < n, threefry2x32(key, (0, offset + j)); `mode` picks what is
+    returned: the pair as a key `[..., n, 2]`, or `[..., n]` bits (int32
+    patterns), uniform or exponential float32 draws."""
+    kw = words(key)
+    k0, k1 = kw[..., 0:1], kw[..., 1:2]
+    x0, x1 = threefry2x32(k0, k1, torch.zeros_like(k0),
+                          _counters(key, n, offset))
+    if mode == MODE_KEYS:
+        return from_words(torch.stack((x0, x1), dim=-1))
+    b = from_words(x0 ^ x1)
+    if mode == MODE_BITS:
+        return b
+    if mode == MODE_UNIFORM:
+        return uniform_of_bits(b)
+    if mode == MODE_EXPONENTIAL:
+        return exponential_of_bits(b)
+    raise ValueError(f"unknown threefry mode {mode}")
+
+
+# -- dispatch ------------------------------------------------------------------
+
+def _threefry(key, n, offset, mode):
+    _device.check_supported(key, "threefry")
+    if key.dtype != torch.int32 or key.shape[-1:] != (2,):
+        raise ValueError(
+            f"a key is an int32 tensor [..., 2], got {key.dtype} "
+            f"{tuple(key.shape)}")
+    if not key.is_cuda:
+        return threefry_plain(key, n, offset, mode)
+    from cpr_tpu_torch import kernels
+    batch = key.shape[:-1]
+    flat = key.reshape(-1, 2).contiguous()
+    if flat.data_ptr() % 8:  # the kernel reads each key as one uint2
+        flat = flat.clone()
+    out = kernels.threefry(flat, n, offset, mode)
+    return out.reshape(*batch, *out.shape[1:])
+
+
+# -- public jax.random surface -------------------------------------------------
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """`jax.random.PRNGKey(seed)` with 64-bit mode off: (0, seed mod 2**32)."""
+    dev = _device.resolve(device)
+    return from_words(torch.tensor([0, int(seed) & M32],
+                                   dtype=torch.int64)).to(dev)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`jax.random.split`: key `[..., 2]` -> `[..., num, 2]`."""
+    return _threefry(key, int(num), 0, MODE_KEYS)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """`jax.random.fold_in` with a host integer `data`."""
+    return _threefry(key, 1, int(data) & M32, MODE_KEYS)[..., 0, :]
+
+
+def _draw(key, shape, mode):
+    shape = tuple(shape)
+    n = math.prod(shape)
+    out = _threefry(key, n, 0, mode)
+    return out.reshape(*key.shape[:-1], *shape)
+
+
+def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """`jax.random.bits` (uint32) as int32 bit patterns."""
+    return _draw(key, shape, MODE_BITS)
+
+
+def uniform(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """`jax.random.uniform` on [0, 1), float32."""
+    return _draw(key, shape, MODE_UNIFORM)
+
+
+def exponential(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """`jax.random.exponential`, float32."""
+    return _draw(key, shape, MODE_EXPONENTIAL)
+
+
+# -- numpy crossing ------------------------------------------------------------
+
+def to_numpy_words(key: torch.Tensor) -> np.ndarray:
+    """Key words as numpy uint32 (jax's key data layout)."""
+    return key.detach().cpu().numpy().view(np.uint32)
+
+
+def from_numpy_words(arr, device=None) -> torch.Tensor:
+    """numpy uint32 key words -> an int32 key tensor on `device`."""
+    a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint32)).view(np.int32)
+    return torch.from_numpy(a.copy()).to(_device.resolve(device))

@@ -1,0 +1,134 @@
+"""The port stands alone: no module of `cpr_tpu_torch`, and not
+`chip_smoke.py`, imports jax, flax or cpr_tpu; gymnasium is imported only
+under `cpr_tpu_torch/gym/`; the package imports with those modules
+blocked; entry points refuse to run without a device; the kernel
+wrappers refuse CPU tensors."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from cpr_tpu_torch import _device, kernels
+from cpr_tpu_torch import random as rnd
+from cpr_tpu_torch.envs.nakamoto import NakamotoSSZ
+from cpr_tpu_torch.params import make_params
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "cpr_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "cpr_tpu")
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_forbidden_imports(path):
+    for root in imported_roots(path):
+        assert root not in FORBIDDEN, f"{path} imports {root}"
+        if root == "gymnasium":
+            assert path.parent == PKG / "gym", f"{path} imports gymnasium"
+
+
+BLOCKED_IMPORT = """
+import sys
+for name in ("jax", "jaxlib", "flax", "gymnasium", "cpr_tpu"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import importlib
+for mod in ("cpr_tpu_torch", "cpr_tpu_torch.envs", "cpr_tpu_torch.envs.nakamoto",
+            "cpr_tpu_torch.kernels", "cpr_tpu_torch.convert",
+            "cpr_tpu_torch.random", "chip_smoke"):
+    importlib.import_module(mod)
+from cpr_tpu_torch import envs, random
+from cpr_tpu_torch.params import make_params
+env = envs.get("nakamoto")
+stats = env.make_episode_stats_fn(make_params(alpha=0.35, gamma=0.5,
+                                              max_steps=8),
+                                  "sapirshtein-2016-sm1", 20)(
+    random.split(random.PRNGKey(0, device="cpu"), 4))
+assert int(stats["n_episodes"].sum()) == 8
+try:
+    import cpr_tpu_torch.gym
+except ImportError:
+    pass
+else:
+    raise SystemExit("cpr_tpu_torch.gym imported without gymnasium")
+print("isolated-ok")
+"""
+
+
+def test_imports_with_jax_flax_gymnasium_blocked():
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "isolated-ok" in out.stdout
+
+
+def test_chip_smoke_refuses_without_card_or_package(tmp_path):
+    # alone in a directory (and, here, without a CUDA device) it must fail
+    # and print no result line
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_entry_points_need_a_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _device.resolve()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rnd.PRNGKey(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rnd.from_numpy_words(np.zeros((1, 2), np.uint32))
+    assert rnd.PRNGKey(0, device="cpu").device.type == "cpu"
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    env = NakamotoSSZ()
+    params = make_params(alpha=0.35, gamma=0.5, max_steps=8)
+    keys = rnd.split(rnd.PRNGKey(0, device="cpu"), 4)
+    state, obs = env.reset_lanes(keys, params)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.threefry(keys, 2, 0, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stream(state, obs, keys, 1, 4, params, 3, True, True)
+    mask = torch.ones(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.step_lanes(state, obs, torch.zeros(4, dtype=torch.int32),
+                           mask, state, obs, mask, params, True, True)
+    assert kernels.launches == before
+
+
+def test_build_is_cached_by_source_hash(tmp_path, monkeypatch):
+    monkeypatch.setenv("CPR_TORCH_BUILD_DIR", str(tmp_path))
+    paths = kernels.library_paths()
+    assert set(paths) == set(kernels.SOURCES)
+    tags = {p.name.rsplit("-", 1)[1] for p in paths.values()}
+    assert len(tags) == 1 and all(p.parent == tmp_path
+                                  for p in paths.values())
+    for p in paths.values():  # present libraries are not rebuilt
+        p.write_bytes(b"")
+    assert kernels.build() == paths
