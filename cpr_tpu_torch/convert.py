@@ -1,13 +1,17 @@
 """Carrying state between the JAX package and the port.
 
 The system has no weights: what crosses over is the parameter record,
-PRNG keys and the per-lane Nakamoto `State`. Everything passes through
-numpy with the reference's field names; keys are uint32 word pairs
-there (jax's key data) and int32 bit patterns here.
+PRNG keys, the per-lane Nakamoto `State` and compiled MDP tables.
+Everything passes through numpy with the reference's field names; keys
+are uint32 word pairs there (jax's key data) and int32 bit patterns
+here.
 
     params_from_numpy({f: np.asarray(getattr(jax_params, f)) ...})
     state_from_numpy({f: np.asarray(getattr(jax_state, f)) ...}, device)
     state_to_numpy(state) -> {field: np.ndarray}
+    tensor_mdp(tm.n_states, tm.n_actions, *(np.asarray(getattr(tm, f))
+               for f in ("start", "src", "act", "dst", "prob", "reward",
+                         "progress")), device=device)
 """
 
 from __future__ import annotations
@@ -57,3 +61,22 @@ def state_to_numpy(state: State) -> dict:
     return {f: (rnd.to_numpy_words(getattr(state, f)) if f == "key"
                 else getattr(state, f).detach().cpu().numpy())
             for f in STATE_FIELDS}
+
+
+def tensor_mdp(n_states: int, n_actions: int, start, src, act, dst, prob,
+               reward, progress, *, device=None):
+    """The port's TensorMDP over the arrays of a reference TensorMDP (as
+    numpy): ids as int32, the float columns and `start` in `prob`'s
+    float type, so both packages solve the very same table."""
+    from cpr_tpu_torch.mdp.explicit import TensorMDP
+
+    dev = _device.resolve(device)
+    fdt = np.asarray(prob).dtype
+
+    def put(x, dt):
+        return torch.from_numpy(np.array(x, dt)).to(dev)
+
+    return TensorMDP.from_columns(
+        n_states, n_actions, put(start, fdt), put(src, np.int32),
+        put(act, np.int32), put(dst, np.int32), put(prob, fdt),
+        put(reward, fdt), put(progress, fdt))

@@ -31,12 +31,12 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("random.cu", "nakamoto_stream.cu")
+SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel since the last reset_launches()
-launches = {"K1": 0, "K2": 0, "K3": 0}
+launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -134,6 +134,20 @@ class _TrajPtrs(ctypes.Structure):
     _fields_ = [(f, _p) for f in ("obs", "action", "reward", "done", "info")]
 
 
+class _SweepTable(ctypes.Structure):
+    _fields_ = [*((f, _p) for f in (
+        "state_seg", "seg_ptr", "seg_act", "seg_valid", "dst", "prob",
+        "reward", "progress")),
+        ("n_states", _i64), ("n_actions", ctypes.c_int32),
+        ("f64", ctypes.c_int32)]
+
+
+class _LoopCtl(ctypes.Structure):
+    _fields_ = [("ctl", _p), ("delta", _p), ("resid", _p),
+                ("resid_len", ctypes.c_int32), ("can_stop", ctypes.c_int32),
+                ("stop_delta", ctypes.c_double), ("max_iter", _i64)]
+
+
 def _load() -> dict[str, ctypes.CDLL]:
     with _lock:
         if _libs:
@@ -156,7 +170,17 @@ def _load() -> dict[str, ctypes.CDLL]:
         nak.cpr_k3_step_lanes.restype = _int
         nak.cpr_k23_error_string.argtypes = [_int]
         nak.cpr_k23_error_string.restype = ctypes.c_char_p
-        _libs.update(random=rnd, nakamoto=nak)
+        mdp = ctypes.CDLL(str(paths["mdp_sweep.cu"]))
+        tp, cp = ctypes.POINTER(_SweepTable), ctypes.POINTER(_LoopCtl)
+        mdp.cpr_k4_vi_sweeps.argtypes = [tp, cp, ctypes.c_double, _p, _p, _p,
+                                         _p, _p, _i64, _int, _p]
+        mdp.cpr_k4_vi_sweeps.restype = _int
+        mdp.cpr_k5_pe_sweeps.argtypes = [tp, cp, _p, ctypes.c_double, _p, _p,
+                                         _p, _p, _i64, _int, _p]
+        mdp.cpr_k5_pe_sweeps.restype = _int
+        mdp.cpr_k45_error_string.argtypes = [_int]
+        mdp.cpr_k45_error_string.restype = ctypes.c_char_p
+        _libs.update(random=rnd, nakamoto=nak, mdp=mdp)
         return _libs
 
 
@@ -320,3 +344,102 @@ def step_lanes(state, obs, actions, admit_mask, fresh_state, fresh_obs,
     _check(rc, lib, "cpr_k23_error_string", "K3 step_lanes")
     launches["K3"] += 1
     return out_obs, reward, done, info
+
+
+# -- K4 / K5 ------------------------------------------------------------------
+
+def _sweep_table(table, what: str) -> _SweepTable:
+    """Check a `cpr_tpu_torch.mdp.explicit.TensorMDP` (rows sorted by
+    segment, with the segment index) for the sweep kernels and point a
+    `_SweepTable` at it."""
+    L = table
+    dev = L.prob.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} takes CUDA tensors")
+    if L.prob.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{what}: dtype {L.prob.dtype}, expected "
+                         "float32 or float64")
+    S, T, n_seg = L.n_states, L.prob.shape[0], L.seg_act.shape[0]
+    i32 = torch.int32
+    _want(L.state_seg, "state_seg", i32, (S + 1,), dev)
+    _want(L.seg_ptr, "seg_ptr", i32, (n_seg + 1,), dev)
+    _want(L.seg_act, "seg_act", i32, (n_seg,), dev)
+    _want(L.seg_valid, "seg_valid", torch.uint8, (n_seg,), dev, align=1)
+    _want(L.dst, "dst", i32, (T,), dev)
+    for f in ("prob", "reward", "progress"):
+        _want(getattr(L, f), f, L.prob.dtype, (T,), dev)
+    return _SweepTable(
+        L.state_seg.data_ptr(), L.seg_ptr.data_ptr(), L.seg_act.data_ptr(),
+        L.seg_valid.data_ptr(), L.dst.data_ptr(), L.prob.data_ptr(),
+        L.reward.data_ptr(), L.progress.data_ptr(), S, L.n_actions,
+        int(L.prob.dtype == torch.float64))
+
+
+def _loop_ctl(ctl, delta, resid, resid_len, can_stop, stop_delta, max_iter,
+              dtype, dev) -> _LoopCtl:
+    _want(ctl, "ctl", torch.int64, (4,), dev, align=8)
+    _want(delta, "delta", dtype, (1,), dev)
+    rp = None
+    if resid_len > 0:
+        _want(resid, "resid", dtype, (resid.shape[0],), dev)
+        if resid.shape[0] < resid_len:
+            raise ValueError(f"resid: {resid.shape[0]} slots, "
+                             f"expected {resid_len}")
+        rp = resid.data_ptr()
+    return _LoopCtl(ctl.data_ptr(), delta.data_ptr(), rp, resid_len,
+                    int(can_stop), float(stop_delta), int(max_iter))
+
+
+def vi_sweeps(table, discount: float, value, prog, policy, ctl, delta,
+              resid, resid_len: int, first: int, count: int, *,
+              stop_delta: float, max_iter: int, can_stop: bool):
+    """K4: enqueue `count` Bellman sweeps over `table` (a TensorMDP on
+    the card). Global sweep g = first + i reads (value[g % 2],
+    prog[g % 2]) and writes the other buffer of each pair and `policy`
+    [S] int32. The loop state lives on the device: `ctl` int64 [4]
+    (max-delta bits, sweeps done, stop flag, blocks done; zero before
+    the first sweep), `delta` [1] the last sweep's max |V'-V|, and
+    `resid` the ring of the last `resid_len` deltas. With `can_stop`, a
+    sweep whose delta is <= stop_delta, or that reaches max_iter sweeps,
+    sets the stop flag, and the launches after it return at once."""
+    tb = _sweep_table(table, "K4")
+    dev, dt, S = table.prob.device, table.prob.dtype, table.n_states
+    for name, pair in (("value", value), ("prog", prog)):
+        for j, t in enumerate(pair):
+            _want(t, f"{name}[{j}]", dt, (S,), dev)
+    _want(policy, "policy", torch.int32, (S,), dev)
+    c = _loop_ctl(ctl, delta, resid, resid_len, can_stop, stop_delta,
+                  max_iter, dt, dev)
+    lib = _load()["mdp"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k4_vi_sweeps(
+            ctypes.byref(tb), ctypes.byref(c), float(discount),
+            value[0].data_ptr(), value[1].data_ptr(), prog[0].data_ptr(),
+            prog[1].data_ptr(), policy.data_ptr(), first, count,
+            _stream(dev))
+    _check(rc, lib, "cpr_k45_error_string", "K4 vi_sweep")
+    launches["K4"] += count
+
+
+def pe_sweeps(table, policy, discount: float, rew, prog, ctl, delta,
+              first: int, count: int, *, theta: float, max_iter: int):
+    """K5: enqueue `count` policy-evaluation sweeps of the fixed `policy`
+    [S] int32 (-1: no action), each summing only the state's on-policy
+    segment; buffers and loop state as in `vi_sweeps`, the stop rule
+    delta <= theta or max_iter sweeps."""
+    tb = _sweep_table(table, "K5")
+    dev, dt, S = table.prob.device, table.prob.dtype, table.n_states
+    _want(policy, "policy", torch.int32, (S,), dev)
+    for name, pair in (("rew", rew), ("prog", prog)):
+        for j, t in enumerate(pair):
+            _want(t, f"{name}[{j}]", dt, (S,), dev)
+    c = _loop_ctl(ctl, delta, None, 0, True, theta, max_iter, dt, dev)
+    lib = _load()["mdp"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k5_pe_sweeps(
+            ctypes.byref(tb), ctypes.byref(c), policy.data_ptr(),
+            float(discount), rew[0].data_ptr(), rew[1].data_ptr(),
+            prog[0].data_ptr(), prog[1].data_ptr(), first, count,
+            _stream(dev))
+    _check(rc, lib, "cpr_k45_error_string", "K5 pe_sweep")
+    launches["K5"] += count

@@ -132,3 +132,75 @@ def test_build_is_cached_by_source_hash(tmp_path, monkeypatch):
     for p in paths.values():  # present libraries are not rebuilt
         p.write_bytes(b"")
     assert kernels.build() == paths
+
+
+BLOCKED_MDP_IMPORT = """
+import sys
+for name in ("jax", "jaxlib", "flax", "gymnasium", "cpr_tpu"):
+    sys.modules[name] = None
+import importlib
+for mod in ("cpr_tpu_torch.telemetry", "cpr_tpu_torch.native",
+            "cpr_tpu_torch.mdp", "cpr_tpu_torch.mdp.explicit",
+            "cpr_tpu_torch.mdp.compiler", "cpr_tpu_torch.mdp.implicit",
+            "cpr_tpu_torch.mdp.models", "cpr_tpu_torch.mdp.generic",
+            "cpr_tpu_torch.mdp.generic.native", "cpr_tpu_torch.experiments",
+            "cpr_tpu_torch.experiments.measure_mdp"):
+    importlib.import_module(mod)
+from cpr_tpu_torch.mdp import Compiler, ptmdp
+from cpr_tpu_torch.mdp.models import Fc16BitcoinSM
+tm = ptmdp(Compiler(Fc16BitcoinSM(alpha=0.3, gamma=0.5,
+                                  maximum_fork_length=4)).mdp(),
+           horizon=10).tensor(device="cpu")
+vi = tm.value_iteration(stop_delta=1e-5)
+assert vi["vi_iter"] > 0 and (vi["vi_policy"] >= -1).all()
+print("mdp-isolated-ok")
+"""
+
+
+def test_mdp_modules_import_with_jax_and_cpr_tpu_blocked():
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", BLOCKED_MDP_IMPORT],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "mdp-isolated-ok" in out.stdout
+
+
+def _tiny_mdp():
+    from cpr_tpu_torch.mdp import Compiler
+    from cpr_tpu_torch.mdp.models import Fc16BitcoinSM
+    return Compiler(Fc16BitcoinSM(alpha=0.3, gamma=0.5,
+                                  maximum_fork_length=3)).mdp()
+
+
+def test_mdp_entry_points_need_a_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    from cpr_tpu_torch import convert
+    from cpr_tpu_torch.experiments import measure_rows, model_battery
+    mdp = _tiny_mdp()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mdp.tensor()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        measure_rows(model_battery(alphas=(0.3,), generic_cutoff=3, mfl=3))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.tensor_mdp(mdp.n_states, mdp.n_actions,
+                           np.ones(mdp.n_states), *mdp.arrays())
+    assert mdp.tensor(device="cpu").prob.device.type == "cpu"
+
+
+def test_mdp_kernel_wrappers_refuse_cpu_tensors():
+    from cpr_tpu_torch.mdp.explicit import _Ctl
+    tm = _tiny_mdp().tensor(device="cpu")
+    S = tm.n_states
+    c = _Ctl(torch.float32, torch.device("cpu"), 4)
+    v = [torch.zeros(S), torch.zeros(S)]
+    pol = torch.zeros(S, dtype=torch.int32)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.vi_sweeps(tm, 1.0, v, v, pol, c.ctl, c.delta, c.resid, 4, 0,
+                          1, stop_delta=0.0, max_iter=1, can_stop=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.pe_sweeps(tm, pol, 1.0, v, v, c.ctl, c.delta, 0, 1,
+                          theta=0.0, max_iter=1)
+    assert kernels.launches == before
