@@ -49,9 +49,31 @@ Phases, one line each; any failure raises and the exit code is not 0:
      length 20, native bitcoin/ghostdag at cutoff 7, alpha 0.25/0.33/
      0.4), its own launch counts (K4 only), every revenue at least
      alpha - 1e-4 (the honest floor);
- 10. K4 and K5 device times at the capstone's shapes, their plain twins'
+ 10. K7 (grid sweep) and K6 (RTDP walkers) against the committed JAX
+     fixture (tests/fixtures/torch_port_grid_rtdp_golden.npz): the FC'16
+     2 x 2 grid solve bit for bit, and each RTDP case (scan and graph
+     modes, discount, small buffer, residual stop, warm start) with the
+     same visits, buffer ids and steps and V/P within 1e-6;
+ 11. the grid path, its own launch counts (K7, and K4 for the solo
+     solves): the parametric GhostDAG cutoff-8 compile (run on the host
+     from the start, beside the phases before it), revalue parity with
+     the capstone's compile at (0.3, 0.5), the 4 x 3 (alpha, gamma) grid
+     solve (every point converged, the capstone point within 1e-5 of the
+     capstone's revenue, every revenue at least alpha - 1e-4, revenue
+     nondecreasing in alpha and gamma to GRID_MONOTONE_TOL, two corners
+     bit-identical to solo K4 solves), the cached grid solve at cutoff 7
+     (a miss, then a hit); then K7 against its twin for 64 sweeps;
+ 12. the RTDP path on the capstone table, its own launch counts (K6, and
+     K4 for the polish): rtdp_graph and the scan walkers, 20000 steps of
+     256 walkers, then the chunked solve warm-started from the graph
+     walk's table against a cold one (revenues within 1e-5); then K6
+     against its twin for 64 steps in both modes (visits, walker states,
+     buffer ids exactly, V/P within rtol 1e-6);
+ 13. K4 and K5 device times at the capstone's shapes, their plain twins'
      and the library yardstick (torch.sparse.mm, cuSPARSE CSR SpMV of
-     the same probability matrix with V: the expectation part only).
+     the same probability matrix with V: the expectation part only);
+     K7 per grid sweep of 12 points (yardstick: 12 SpMVs) and K6 per
+     launch of 256 steps, with their bounds.
 Then the kernels line (JSON: launches summed over the main paths, the
 error of the main-shape comparison, the times and the bound) and the
 last line {"ok": true, "device": {...}}.
@@ -142,6 +164,25 @@ MDP_CHUNK = 16  # examples/solve_ghostdag_mdp.py's chunk above 1M rows
 MDP_ACCEL_CAP = 20000
 MDP_TWIN_SWEEPS = 64
 BATTERY_ALPHAS = (0.25, 0.33, 0.4)
+GRID_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_grid_rtdp_golden.npz"
+# the order of each case's options in the fixture ("r_<name>_args")
+GOLDEN_ARGS = ("seed", "graph", "steps", "batch", "cap", "eps", "restart_p",
+               "discount", "stop_delta", "decay", "warm")
+# The grid path: the capstone's structure over a 4 x 3 (alpha, gamma) grid
+# (G = 12), the paper's figure axes; the two corners are held to solo K4
+# solves; the cached solve runs at cutoff 7. Where the optimum is honest
+# the revenue is flat in gamma up to the solve's error, so monotonicity is
+# held to GRID_MONOTONE_TOL.
+GRID_ALPHAS, GRID_GAMMAS = (0.25, 0.3, 0.35, 0.4), (0.25, 0.5, 0.75)
+GRID_CHUNK, GRID_CACHE_CUTOFF, GRID_MONOTONE_TOL = 64, 7, 1e-5
+GRID_CORNERS = ((0.25, 0.25), (0.4, 0.75))
+# The RTDP path on the capstone table: 256 walkers, a buffer of 1024.
+# rtdp_graph stops once its damped residual is <= stop_delta, and a
+# GhostDAG walk's first backups are all 0 (no reward before a block is
+# final), so at stop_delta 0 it ends after one step, in the JAX package
+# as in the port; RTDP_STOP < 0 runs the whole step budget.
+RTDP_SEED, RTDP_STEPS, RTDP_TIMED_STEPS, RTDP_STOP = 0, 20000, 256, -1.0
+RTDP_BATCH, RTDP_BUFFER, RTDP_EPS, RTDP_RESTART_P = 256, 1024, 0.5, 0.5
 
 
 def say(phase, **kw):
@@ -888,7 +929,7 @@ def phase_mdp_main(dev, report):
     say("mdp_vs_plain", sweeps=MDP_TWIN_SWEEPS,
         k4_max_abs_err=report["K4"]["max_abs_err"],
         k5_max_abs_err=report["K5"]["max_abs_err"], ok=True)
-    return counts, tm, pol
+    return counts, tm, pol, table, rev
 
 
 def phase_mdp_battery(dev):
@@ -984,6 +1025,404 @@ def phase_mdp_times(dev, report, tm, pol):
         for k in ("K4", "K5")})
 
 
+# -- grid VI (K7) and RTDP (K6) ----------------------------------------------
+
+
+def run_fixture_case(tm, gfx, name):
+    """One RTDP case of the grid/RTDP fixture on `tm`'s device (K6 on the
+    card): its options come from the fixture's "r_<name>_args"."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.mdp.explicit import _rtdp_walk
+    a = dict(zip(GOLDEN_ARGS, gfx[f"r_{name}_args"].tolist()))
+    graph = bool(a["graph"])
+    v0 = p0 = None
+    if a["warm"]:
+        vi = tm.value_iteration(stop_delta=1e-3)
+        v0, p0 = vi["vi_value"], vi["vi_progress"]
+    return graph, _rtdp_walk(
+        tm, rnd.PRNGKey(int(a["seed"]), device="cpu"), graph=graph,
+        max_steps=int(a["steps"]), batch=int(a["batch"]),
+        cap=int(a["cap"]) if graph else 0, eps=a["eps"],
+        restart_p=a["restart_p"], discount=a["discount"],
+        stop_delta=a["stop_delta"], decay=a["decay"], value0=v0, prog0=p0)
+
+
+def phase_grid_fixture(dev, gfx):
+    """K7 and K6 against the JAX fixture tests/fixtures/
+    torch_port_grid_rtdp_golden.npz: the grid solve bit for bit, each
+    RTDP case's visits, buffer ids and steps exactly and V/P within
+    1e-6."""
+    import hashlib
+
+    from cpr_tpu_torch.mdp import Compiler, ptmdp
+    from cpr_tpu_torch.mdp.grid import (compile_protocol,
+                                        grid_value_iteration, param_ptmdp)
+    from cpr_tpu_torch.mdp.models import Fc16BitcoinSM
+
+    def digest(*arrays):
+        h = hashlib.sha256()
+        for x in arrays:
+            h.update(np.ascontiguousarray(x).tobytes())
+        return np.frombuffer(h.digest(), np.uint8)
+
+    pm = param_ptmdp(compile_protocol("fc16", cutoff=6), horizon=30)
+    check(np.array_equal(digest(*pm.mdp.arrays(), pm.coef, pm.expo,
+                                pm.start_ids, pm.start_coef, pm.start_expo),
+                         gfx["g_digest"]),
+          "grid fixture: the port's parametric compile differs")
+    vi = grid_value_iteration(pm, (0.25, 0.35), (0.25, 0.75),
+                              stop_delta=MDP_STOP, chunk=64, device=dev)
+    for k, want in (("grid_value", "g_value"), ("grid_progress",
+                                                 "g_progress"),
+                    ("grid_policy", "g_policy"), ("grid_iter", "g_iter"),
+                    ("vi_residuals", "g_residuals"),
+                    ("grid_revenue", "g_revenue")):
+        check(np.array_equal(vi[k], gfx[want]),
+              f"K7 grid solve: {k} differs from JAX's")
+    check(vi["vi_iter"] == int(gfx["g_vi_iter"]), "K7: sweep count differs")
+    mdp = ptmdp(Compiler(Fc16BitcoinSM(alpha=0.3, gamma=0.5,
+                                       maximum_fork_length=6)).mdp(),
+                horizon=20)
+    check(np.array_equal(digest(*mdp.arrays()), gfx["r_digest"]),
+          "RTDP fixture: the port's compile differs")
+    tm = mdp.tensor(device=dev)
+    err, cases = 0.0, sorted(k[2:-5] for k in gfx if k.endswith("_args"))
+    for name in cases:
+        graph, r = run_fixture_case(tm, gfx, name)
+        pre = f"r_{name}_"
+        for k in ("V", "P"):
+            d = float(np.abs(r[k].cpu().numpy() - gfx[pre + k]).max())
+            check(d <= 1e-6, f"K6 {name}: {k} {d} from JAX's")
+            err = max(err, d)
+        if graph:
+            for k in ("visits", "buf_s"):
+                check(np.array_equal(r[k].cpu().numpy(), gfx[pre + k]),
+                      f"K6 {name}: {k} differs from JAX's")
+            check(r["t"] == int(gfx[pre + "t"]), f"K6 {name}: steps differ")
+    say("grid_fixture", grid_points=len(vi["grid_points"]),
+        grid_sweeps=vi["vi_iter"], rtdp_cases=len(cases),
+        rtdp_max_abs_err=err, ok=True)
+
+
+def q_plane(tm, prob, discount, value):
+    """The plain twin's qv [S, A] plane for one input and column."""
+    S, A = tm.n_states, tm.n_actions
+    seg = tm.src.to(torch.int64) * A + tm.act
+    z = torch.zeros(S * A, dtype=prob.dtype, device=tm.device)
+    qv = z.index_add(0, seg, prob * (tm.reward + discount * value[tm.dst]))
+    return qv.reshape(S, A)
+
+
+def hold_k7_to_plain(tm, probs, sweeps, rtol=1e-5):
+    """`sweeps` K7 sweeps of every point from zero, each also run by the
+    plain twin from the kernel's input: V everywhere within rtol, P and
+    the policy where the twin's Q-gap exceeds it (as hold_k4_to_plain)."""
+    from cpr_tpu_torch.mdp import explicit as E
+    G, S = probs.shape[0], tm.n_states
+    step = E._grid_chunk_cuda(tm, probs, 1.0)
+    twin = E._grid_chunk_plain(tm, probs, 1.0)
+    masks = [E._valid_actions(tm.src, tm.act, probs[g], S, tm.n_actions)
+             for g in range(G)]
+    z = torch.zeros((G, S), dtype=probs.dtype, device=tm.device)
+    carry = (z, z.clone(), torch.full((G, S), -1, dtype=torch.int32,
+                                      device=tm.device))
+    frozen = torch.zeros(G, dtype=torch.bool, device=tm.device)
+    err = 0.0
+    for j in range(sweeps):
+        (kv, kp, kpol), _ = step(carry, frozen, 1)
+        (pv, pp, ppol), _ = twin(carry, frozen, 1)
+        dv = (kv - pv).abs()
+        check(bool((dv <= rtol * (1 + pv.abs())).all()),
+              f"K7 sweep {j}: value beyond rtol {rtol} of its plain twin")
+        for g in range(G):
+            sure = sure_states(masks[g][0],
+                               q_plane(tm, probs[g], 1.0, carry[0][g]), rtol)
+            dp = (kp[g] - pp[g]).abs()[sure]
+            check(bool((dp <= rtol * (1 + pp[g][sure].abs())).all()),
+                  f"K7 sweep {j} point {g}: progress beyond rtol {rtol}")
+            check(torch.equal(kpol[g][sure], ppol[g][sure]),
+                  f"K7 sweep {j} point {g}: policy differs from its twin")
+            if dp.numel():
+                err = max(err, float(dp.max()))
+        err = max(err, float(dv.max()))
+        carry = (kv, kp, kpol)
+    return err
+
+
+def phase_grid(dev, report, pm_future, table, capstone_rev):
+    """The grid path at the capstone's size: the parametric cutoff-8
+    compile (started beside the other phases), its parity with the
+    capstone's own compile, the 12-point grid solve on K7 and its
+    checks, the corners against solo K4 solves, the cached grid solve at
+    cutoff 7 (a miss, then a hit); then K7 against its plain twin."""
+    import os
+    import tempfile
+
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.mdp.explicit import MDP, vi_chunked
+    from cpr_tpu_torch.mdp.grid import (check_revalue_parity,
+                                        grid_value_iteration, param_ptmdp,
+                                        solve_grid_cached)
+
+    pm0, compile_s = pm_future.result()
+    kernels.reset_launches()
+    check(check_revalue_parity(pm0, lambda a, g: table,
+                               [(MDP_ALPHA, MDP_GAMMA)]) == 1,
+          "revalue parity")
+    pm = param_ptmdp(pm0, horizon=MDP_HORIZON)
+    t0 = time.perf_counter()
+    vi = grid_value_iteration(pm, GRID_ALPHAS, GRID_GAMMAS,
+                              stop_delta=MDP_STOP, chunk=GRID_CHUNK,
+                              protocol="ghostdag", cutoff=MDP_CUTOFF,
+                              device=dev)
+    grid_s = time.perf_counter() - t0
+    rev = vi["grid_revenue"].reshape(len(GRID_ALPHAS), len(GRID_GAMMAS))
+    check(bool(vi["grid_converged"].all()), "a grid point did not converge")
+    check(np.isfinite(vi["grid_value"]).all(), "non-finite grid values")
+    at = (GRID_ALPHAS.index(MDP_ALPHA), GRID_GAMMAS.index(MDP_GAMMA))
+    check(abs(rev[at] - capstone_rev) <= 1e-5,
+          f"grid revenue {rev[at]} at the capstone point vs {capstone_rev}")
+    for i, a in enumerate(GRID_ALPHAS):
+        check(bool((rev[i] >= a - 1e-4).all()),
+              f"grid revenue below alpha {a}: {rev[i]}")
+    # nondecreasing in alpha and in gamma, to GRID_MONOTONE_TOL: where
+    # the optimum is honest the revenue is flat up to the solve's error
+    check(bool((np.diff(rev, axis=0) >= -GRID_MONOTONE_TOL).all()
+               and (np.diff(rev, axis=1) >= -GRID_MONOTONE_TOL).all()),
+          f"grid revenue not monotone: {rev.tolist()}")
+    src, act, dst, _, reward, progress = pm.mdp.arrays()
+    corners = {}
+    for a, g in GRID_CORNERS:
+        gi = vi["grid_points"].index((a, g))
+        tm = MDP(n_states=pm.n_states, n_actions=pm.mdp.n_actions,
+                 start=dict(pm.mdp.start), src=src, act=act, dst=dst,
+                 prob=pm.revalue(a, g), reward=reward,
+                 progress=progress).tensor(device=dev)
+        v, p, pol, _, it, _ = vi_chunked(tm, 1.0, tm._cast(MDP_STOP),
+                                         1 << 30, chunk=GRID_CHUNK)
+        check(np.array_equal(v.cpu().numpy(), vi["grid_value"][gi])
+              and np.array_equal(p.cpu().numpy(), vi["grid_progress"][gi])
+              and np.array_equal(pol.cpu().numpy(), vi["grid_policy"][gi])
+              and it == int(vi["grid_iter"][gi]),
+              f"grid point {(a, g)} differs from its solo K4 solve")
+        corners[f"{a},{g}"] = it
+        del tm
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["CPR_MDP_CACHE"] = cache
+        kw = dict(cutoff=GRID_CACHE_CUTOFF, alphas=GRID_ALPHAS,
+                  gammas=GRID_GAMMAS, horizon=MDP_HORIZON,
+                  stop_delta=MDP_STOP, k=2, native=True, device=dev)
+        t0 = time.perf_counter()
+        miss = solve_grid_cached("ghostdag", **kw)
+        miss_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hit = solve_grid_cached("ghostdag", **kw)
+        hit_s = time.perf_counter() - t0
+        del os.environ["CPR_MDP_CACHE"]
+    check(not miss["cached"] and hit["cached"]
+          and hit["integrity"] == "verified"
+          and hit["revenue"] == miss["revenue"]
+          and all(miss["converged"]), "cached grid solve: miss then hit")
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K4", "K7"), "grid")
+    say("grid", cutoff=MDP_CUTOFF, points=len(vi["grid_points"]),
+        states=pm.n_states, rows=pm.n_transitions,
+        param_compile_s=compile_s, grid_solve_s=grid_s,
+        sweeps=vi["vi_iter"], conv_iter=json.dumps(
+            [int(i) for i in vi["grid_iter"]]),
+        revenue=json.dumps(rev.round(8).tolist()),
+        corner_sweeps=json.dumps(corners),
+        cache_cutoff=GRID_CACHE_CUTOFF, cache_miss_s=miss_s,
+        cache_hit_s=hit_s, launches=json.dumps(counts))
+
+    T = int(pm.mdp.n_transitions)
+    tm = pm.mdp.tensor(device=dev)
+    probs = tm.sort_rows(torch.from_numpy(np.stack(
+        [pm.revalue(a, g) for a, g in vi["grid_points"]])).to(
+            torch.float32))
+    report["K7"]["max_abs_err"] = hold_k7_to_plain(tm, probs,
+                                                   MDP_TWIN_SWEEPS)
+    say("grid_vs_plain", sweeps=MDP_TWIN_SWEEPS, points=probs.shape[0],
+        rows=T, k7_max_abs_err=report["K7"]["max_abs_err"], ok=True)
+    return counts, tm, probs
+
+
+def hold_k6_to_plain(tm, key, steps, graph, rtol=1e-6):
+    """`steps` K6 steps at the main shapes against the plain twin from
+    the same key on the card: visits, walker states and buffer ids
+    exactly, V/P within rtol relative."""
+    from cpr_tpu_torch.mdp import explicit as E
+    args = dict(graph=graph, max_steps=steps, batch=RTDP_BATCH,
+                cap=RTDP_BUFFER if graph else 0, eps=RTDP_EPS,
+                restart_p=RTDP_RESTART_P, discount=1.0,
+                stop_delta=RTDP_STOP, decay=0.95)
+    got = E._rtdp_walk(tm, key, **args)
+    z = torch.zeros(tm.n_states, dtype=torch.float32, device=tm.device)
+    want = E._rtdp_plain(tm, key.reshape(2).cpu(), z, z.clone(),
+                         E.start_cdf(tm), **args)
+    what = f"K6 {'graph' if graph else 'scan'}"
+    for k in ("visits", "s") + (("buf_s",) if graph else ()):
+        check(torch.equal(got[k], want[k]),
+              f"{what}: {k} differs from its plain twin")
+    err = 0.0
+    for k in ("V", "P"):
+        d = (got[k] - want[k]).abs()
+        check(bool((d <= rtol * (1 + want[k].abs())).all()),
+              f"{what}: {k} beyond rtol {rtol} of its plain twin")
+        err = max(err, float(d.max()))
+    return err
+
+
+def phase_rtdp(dev, report, tm, capstone_rev):
+    """The RTDP path on the capstone table: rtdp_graph and the scan
+    walkers (K6), then the chunked solve warm-started from the graph
+    walk's table (K4) against a cold one; then K6 against its twin."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.mdp.explicit import make_vi_chunk, run_chunk_driver
+    from cpr_tpu_torch.mdp.rtdp_graph import rtdp_graph
+
+    def revenue(v, p):
+        return tm.start_value(v) / tm.start_value(p)
+
+    kernels.reset_launches()
+    key = rnd.PRNGKey(RTDP_SEED, device="cpu")  # K6 reads its words
+    t0 = time.perf_counter()
+    g = rtdp_graph(tm, key, max_steps=RTDP_STEPS, batch=RTDP_BATCH,
+                   buffer=RTDP_BUFFER, eps=RTDP_EPS,
+                   restart_p=RTDP_RESTART_P, stop_delta=RTDP_STOP)
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc = tm.rtdp(rnd.fold_in(key, 1), steps=RTDP_STEPS, batch=RTDP_BATCH,
+                 eps=RTDP_EPS)
+    scan_s = time.perf_counter() - t0
+    for r in (g, sc):
+        check(np.isfinite(r["rtdp_value"]).all()
+              and np.isfinite(r["rtdp_progress"]).all(),
+              "non-finite RTDP values")
+    check(g["rtdp_steps"] == RTDP_STEPS
+          and int(g["rtdp_visits"].sum()) == RTDP_STEPS * RTDP_BATCH,
+          "rtdp_graph: steps or visits")
+    step = make_vi_chunk(tm, 1.0)
+    stop = tm._cast(MDP_STOP)
+    warm = run_chunk_driver(step, tm.n_states, torch.float32, stop, 1 << 30,
+                            chunk=GRID_CHUNK, value0=g["rtdp_value"],
+                            prog0=g["rtdp_progress"], device=dev)
+    cold = run_chunk_driver(step, tm.n_states, torch.float32, stop, 1 << 30,
+                            chunk=GRID_CHUNK, device=dev)
+    rev_warm, rev_cold = revenue(warm[0], warm[1]), revenue(cold[0], cold[1])
+    check(warm[3] <= stop and cold[3] <= stop, "a polish did not converge")
+    check(abs(rev_warm - rev_cold) <= 1e-5 and
+          abs(rev_cold - capstone_rev) <= 1e-5,
+          f"warm polish revenue {rev_warm}, cold {rev_cold}")
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K4", "K6"), "rtdp")
+    say("rtdp", steps=RTDP_STEPS, batch=RTDP_BATCH, buffer=RTDP_BUFFER,
+        eps=RTDP_EPS, graph_revenue=revenue(g["rtdp_value"],
+                                            g["rtdp_progress"]),
+        scan_revenue=revenue(sc["rtdp_value"], sc["rtdp_progress"]),
+        visited=int((g["rtdp_visits"] > 0).sum()), states=tm.n_states,
+        graph_s=graph_s, graph_ms_per_step=graph_s / RTDP_STEPS * 1e3,
+        scan_s=scan_s, scan_ms_per_step=scan_s / RTDP_STEPS * 1e3,
+        warm_sweeps=warm[4], cold_sweeps=cold[4], revenue_warm=rev_warm,
+        revenue_cold=rev_cold, launches=json.dumps(counts))
+    report["K6"]["max_abs_err"] = max(
+        hold_k6_to_plain(tm, key, MDP_TWIN_SWEEPS, True),
+        hold_k6_to_plain(tm, key, MDP_TWIN_SWEEPS, False))
+    say("rtdp_vs_plain", steps=MDP_TWIN_SWEEPS,
+        k6_max_abs_err=report["K6"]["max_abs_err"], ok=True)
+    return counts
+
+
+def phase_grid_rtdp_times(dev, report, tm, probs):
+    """K7 device time per grid sweep at G points, K6 per launch of
+    RTDP_TIMED_STEPS steps (and per step), their twins', K7's library
+    yardstick (G SpMVs) and both bounds."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.mdp import explicit as E
+    G, S, T = probs.shape[0], tm.n_states, int(tm.prob.shape[0])
+    n_seg = tm.n_segments
+    valid = E.grid_valid_segments(tm, probs)
+    live = torch.arange(G, dtype=torch.int32, device=dev)
+    v = [torch.rand((G, S), device=dev), torch.empty((G, S), device=dev)]
+    p = [torch.rand((G, S), device=dev), torch.empty((G, S), device=dev)]
+    pol = torch.empty((G, S), dtype=torch.int32, device=dev)
+    dbits = torch.zeros((G, 1), dtype=torch.int64, device=dev)
+    k7 = report["K7"]
+    k7["ms"] = device_ms(lambda: kernels.grid_vi_sweeps(
+        tm, probs, valid, live, 1.0, v, p, pol, dbits, 1), 20,
+        "grid_sweep_kernel")
+    twin = E._grid_chunk_plain(tm, probs, 1.0)
+    frozen = torch.zeros(G, dtype=torch.bool, device=dev)
+    k7["plain_ms"] = event_ms(lambda: twin((v[0], p[0], pol), frozen, 1), 3)
+    seg = tm.src.to(torch.int64) * tm.n_actions + tm.act
+    base = csr_yardstick(tm, n_rows=S * tm.n_actions, row_of=seg)
+    spmvs = [torch.sparse_csr_tensor(
+        base.crow_indices(), base.col_indices(), probs[g],
+        size=base.shape, check_invariants=False) for g in range(G)]
+    k7["library_ms"] = event_ms(
+        lambda: [m @ v[0][g] for g, m in enumerate(spmvs)], 5)
+    # the shared columns (dst, reward, progress) and the segment index
+    # once; each point's probability column and validity; each point's
+    # V and P read, V', P' and the policy written
+    k7_bytes = (3 * 4 * T + 4 * (S + 1) + 8 * (n_seg + 1)
+                + G * (4 * T + n_seg) + G * S * (8 + 8 + 4) + 4 * G)
+    k7["bound_ms"], k7["bound_by"] = bound_ms(k7_bytes, 8 * T * G)
+    per_point = 12 * T + 4 * (S + 1) + 8 * (n_seg + 1) + 4 * T + n_seg \
+        + S * 20
+    k7["per_point_reread_bound_ms"] = bound_ms(G * per_point, 0)[0]
+
+    key = rnd.PRNGKey(RTDP_SEED + 1, device="cpu")
+    args = dict(graph=True, max_steps=RTDP_TIMED_STEPS, batch=RTDP_BATCH,
+                cap=RTDP_BUFFER, eps=RTDP_EPS, restart_p=RTDP_RESTART_P,
+                discount=1.0, stop_delta=RTDP_STOP, decay=0.95)
+    k6 = report["K6"]
+    k6["ms"] = device_ms(lambda: E._rtdp_walk(tm, key, **args), 3,
+                         "rtdp_kernel")
+    k6["ms_per_step"] = k6["ms"] / RTDP_TIMED_STEPS
+    z = torch.zeros(S, device=dev)
+    cdf = E.start_cdf(tm)
+    k6["plain_ms"] = event_ms(lambda: E._rtdp_plain(
+        tm, key.reshape(2), z.clone(), z.clone(), cdf, **args), 1)
+    k6["library_ms"] = None  # no single PyTorch call computes it
+    # this run's data: each visited state's segment index and rows (dst,
+    # prob, reward, progress, and V/P at dst) read once, its V, P and
+    # visit count written once; the threefry work is each step's key
+    # split and, per visit, one draw per valid action, K successor draws
+    # and two uniforms (restart draws not counted)
+    r = E._rtdp_walk(tm, key, **args)
+    visits = r["visits"].to(torch.int64)
+    nseg = (tm.state_seg[1:] - tm.state_seg[:-1]).to(torch.int64)
+    seg_rows = (tm.seg_ptr[1:] - tm.seg_ptr[:-1]).to(torch.int64)
+    seg_state = torch.repeat_interleave(torch.arange(S, device=dev), nseg)
+    rows = torch.zeros(S, dtype=torch.int64, device=dev).index_add_(
+        0, seg_state, seg_rows)
+    nvalid = torch.zeros(S, dtype=torch.int64, device=dev).index_add_(
+        0, seg_state, tm.seg_valid.to(torch.int64))
+    k6_bytes = int(((visits > 0) * (8 + 9 * nseg + 24 * rows + 12)).sum())
+    K = tm.max_segment()
+    k6_ops = THREEFRY_OPS * (7 * RTDP_TIMED_STEPS
+                             + int((visits * (nvalid + K + 2)).sum()))
+    k6["bound_ms"], k6["bound_by"] = bound_ms(k6_bytes, k6_ops)
+    say("mdp_times", rows=T, points=G, rtdp_steps=RTDP_TIMED_STEPS,
+        **{k: json.dumps({f: report[k].get(f) for f in (
+            "ms", "ms_per_step", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "per_point_reread_bound_ms")})
+           for k in ("K6", "K7")})
+
+
+def parametric_capstone():
+    """The capstone's structure, compiled once at the probe point with
+    its exponent columns; returns (ParamMDP, host seconds)."""
+    from cpr_tpu_torch.mdp.grid import parametric_compile_native
+    t0 = time.perf_counter()
+    pm = parametric_compile_native("ghostdag", k=2,
+                                   collect_garbage="simple",
+                                   dag_size_cutoff=MDP_CUTOFF)
+    return pm, time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1012,11 +1451,17 @@ def main() -> int:
         host_lib = gxx.result()
     say("build", seconds=round(time.perf_counter() - t0, 2),
         libs=",".join(p.name for p in (*paths.values(), host_lib)))
+    # the grid path's parametric cutoff-8 compile runs on the host (ctypes
+    # releases the GIL) while the card works through the phases before it
+    compiler = ThreadPoolExecutor(1)
+    pm_future = compiler.submit(parametric_capstone)
 
     with np.load(FIXTURE) as f:
         fx = {k: f[k] for k in f.files}
     with np.load(MDP_FIXTURE) as f:
         mfx = {k: f[k] for k in f.files}
+    with np.load(GRID_FIXTURE) as f:
+        gfx = {k: f[k] for k in f.files}
     csrc = "cpr_tpu_torch/csrc"
     report = {
         "K1": dict(name="K1 threefry2x32", route="cuda",
@@ -1034,6 +1479,12 @@ def main() -> int:
         "K5": dict(name="K5 policy evaluation sweep", route="cuda",
                    source=f"{csrc}/mdp_sweep.cu",
                    replaces="cpr_tpu/mdp/explicit.py:862"),
+        "K6": dict(name="K6 RTDP walkers", route="cuda",
+                   source=f"{csrc}/rtdp.cu",
+                   replaces="cpr_tpu/mdp/rtdp_graph.py:51"),
+        "K7": dict(name="K7 grid Bellman sweep", route="cuda",
+                   source=f"{csrc}/mdp_sweep.cu",
+                   replaces="cpr_tpu/mdp/explicit.py:715"),
     }
     phase_k1(dev, fx, report)
     phase_k3(dev, fx)
@@ -1042,12 +1493,21 @@ def main() -> int:
     stream_counts, main_episodes = phase_stream(dev, report)
     gym_counts = phase_gym(dev, report)
     phase_mdp_fixture(dev, mfx)
-    mdp_counts, table, policy = phase_mdp_main(dev, report)
+    phase_grid_fixture(dev, gfx)
+    mdp_counts, table, policy, compiled, capstone_rev = phase_mdp_main(
+        dev, report)
     phase_mdp_battery(dev)
+    grid_counts, grid_table, probs = phase_grid(dev, report, pm_future,
+                                                compiled, capstone_rev)
+    compiler.shutdown()
+    rtdp_counts = phase_rtdp(dev, report, table, capstone_rev)
     for k, r in report.items():
-        r["launches"] = stream_counts[k] + gym_counts[k] + mdp_counts[k]
+        r["launches"] = sum(c[k] for c in (stream_counts, gym_counts,
+                                           mdp_counts, grid_counts,
+                                           rtdp_counts))
     phase_times(dev, report, main_episodes)
     phase_mdp_times(dev, report, table, policy)
+    phase_grid_rtdp_times(dev, report, grid_table, probs)
     for k, v in report.items():
         check(v["ms"] >= v["bound_ms"],
               f"{k} measured {v['ms']} ms, below its bound of "

@@ -1,5 +1,6 @@
-// Kernels K4 (one Bellman sweep of value iteration) and K5 (one sweep of
-// policy evaluation) over an explicit MDP's transition rows.
+// Kernels K4 (one Bellman sweep of value iteration), K5 (one sweep of
+// policy evaluation) and K7 (K4 over a grid of probability columns) over
+// an explicit MDP's transition rows.
 //
 // Replaces:
 //   K4: cpr_tpu/mdp/explicit.py:340-380 `make_vi_sweep` (two
@@ -7,15 +8,15 @@
 //       value delta, as driven by `vi_while_loop` (:391-428) and the
 //       chunk scan of `make_vi_chunk` (:483-511);
 //   K5: cpr_tpu/mdp/explicit.py:862-880 `_pe_loop` (segment sums over
-//       src of the on-policy rows).
+//       src of the on-policy rows);
+//   K7: cpr_tpu/mdp/explicit.py:715-753 `make_grid_vi_chunk` (the K4
+//       sweep vmapped over a [G] grid of probability columns, frozen
+//       points passed through), as cpr_tpu/parallel/grid.py:32
+//       `make_grid_chunk_step` runs it.
 // Plain twins: cpr_tpu_torch/mdp/explicit.py `make_vi_sweep`,
-// `_pe_sweep`.
+// `_pe_sweep`, `_grid_chunk_plain`.
 //
-// Layout (cpr_tpu_torch/mdp/explicit.py `TensorMDP.from_columns`, built
-// once per table): rows sorted stably by segment src*A+act; state s owns the
-// non-empty segments state_seg[s]..state_seg[s+1], segment k the rows
-// seg_ptr[k]..seg_ptr[k+1], with its action seg_act[k] and whether it
-// has probability mass (seg_valid[k]).
+// Layout: the sorted table of mdp_table.cuh.
 //
 // Bound: memory. A sweep reads every row once (dst, prob, reward,
 // progress: 16 bytes in float32), the segment index and the [S] value
@@ -28,7 +29,10 @@
 // explicit round-to-nearest intrinsics so nvcc cannot contract it into
 // FMAs that the twin, computed op by op, does not form. The new value,
 // progress and policy go to buffers separate from the ones read (a
-// Jacobi sweep, as segment_sum computes it).
+// Jacobi sweep, as segment_sum computes it). K7 is K4 per grid point:
+// its bound counts the shared columns once and each point's probability
+// column, validity and planes; the kernel reads the shared columns once
+// per point and counts on L2 to serve the other points (see the kernel).
 //
 // Loop control on the device: `ctl` int64 [4] holds the bits of the
 // running max |V'-V| (a max does not depend on order, and the values are
@@ -44,22 +48,9 @@
 
 #include <cstdint>
 
-namespace cpr {
+#include "mdp_table.cuh"
 
-// Laid out like the ctypes Structures in cpr_tpu_torch/kernels/__init__.py.
-struct SweepTable {
-  const int32_t* state_seg;  // [S + 1]
-  const int32_t* seg_ptr;    // [n_seg + 1]
-  const int32_t* seg_act;    // [n_seg]
-  const uint8_t* seg_valid;  // [n_seg]
-  const int32_t* dst;        // [T]
-  const void* prob;          // [T] float or double
-  const void* reward;
-  const void* progress;
-  int64_t n_states;
-  int32_t n_actions;
-  int32_t f64;
-};
+namespace cpr {
 
 struct LoopCtl {
   int64_t* ctl;    // [4]: max-delta bits, sweeps done, stop flag, blocks done
@@ -75,38 +66,12 @@ struct LoopCtl {
 
 namespace {
 
+using cpr::add_rn;
+using cpr::bits_of;
+using cpr::from_bits;
+using cpr::mul_rn;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
-
-// Order-preserving bits of a value >= 0.
-__device__ __forceinline__ unsigned long long bits_of(float x) {
-  return (unsigned long long)__float_as_uint(x);
-}
-__device__ __forceinline__ unsigned long long bits_of(double x) {
-  return (unsigned long long)__double_as_longlong(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_bits(unsigned long long b);
-template <>
-__device__ __forceinline__ float from_bits<float>(unsigned long long b) {
-  return __uint_as_float((unsigned)b);
-}
-template <>
-__device__ __forceinline__ double from_bits<double>(unsigned long long b) {
-  return __longlong_as_double((long long)b);
-}
 
 // Reduce this thread's delta into the sweep's max; the last block to
 // finish closes the sweep. Every thread of the block must call it.
@@ -210,6 +175,74 @@ __global__ void __launch_bounds__(kThreads)
   finish_sweep<T>(d, c);
 }
 
+// K7: one sweep of every live grid point. Point g has its own probability
+// column probs[g] and segment validity valid[g] (at gamma in {0, 1} rows
+// carry probability 0, so validity differs between points); the rows'
+// dst, reward and progress are shared. The per-state walk is K4's, so a
+// point's sweep is bit for bit K4's sweep of its revalued table. Layout:
+// a block is (point, 256 states), the point index varying fastest, so
+// the blocks in flight at one time read the same stretch of the shared
+// columns, which L2 then serves to every point. Frozen points are not in
+// `live` and their buffers are never touched. The point's max |V'-V| of
+// sweep j goes to dbits[g * steps + j] by an atomicMax on its bits
+// (order-free, so deterministic).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    grid_sweep_kernel(cpr::SweepTable tb, const T* __restrict__ probs,
+                      const uint8_t* __restrict__ valid,
+                      const int32_t* __restrict__ live, int n_live,
+                      int64_t n_rows, int64_t n_seg, T discount,
+                      const T* __restrict__ V, const T* __restrict__ P,
+                      T* __restrict__ V2, T* __restrict__ P2,
+                      int32_t* __restrict__ pol,
+                      unsigned long long* __restrict__ dbits, int steps,
+                      int j) {
+  const int64_t S = tb.n_states;
+  const int g = live[blockIdx.x % n_live];
+  const int64_t s = (blockIdx.x / n_live) * (int64_t)kThreads + threadIdx.x;
+  const T* __restrict__ prob = probs + g * n_rows;
+  const uint8_t* __restrict__ vld = valid + g * n_seg;
+  const int64_t off = g * S;
+  T d = 0;
+  if (s < S) {
+    const T* __restrict__ reward = static_cast<const T*>(tb.reward);
+    const T* __restrict__ progress = static_cast<const T*>(tb.progress);
+    const T* __restrict__ Vg = V + off;
+    const T* __restrict__ Pg = P + off;
+    int best = -1;
+    T bv = 0, bp = 0;
+    for (int k = tb.state_seg[s], ke = tb.state_seg[s + 1]; k < ke; ++k) {
+      if (!vld[k]) continue;
+      T qv = 0, qp = 0;
+      for (int r = tb.seg_ptr[k], re = tb.seg_ptr[k + 1]; r < re; ++r) {
+        const int t = tb.dst[r];
+        const T pr = prob[r];
+        qv = add_rn(qv, mul_rn(pr, add_rn(reward[r], mul_rn(discount, Vg[t]))));
+        qp = add_rn(qp,
+                    mul_rn(pr, add_rn(progress[r], mul_rn(discount, Pg[t]))));
+      }
+      if (best < 0 || qv > bv) {
+        best = tb.seg_act[k];
+        bv = qv;
+        bp = qp;
+      }
+    }
+    V2[off + s] = bv;
+    P2[off + s] = bp;
+    pol[off + s] = best;
+    d = fabs(bv - Vg[s]);
+  }
+  __shared__ unsigned long long warp_max[kThreads / 32];
+  unsigned long long b = bits_of(d);
+  for (int o = 16; o > 0; o >>= 1)
+    b = max(b, __shfl_down_sync(0xffffffffu, b, o));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = b;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int w = 1; w < kThreads / 32; ++w) b = max(b, warp_max[w]);
+  atomicMax(&dbits[(int64_t)g * steps + j], b);
+}
+
 unsigned n_blocks(const cpr::SweepTable* tb) {
   return (unsigned)((tb->n_states + kThreads - 1) / kThreads);
 }
@@ -265,6 +298,42 @@ cudaError_t cpr_k5_pe_sweeps(const cpr::SweepTable* tb, const cpr::LoopCtl* c,
           *tb, *c, (const int32_t*)policy, (float)discount,
           (const float*)r[a], (const float*)p[a], (float*)r[b],
           (float*)p[b]);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// K7: `steps` sweeps of the live grid points `live` [n_live]; sweep i
+// reads (v[i % 2], p[i % 2]) and writes the other buffer of each [G, S]
+// pair, the policy plane `pol` [G, S] and dbits[g * steps + i].
+cudaError_t cpr_k7_grid_sweeps(const cpr::SweepTable* tb, const void* probs,
+                               const void* valid, const void* live,
+                               int n_live, int64_t n_rows, int64_t n_seg,
+                               double discount, void* v0, void* v1, void* p0,
+                               void* p1, void* pol, void* dbits, int steps,
+                               void* stream) {
+  if (tb->n_states <= 0 || n_live <= 0) return cudaSuccess;
+  void* v[2] = {v0, v1};
+  void* p[2] = {p0, p1};
+  const auto st = (cudaStream_t)stream;
+  const unsigned blocks = n_blocks(tb) * (unsigned)n_live;
+  for (int i = 0; i < steps; ++i) {
+    const int a = i & 1, b = a ^ 1;
+    if (tb->f64)
+      grid_sweep_kernel<double><<<blocks, kThreads, 0, st>>>(
+          *tb, (const double*)probs, (const uint8_t*)valid,
+          (const int32_t*)live, n_live, n_rows, n_seg, discount,
+          (const double*)v[a], (const double*)p[a], (double*)v[b],
+          (double*)p[b], (int32_t*)pol, (unsigned long long*)dbits, steps,
+          i);
+    else
+      grid_sweep_kernel<float><<<blocks, kThreads, 0, st>>>(
+          *tb, (const float*)probs, (const uint8_t*)valid,
+          (const int32_t*)live, n_live, n_rows, n_seg, (float)discount,
+          (const float*)v[a], (const float*)p[a], (float*)v[b],
+          (float*)p[b], (int32_t*)pol, (unsigned long long*)dbits, steps,
+          i);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

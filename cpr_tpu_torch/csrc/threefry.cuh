@@ -70,4 +70,13 @@ __device__ __forceinline__ float exponential_of_bits(uint32_t bits) {
   return -log1pf(-uniform_of_bits(bits));
 }
 
+// jax.random.gumbel in mode "low" (float32): -log(-log(u)) of
+// u = uniform(minval=tiny, maxval=1) = max(tiny, f * (1 - tiny) + tiny),
+// where 1 - tiny rounds to 1. logf may differ from XLA's log by an ULP.
+__device__ __forceinline__ float gumbel_of_bits(uint32_t bits) {
+  const float tiny = 1.17549435e-38f;  // FLT_MIN
+  const float u = fmaxf(tiny, __fadd_rn(uniform_of_bits(bits), tiny));
+  return -logf(-logf(u));
+}
+
 }  // namespace cpr

@@ -6,8 +6,8 @@ attack models, solve each with value iteration, and record sizes +
 wall-times (models over 1M transitions are skipped, as there).
 
 One row per (model, alpha, gamma): state/transition counts, compile and
-solve wall-times, optimal revenue. The solve runs on the card (K4)
-unless `device="cpu"` is given.
+solve wall-times, optimal revenue. The solve runs on the card (K4, or K7
+for `measure_rows_grid`) unless `device="cpu"` is given.
 """
 
 from __future__ import annotations
@@ -26,11 +26,10 @@ def model_battery(alphas=(0.25, 0.33, 0.4), gamma=0.5, *, native=True,
     Factories return an implicit model (compiled through the Python BFS)
     or a ready MDP; the generic entries use the native C++ compiler
     (`native=False`, the Python generic model, is not ported yet:
-    ROADMAP slice 3)."""
+    ROADMAP item 7c)."""
     if not native:
-        raise NotImplementedError(
-            "the Python generic model (SingleAgent) is not ported yet: "
-            "ROADMAP slice 3; use native=True")
+        from cpr_tpu_torch.mdp.grid import PYTHON_GENERIC_QUEUED
+        raise NotImplementedError(PYTHON_GENERIC_QUEUED)
     battery = []
     for a in alphas:
         battery.append((f"fc16-{a}", lambda a=a: Fc16BitcoinSM(
@@ -100,8 +99,48 @@ def battery_groups(*, native=True, generic_cutoff=7, mfl=20):
     ]
 
 
-def measure_rows_grid(*args, **kwargs):
-    """The grid-batched twin of measure_rows needs grid VI (K7)."""
-    raise NotImplementedError(
-        "measure_rows_grid needs grid VI (K7), not ported yet: "
-        "ROADMAP slice 3")
+def measure_rows_grid(groups=None, *, alphas=(0.25, 0.33, 0.4),
+                      gamma=0.5, horizon=100, stop_delta=1e-6,
+                      max_transitions=1_000_000, mesh=None, device=None):
+    """Grid-batched twin of measure_rows: per (protocol, cutoff) group,
+    one parametric compile and one grid solve over every alpha
+    (cpr_tpu_torch.mdp.grid; K7 on the card) instead of a compile and a
+    solve per point. The rows keep measure_rows' schema (`model` matches
+    the serial labels; compile_s/vi_s are the group totals spread over
+    its points, with the totals alongside). Each point's revenue is that
+    of a solo chunked solve of its revalued table, bit for bit."""
+    from cpr_tpu_torch.mdp.grid import (compile_protocol,
+                                        grid_value_iteration, param_ptmdp)
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-sharded solves are not ported yet: ROADMAP item 13")
+    dev = _device.resolve(device)
+    if groups is None:
+        groups = battery_groups()
+    rows = []
+    gammas = (gamma,)
+    for protocol, cutoff, kw, stem in groups:
+        t0 = now()
+        pm = param_ptmdp(compile_protocol(protocol, cutoff=cutoff, **kw),
+                         horizon=horizon)
+        compile_s = now() - t0
+        shared = {"n_states": pm.n_states,
+                  "n_transitions": pm.n_transitions}
+        if pm.n_transitions > max_transitions:
+            rows.extend([dict(model=f"{stem}-{a}", compile_s=compile_s,
+                              skipped="transition cap", **shared)
+                         for a in alphas])
+            continue
+        vi = grid_value_iteration(pm, alphas, gammas,
+                                  stop_delta=stop_delta, protocol=protocol,
+                                  cutoff=cutoff, device=dev)
+        n = len(vi["grid_points"])
+        for i, (a, _) in enumerate(vi["grid_points"]):
+            rows.append(dict(
+                model=f"{stem}-{a}", compile_s=compile_s / n,
+                vi_s=vi["vi_time"] / n, vi_iter=int(vi["grid_iter"][i]),
+                revenue=float(vi["grid_revenue"][i]),
+                group_compile_s=compile_s,
+                group_vi_s=vi["vi_time"], group_points=n, **shared))
+    return rows

@@ -31,12 +31,12 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu")
+SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu", "rtdp.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel since the last reset_launches()
-launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -142,6 +142,18 @@ class _SweepTable(ctypes.Structure):
         ("f64", ctypes.c_int32)]
 
 
+class _RtdpArgs(ctypes.Structure):
+    _fields_ = [("V", _p), ("P", _p), ("visits", _p),
+                ("buf_s", _p * 2), ("buf_pri", _p * 2), ("walkers", _p),
+                ("cdf", _p), ("t_out", _p), ("resid_out", _p),
+                ("max_steps", _i64), ("key0", ctypes.c_uint32),
+                ("key1", ctypes.c_uint32), ("batch", ctypes.c_int32),
+                ("cap", ctypes.c_int32), ("graph", ctypes.c_int32),
+                ("pad", ctypes.c_int32)] + [
+        (f, ctypes.c_float) for f in ("eps", "restart_p", "discount",
+                                      "stop_delta", "decay")]
+
+
 class _LoopCtl(ctypes.Structure):
     _fields_ = [("ctl", _p), ("delta", _p), ("resid", _p),
                 ("resid_len", ctypes.c_int32), ("can_stop", ctypes.c_int32),
@@ -178,9 +190,19 @@ def _load() -> dict[str, ctypes.CDLL]:
         mdp.cpr_k5_pe_sweeps.argtypes = [tp, cp, _p, ctypes.c_double, _p, _p,
                                          _p, _p, _i64, _int, _p]
         mdp.cpr_k5_pe_sweeps.restype = _int
+        mdp.cpr_k7_grid_sweeps.argtypes = [tp, _p, _p, _p, _int, _i64, _i64,
+                                           ctypes.c_double, _p, _p, _p, _p,
+                                           _p, _p, _int, _p]
+        mdp.cpr_k7_grid_sweeps.restype = _int
         mdp.cpr_k45_error_string.argtypes = [_int]
         mdp.cpr_k45_error_string.restype = ctypes.c_char_p
-        _libs.update(random=rnd, nakamoto=nak, mdp=mdp)
+        rt = ctypes.CDLL(str(paths["rtdp.cu"]))
+        rt.cpr_k6_rtdp.argtypes = [tp, ctypes.POINTER(_RtdpArgs), _int, _int,
+                                   _p]
+        rt.cpr_k6_rtdp.restype = _int
+        rt.cpr_k6_error_string.argtypes = [_int]
+        rt.cpr_k6_error_string.restype = ctypes.c_char_p
+        _libs.update(random=rnd, nakamoto=nak, mdp=mdp, rtdp=rt)
         return _libs
 
 
@@ -443,3 +465,93 @@ def pe_sweeps(table, policy, discount: float, rew, prog, ctl, delta,
             _stream(dev))
     _check(rc, lib, "cpr_k45_error_string", "K5 pe_sweep")
     launches["K5"] += count
+
+
+# -- K7 -----------------------------------------------------------------------
+
+def grid_vi_sweeps(table, probs, valid, live, discount: float, value, prog,
+                   policy, dbits, steps: int):
+    """K7: enqueue `steps` Bellman sweeps of the live grid points over
+    `table`'s structure. `probs` [G, T] and `valid` [G, n_seg] uint8 are
+    the points' probability columns (in the table's row order) and
+    segment validity; `live` [n_live] int32 the points to sweep. Sweep i
+    reads (value[i % 2], prog[i % 2]) and writes the other buffer of each
+    [G, S] pair and `policy` [G, S] int32, for live points only; the
+    point's max |V'-V| goes, as float bits, into `dbits[g, i]` (int64
+    [G, steps], zeroed by the caller)."""
+    tb = _sweep_table(table, "K7")
+    dev, dt, S = table.prob.device, table.prob.dtype, table.n_states
+    T, n_seg = int(table.prob.shape[0]), int(table.seg_act.shape[0])
+    G = int(probs.shape[0])
+    _want(probs, "probs", dt, (G, T), dev)
+    _want(valid, "valid", torch.uint8, (G, n_seg), dev, align=1)
+    _want(live, "live", torch.int32, (live.shape[0],), dev)
+    for name, pair in (("value", value), ("prog", prog)):
+        for j, t in enumerate(pair):
+            _want(t, f"{name}[{j}]", dt, (G, S), dev)
+    _want(policy, "policy", torch.int32, (G, S), dev)
+    _want(dbits, "dbits", torch.int64, (G, steps), dev, align=8)
+    lib = _load()["mdp"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k7_grid_sweeps(
+            ctypes.byref(tb), probs.data_ptr(), valid.data_ptr(),
+            live.data_ptr(), int(live.shape[0]), T, n_seg, float(discount),
+            value[0].data_ptr(), value[1].data_ptr(), prog[0].data_ptr(),
+            prog[1].data_ptr(), policy.data_ptr(), dbits.data_ptr(), steps,
+            _stream(dev))
+    _check(rc, lib, "cpr_k45_error_string", "K7 grid_sweep")
+    launches["K7"] += steps
+
+
+# -- K6 -----------------------------------------------------------------------
+
+RTDP_MAX_BATCH = 1984  # 24 bytes of shared memory a walker, under 48 KB
+
+
+def rtdp_walkers(table, words, V, P, cdf, *, graph: bool, max_steps: int,
+                 batch: int, cap: int, eps: float, restart_p: float,
+                 discount: float, stop_delta: float, decay: float) -> dict:
+    """K6: the whole RTDP walk (`explicit._rtdp_walk`) in one launch over
+    `table` (a float32 TensorMDP on the card). `words` [2] int32 is the
+    key (read on the host), `V`/`P` [S] float32 are updated in place,
+    `cdf` [S] float32 is the start CDF. Returns dict(V, P, visits [S],
+    buf_s [cap], buf_pri [cap], s [batch], t, resid); reading t and
+    resid synchronizes."""
+    tb = _sweep_table(table, "K6")
+    dev, S = table.prob.device, table.n_states
+    if table.prob.dtype != torch.float32:
+        raise ValueError("K6 takes float32 tables")
+    if not 0 < batch <= RTDP_MAX_BATCH:
+        raise ValueError(f"K6: batch {batch} outside 1..{RTDP_MAX_BATCH}")
+    if graph and cap <= 0:
+        raise ValueError("K6: graph mode needs a buffer (cap > 0)")
+    for name, t in (("V", V), ("P", P), ("cdf", cdf)):
+        _want(t, name, torch.float32, (S,), dev)
+    i32, f32 = dict(dtype=torch.int32, device=dev), dict(
+        dtype=torch.float32, device=dev)
+    visits = torch.zeros(S, **i32)
+    n = max(cap, 1)
+    buf_s = [torch.zeros(n, **i32), torch.zeros(n, **i32)]
+    buf_pri = [torch.full((n,), float("-inf"), **f32),
+               torch.full((n,), float("-inf"), **f32)]
+    walkers = torch.empty(batch, **i32)
+    t_out = torch.zeros(1, dtype=torch.int64, device=dev)
+    resid = torch.zeros(1, **f32)
+    k0, k1 = (int(w) & 0xFFFFFFFF for w in words.reshape(2).tolist())
+    args = _RtdpArgs(
+        V.data_ptr(), P.data_ptr(), visits.data_ptr(),
+        (_p * 2)(*(b.data_ptr() for b in buf_s)),
+        (_p * 2)(*(b.data_ptr() for b in buf_pri)), walkers.data_ptr(),
+        cdf.data_ptr(), t_out.data_ptr(), resid.data_ptr(), int(max_steps),
+        k0, k1, batch, cap if graph else 0, int(graph), 0, eps, restart_p,
+        discount, stop_delta, decay)
+    threads = min(1024, -(-max(batch, cap if graph else 0) // 32) * 32)
+    lib = _load()["rtdp"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k6_rtdp(ctypes.byref(tb), ctypes.byref(args),
+                             table.max_segment(), threads, _stream(dev))
+    _check(rc, lib, "cpr_k6_error_string", "K6 rtdp")
+    launches["K6"] += 1
+    return dict(V=V, P=P, visits=visits, buf_s=buf_s[0][:cap],
+                buf_pri=buf_pri[0][:cap], s=walkers, t=int(t_out[0]),
+                resid=float(resid[0]))

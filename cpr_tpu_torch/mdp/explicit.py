@@ -4,19 +4,26 @@ Reference counterpart: `cpr_tpu/mdp/explicit.py` (itself after
 mdp/lib/explicit_mdp.py). The host half — the `MDP` table, its
 invariant check, the probabilistic-termination transform `ptmdp`, the
 reachable-state search and the sparse steady-state solve — is numpy and
-scipy, copied. The device half solves a `TensorMDP` with two
-hand-written CUDA kernels (`cpr_tpu_torch/csrc/mdp_sweep.cu`):
+scipy, copied. The device half solves a `TensorMDP` with four
+hand-written CUDA kernels:
 
-- K4, one Bellman sweep: two segment sums over the rows of each
-  (state, action) in a fixed order, then the masked greedy backup and
-  the max value delta; it drives value iteration, both the while impl
-  (the stop rule evaluated on the device) and the chunked impl with
-  Anderson mixing between chunks;
-- K5, one policy-evaluation sweep over each state's on-policy segment.
+- K4 (`csrc/mdp_sweep.cu`), one Bellman sweep: two segment sums over the
+  rows of each (state, action) in a fixed order, then the masked greedy
+  backup and the max value delta; it drives value iteration, both the
+  while impl (the stop rule evaluated on the device) and the chunked
+  impl with Anderson mixing between chunks;
+- K5 (`csrc/mdp_sweep.cu`), one policy-evaluation sweep over each
+  state's on-policy segment;
+- K7 (`csrc/mdp_sweep.cu`), K4 over a grid of G probability columns
+  with per-point validity and freezing (`make_grid_vi_chunk`,
+  `run_grid_chunk_driver`);
+- K6 (`csrc/rtdp.cu`), batched eps-greedy RTDP walkers in one persistent
+  launch (`TensorMDP.rtdp`, `cpr_tpu_torch.mdp.rtdp_graph`).
 
-Both read the TensorMDP's rows, sorted once by segment. Their plain
-torch twins (`make_vi_sweep`, `_pe_sweep`) run where the tensors lie on
-the CPU; a CUDA tensor always goes to the kernel.
+All read the TensorMDP's rows, sorted once by segment. Their plain torch
+twins (`make_vi_sweep`, `_pe_sweep`, `_grid_chunk_plain`,
+`_rtdp_plain`) run where the tensors lie on the CPU; a CUDA tensor
+always goes to the kernel.
 """
 
 from __future__ import annotations
@@ -45,10 +52,11 @@ _PAD_BYTES_DEFAULT = 2 << 30
 
 
 class PaddedLayoutTooLarge(MemoryError):
-    """A dense [S*A, K] padded table would exceed the CPR_MDP_PAD_BYTES
-    ceiling.  Large compiles solve through the COO segment-sum sweep
-    (value_iteration impl="chunked"/"while"), which never pads; the
-    padded layout itself is not ported yet (K6, ROADMAP slice 3)."""
+    """padded_layout() refused to build its dense [S*A, K] tables: their
+    size exceeds the CPR_MDP_PAD_BYTES ceiling. Large compiles solve
+    through the COO segment-sum sweep (value_iteration), which never
+    pads; `TensorMDP.rtdp` reads the segment index and never pads
+    either."""
 
 
 # opt-in ceiling (bytes) on one device's VI working set — COO columns
@@ -634,14 +642,29 @@ def _anderson_mix(hist):
 ACCEL_STALLS = 32
 
 
+def _initial(x0, S: int, dtype, dev) -> torch.Tensor:
+    """A solve's own copy of its start vector: zeros, or the warm start
+    `x0` (array or tensor of shape [S])."""
+    if x0 is None:
+        return torch.zeros(S, dtype=dtype, device=dev)
+    x0 = torch.as_tensor(x0).to(dev, dtype)
+    if tuple(x0.shape) != (S,):
+        raise ValueError(f"warm start of shape {tuple(x0.shape)}, "
+                         f"expected ({S},)")
+    return x0.clone()
+
+
 def run_chunk_driver(chunk_step, S, dtype, stop_delta, max_iter,
                      chunk: int = 64, accel_m: int = 0,
                      checkpoint_path: str | None = None,
+                     value0=None, prog0=None,
                      predicted_bytes: int | None = None, *, device=None):
     """Host loop of chunked VI: call `chunk_step(value, prog, steps) ->
-    (value, prog, pol, deltas)` from zeros in full chunks with a 1-sweep
-    tail, stopping at a chunk boundary once the chunk's last delta is at
-    most stop_delta, or when max_iter sweeps ran.
+    (value, prog, pol, deltas)` from zeros, or from the warm start
+    `value0`/`prog0` (the RTDP handoff: a table explored by
+    `rtdp_graph`), in full chunks with a 1-sweep tail, stopping at a
+    chunk boundary once the chunk's last delta is at most stop_delta,
+    or when max_iter sweeps ran.
 
     `accel_m > 1` turns on Anderson mixing between chunks. The fixpoint
     is untouched and convergence is still certified by a PLAIN sweep's
@@ -662,8 +685,8 @@ def run_chunk_driver(chunk_step, S, dtype, stop_delta, max_iter,
             "VI checkpoints (checkpoint_path=) are not ported yet: they "
             "need the resilience/integrity planes, ROADMAP item 6")
     dev = _device.resolve(device)
-    value = torch.zeros(S, dtype=dtype, device=dev)
-    prog = torch.zeros(S, dtype=dtype, device=dev)
+    value = _initial(value0, S, dtype, dev)
+    prog = _initial(prog0, S, dtype, dev)
     it = 0
     delta = math.inf
     pol = None
@@ -721,14 +744,146 @@ def vi_chunked(m: TensorMDP, discount, stop_delta, max_iter,
         device=m.device)
 
 
-def make_grid_vi_chunk(*args, **kwargs):
-    raise NotImplementedError(
-        "grid VI (K7) is not ported yet: ROADMAP slice 3")
+def grid_valid_segments(m: TensorMDP, probs) -> torch.Tensor:
+    """[G, n_seg] uint8: whether segment k carries probability mass
+    under point g's column (`probs` [G, T] in the table's row order).
+    At gamma in {0, 1} rows carry probability 0, so validity differs
+    between points; the columns do not change between chunks, so a grid
+    solve builds this once. Integer sums, so deterministic on the card."""
+    n_seg = m.n_segments
+    row_seg = torch.repeat_interleave(
+        torch.arange(n_seg, device=m.device),
+        (m.seg_ptr[1:] - m.seg_ptr[:-1]).to(torch.int64))
+    out = torch.empty((probs.shape[0], n_seg), dtype=torch.uint8,
+                      device=m.device)
+    for g in range(probs.shape[0]):
+        mass = torch.zeros(n_seg, dtype=torch.int32, device=m.device)
+        mass.index_add_(0, row_seg, (probs[g] > 0).to(torch.int32))
+        out[g] = mass > 0
+    return out
 
 
-def run_grid_chunk_driver(*args, **kwargs):
-    raise NotImplementedError(
-        "grid VI (K7) is not ported yet: ROADMAP slice 3")
+def make_grid_vi_chunk(m: TensorMDP, probs, discount):
+    """Grid-batched twin of `make_vi_chunk` over `m`'s structure with
+    one probability column per point (`probs` [G, T], in the table's row
+    order: `m.sort_rows`). Returns `grid_chunk(carry, frozen, steps) ->
+    (carry, deltas [G, steps])`, carry = (value, prog, policy) [G, S]:
+    every point not in `frozen` [G] bool advances `steps` Bellman sweeps
+    under its own validity masks; frozen points keep value, progress
+    and policy bit for bit and report delta 0. On the card K7 sweeps all
+    live points per launch; on the CPU the plain twin loops over them."""
+    return (_grid_chunk_cuda if m.prob.is_cuda else _grid_chunk_plain)(
+        m, probs, discount)
+
+
+def _grid_chunk_plain(m: TensorMDP, probs, discount):
+    """The plain twin of K7: `_vi_chunk_plain` applied per live point."""
+    S, A = m.n_states, m.n_actions
+    sweep = make_vi_sweep(S, A)
+    masks = [_valid_actions(m.src, m.act, probs[g], S, A)
+             for g in range(probs.shape[0])]
+
+    def grid_chunk(carry, frozen, steps):
+        value, prog, pol = carry
+        v2, p2, pol2 = value.clone(), prog.clone(), pol.clone()
+        deltas = torch.zeros((value.shape[0], steps), dtype=value.dtype,
+                             device=value.device)
+        for g, fz in enumerate(frozen.tolist()):
+            if fz:
+                continue
+            v, p = value[g], prog[g]
+            for j in range(steps):
+                nv, np_, npol = sweep(m.src, m.act, m.dst, probs[g],
+                                      m.reward, m.progress, *masks[g],
+                                      discount, v, p)
+                deltas[g, j] = (nv - v).abs().max()
+                v, p = nv, np_
+            v2[g], p2[g], pol2[g] = v, p, npol
+        return (v2, p2, pol2), deltas
+
+    return grid_chunk
+
+
+def _bits_to_float(bits: torch.Tensor, dtype) -> torch.Tensor:
+    """The floats (>= 0) whose bit patterns K7 max-reduced into int64."""
+    if dtype == torch.float64:
+        return bits.view(torch.float64)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _grid_chunk_cuda(m: TensorMDP, probs, discount):
+    valid = grid_valid_segments(m, probs)
+
+    def grid_chunk(carry, frozen, steps):
+        value, prog, pol = carry
+        live = torch.nonzero(~frozen).flatten().to(torch.int32)
+        v = [value.clone(), torch.empty_like(value)]
+        p = [prog.clone(), torch.empty_like(prog)]
+        pol2 = pol.clone()
+        dbits = torch.zeros((value.shape[0], steps), dtype=torch.int64,
+                            device=value.device)
+        kernels.grid_vi_sweeps(m, probs, valid, live, discount, v, p, pol2,
+                               dbits, steps)
+        v2, p2 = v[steps % 2], p[steps % 2]
+        if steps % 2 and int(live.shape[0]) < value.shape[0]:
+            v2[frozen], p2[frozen] = value[frozen], prog[frozen]
+        return (v2, p2, pol2), _bits_to_float(dbits, value.dtype)
+
+    return grid_chunk
+
+
+def run_grid_chunk_driver(chunk_step, place, G, S, dtype, stop_delta,
+                          max_iter, chunk: int = 64,
+                          checkpoint_path: str | None = None, *,
+                          device=None):
+    """Host loop of grid-batched chunked VI, `run_chunk_driver`'s rule
+    per point: full chunks with a 1-sweep tail; after each chunk a live
+    point whose last delta is at most stop_delta freezes; the grid stops
+    when every point froze or max_iter sweeps ran.
+
+    `chunk_step(carry, frozen, steps) -> (carry, deltas [G, steps])`
+    with carry = (value, prog, policy) planes [G, S]; `place(x)` puts a
+    host array on the solve's device. Each chunk samples the memory
+    watermark (scope "mdp_grid"). Checkpoints are not ported (ROADMAP
+    item 6); a failed launch raises.
+
+    Returns (value, prog, policy, delta [G], conv_iter [G],
+    converged [G], it, resid [G, it]) as numpy arrays: conv_iter is the
+    sweep count at which each point froze (the full budget where it did
+    not)."""
+    if checkpoint_path is not None:
+        raise NotImplementedError(
+            "grid VI checkpoints (checkpoint_path=) are not ported yet: "
+            "they need the resilience checkpoints, ROADMAP item 6")
+    np_dtype = _np_dtype(dtype)
+    frozen = np.zeros(G, dtype=bool)
+    conv_it = np.zeros(G, np.int64)
+    final_delta = np.full(G, np.inf)
+    it = 0
+    resids: list = []
+    carry = (place(np.zeros((G, S), np_dtype)),
+             place(np.zeros((G, S), np_dtype)),
+             place(np.full((G, S), -1, np.int32)))
+    with telemetry.memory_watermark("mdp_grid") as wm:
+        while it < max_iter and not bool(frozen.all()):
+            step = chunk if max_iter - it >= chunk else 1
+            carry, deltas = chunk_step(carry, place(frozen), step)
+            it += step
+            d = deltas.cpu().numpy()
+            resids.append(d)
+            last = d[:, -1]
+            live = ~frozen
+            final_delta[live] = last[live]
+            newly = live & (last <= float(stop_delta))
+            conv_it[newly] = it
+            frozen |= newly
+            wm.sample()
+    conv_it[~frozen] = it  # unconverged points ran the whole budget
+    resid = (np.concatenate(resids, axis=1) if resids
+             else np.zeros((G, 0), np_dtype))
+    return (carry[0].cpu().numpy(), carry[1].cpu().numpy(),
+            carry[2].cpu().numpy(), final_delta, conv_it, frozen.copy(),
+            it, resid)
 
 
 def _pe_loop(m: TensorMDP, policy, discount, theta, max_iter):
@@ -769,6 +924,173 @@ def _pe_loop_plain(m: TensorMDP, policy, discount, theta, max_iter):
             return rew, prg, float(d), it
 
 
+# -- RTDP walkers: K6 and its plain twin ---------------------------------------
+
+
+def start_cdf(m: TensorMDP) -> torch.Tensor:
+    """The start distribution's float32 CDF, summed in state order on the
+    host (numpy's sequential add), on the table's device. JAX's
+    `jnp.cumsum` may associate otherwise; with at most two nonzero start
+    entries, as the fc16/aft20 and generic tables have, every order
+    gives the same sums."""
+    return torch.from_numpy(np.cumsum(
+        m.start.cpu().numpy().astype(np.float32), dtype=np.float32)
+    ).to(m.device)
+
+
+def _rtdp_walk(m: TensorMDP, key, *, graph: bool, max_steps: int,
+               batch: int, cap: int, eps, restart_p, discount, stop_delta,
+               decay, value0=None, prog0=None) -> dict:
+    """Run the RTDP walkers of `_rtdp_loop` (graph False: `max_steps`
+    steps) or `_rtdp_graph_loop` (graph True: visit counters, the
+    priority buffer of `cap` entries feeding restarts with probability
+    `restart_p`, and the damped residual stop) over `m`. K6 on the
+    card, `_rtdp_plain` on the CPU. Returns dict(V, P, visits, buf_s,
+    buf_pri, s, t, resid) as tensors and ints."""
+    if m.prob.dtype != torch.float32:
+        raise NotImplementedError(
+            "device RTDP runs float32 tables only (its random draws are "
+            "jax's float32 stream)")
+    S, dev, f32 = m.n_states, m.device, torch.float32
+    words = key.reshape(2).cpu()
+    args = dict(graph=graph, max_steps=int(max_steps), batch=int(batch),
+                cap=int(cap), eps=m._cast(eps), restart_p=m._cast(restart_p),
+                discount=m._cast(discount), stop_delta=m._cast(stop_delta),
+                decay=m._cast(decay))
+    run = kernels.rtdp_walkers if m.prob.is_cuda else _rtdp_plain
+    return run(m, words, _initial(value0, S, f32, dev),
+               _initial(prog0, S, f32, dev), start_cdf(m), **args)
+
+
+def _walker_rows(m: TensorMDP, s, K: int):
+    """Rows [B, A, K] of the segments of states `s` [B] (slot j of
+    action a = the j-th row of segment (s, a), 0 beyond) and their
+    validity; the padded layout's [B, A, K] slice without the copy."""
+    B, A = s.shape[0], m.n_actions
+    i64 = torch.int64
+    lo = m.state_seg[s.to(i64)].to(i64)
+    hi = m.state_seg[s.to(i64) + 1].to(i64)
+    seg = torch.full((B, A), -1, dtype=i64, device=m.device)
+    bi = torch.arange(B, device=m.device)
+    for j in range(A):  # a state has at most A segments
+        k = lo + j
+        has = k < hi
+        kk = torch.where(has, k, 0)
+        a = m.seg_act[kk].to(i64)
+        seg[bi[has], a[has]] = kk[has]
+    sk = seg.clamp(min=0)
+    rlo = m.seg_ptr[sk].to(i64)
+    rhi = m.seg_ptr[sk + 1].to(i64)
+    rows = rlo[..., None] + torch.arange(K, device=m.device)
+    inrow = (seg[..., None] >= 0) & (rows < rhi[..., None])
+    return torch.where(inrow, rows, 0), inrow
+
+
+def _fma_row_sums(prob, rew, prg, v, p, discount):
+    """Action values [B, A] of RTDP's [B, A, K] slots: per slot
+    x = fma(discount, V[dst], reward), then q = fma(prob, x, q) over the
+    slots in row order. XLA:CPU contracts JAX's `(prob * (reward +
+    discount * V[dst])).sum(-1)` into exactly these fused multiply-adds
+    (unlike the segment sums of VI, which it leaves unfused); K6 calls
+    fmaf. Each fma is emulated in float64, where the product is exact:
+    one rounding to float64, then one to float32."""
+    d = torch.tensor(discount, dtype=torch.float64)
+    f32, f64 = torch.float32, torch.float64
+    xv = (rew.to(f64) + d * v.to(f64)).to(f32).to(f64)
+    xp = (prg.to(f64) + d * p.to(f64)).to(f32).to(f64)
+    pr = prob.to(f64)
+    q = torch.zeros(prob.shape[:-1], dtype=f32, device=prob.device)
+    qp = torch.zeros_like(q)
+    for j in range(prob.shape[-1]):
+        q = (q.to(f64) + pr[..., j] * xv[..., j]).to(f32)
+        qp = (qp.to(f64) + pr[..., j] * xp[..., j]).to(f32)
+    return q, qp
+
+
+def _rtdp_plain(m: TensorMDP, words, V, P, cdf, *, graph, max_steps,
+                batch, cap, eps, restart_p, discount, stop_delta, decay):
+    """The plain twin of K6: a step-by-step transcription of JAX's
+    `_rtdp_loop` (graph False) and `_rtdp_graph_loop` (graph True) over
+    the segment index, drawing through `cpr_tpu_torch.random`; the
+    action values as `_fma_row_sums` computes them."""
+    from cpr_tpu_torch import random as rnd
+
+    S, A, K, B = m.n_states, m.n_actions, m.max_segment(), batch
+    dev, f32 = m.device, torch.float32
+    key = words.to(dev)
+    bi = torch.arange(B, device=dev)
+    seg_state = torch.repeat_interleave(
+        torch.arange(S, device=dev),
+        (m.state_seg[1:] - m.state_seg[:-1]).to(torch.int64))
+    any_valid_state = torch.zeros(S, dtype=torch.int32, device=dev)
+    any_valid_state.index_add_(0, seg_state, m.seg_valid.to(torch.int32))
+    any_valid_state = any_valid_state > 0
+    ninf = torch.tensor(float("-inf"), device=dev)
+    tiny = torch.tensor(1e-30, dtype=f32, device=dev)
+
+    def draw_start(k):
+        u = rnd.uniform(k, (B,)) * cdf[-1]
+        return torch.clamp(torch.searchsorted(cdf, u, right=True), 0,
+                           S - 1).to(torch.int32)
+
+    visits = torch.zeros(S, dtype=torch.int32, device=dev)
+    buf_s = torch.zeros(cap, dtype=torch.int32, device=dev)
+    buf_pri = torch.full((cap,), float("-inf"), dtype=f32, device=dev)
+    resid = torch.tensor(float("inf"), dtype=f32, device=dev)
+    ks = rnd.split(key, 2)
+    key, s = ks[0], draw_start(ks[1])
+    t = 0
+    while t < max_steps and (not graph or bool(resid > stop_delta)):
+        ks = rnd.split(key, 7 if graph else 5)
+        key = ks[0]
+        rows, inrow = _walker_rows(m, s, K)
+        prob = torch.where(inrow, m.prob[rows], 0.0)
+        dstb = torch.where(inrow, m.dst[rows], 0).to(torch.int64)
+        rew = torch.where(inrow, m.reward[rows], 0.0)
+        prg = torch.where(inrow, m.progress[rows], 0.0)
+        q, qp = _fma_row_sums(prob, rew, prg, V[dstb], P[dstb], discount)
+        va = prob.sum(-1) > 0
+        has_a = va.any(-1)
+        newv, newp, a_greedy = _greedy_backup(q, qp, va, has_a)
+        sl = s.to(torch.int64)
+        delta_lane = (newv - V[sl]).abs()
+        V[sl] = newv
+        P[sl] = newp
+        visits.index_add_(0, sl, torch.ones_like(s))
+        if graph:
+            all_pri = torch.cat([buf_pri, delta_lane])
+            all_s = torch.cat([buf_s, s])
+            top = torch.sort(all_pri, descending=True,
+                             stable=True).indices[:cap]
+            buf_pri, buf_s = all_pri[top], all_s[top]
+        a_rand = rnd.categorical(ks[1], torch.where(va, 0.0, ninf))
+        a_beh = torch.where(rnd.uniform(ks[2], (B,)) < eps, a_rand,
+                            a_greedy.to(torch.int64))
+        a_beh = torch.where(has_a, a_beh, 0)
+        prow = prob[bi, a_beh]
+        nxt = rnd.categorical(ks[3], torch.log(prow + tiny))
+        s_next = dstb[bi, a_beh, nxt].to(torch.int32)
+        if graph:
+            filled = buf_pri > 0.0
+            logits = torch.where(filled, 0.0, ninf)
+            if not bool(filled.any()):
+                logits = torch.zeros_like(logits)
+            pick = buf_s[rnd.categorical(ks[4], logits, shape=(B,))]
+            use_buf = ((rnd.uniform(ks[5], (B,)) < restart_p)
+                       & filled.any())
+            restart = torch.where(use_buf, pick, draw_start(ks[6]))
+        else:
+            restart = draw_start(ks[4])
+        s = torch.where(any_valid_state[s_next.to(torch.int64)] & has_a,
+                        s_next, restart)
+        if graph:
+            r = torch.where(torch.isinf(resid), 0.0, resid * decay)
+            resid = torch.maximum(r, delta_lane.max())
+        t += 1
+    return dict(V=V, P=P, visits=visits, buf_s=buf_s, buf_pri=buf_pri,
+                s=s, t=t, resid=float(resid))
+
+
 def _np_dtype(dtype) -> np.dtype:
     if isinstance(dtype, torch.dtype):
         return np.dtype(str(dtype).removeprefix("torch."))
@@ -785,7 +1107,10 @@ class TensorMDP:
     indexes the segments: `state_seg[s]:state_seg[s+1]` are the
     non-empty segments of state s, in action order;
     `seg_ptr[k]:seg_ptr[k+1]` the rows of segment k, `seg_act[k]` its
-    action and `seg_valid[k]` whether it carries probability mass."""
+    action and `seg_valid[k]` whether it carries probability mass.
+    `row_order` is the sort's permutation (sorted row i is compiled row
+    row_order[i]); `sort_rows` puts another column of the compiled order,
+    such as a grid point's revalued probabilities, in the table's."""
 
     n_states: int
     n_actions: int
@@ -800,6 +1125,7 @@ class TensorMDP:
     seg_ptr: torch.Tensor  # int32 [n_seg + 1]
     seg_act: torch.Tensor  # int32 [n_seg]
     seg_valid: torch.Tensor  # uint8 [n_seg]
+    row_order: torch.Tensor  # int32 [T]
 
     @classmethod
     def from_columns(cls, n_states: int, n_actions: int, start, src, act,
@@ -840,7 +1166,8 @@ class TensorMDP:
             seg_ptr=torch.cat([starts, torch.full((1,), T, device=dev)])
             .to(i32).contiguous(),
             seg_act=(seg_key % max(A, 1)).to(i32).contiguous(),
-            seg_valid=(mass > 0).to(torch.uint8))
+            seg_valid=(mass > 0).to(torch.uint8),
+            row_order=order.to(i32))
 
     @property
     def device(self) -> torch.device:
@@ -849,6 +1176,12 @@ class TensorMDP:
     @property
     def n_segments(self) -> int:
         return int(self.seg_act.shape[0])
+
+    def sort_rows(self, col) -> torch.Tensor:
+        """Columns [..., T] in compiled row order -> the table's order,
+        on the table's device."""
+        col = torch.as_tensor(col).to(self.device)
+        return col[..., self.row_order.to(torch.int64)].contiguous()
 
     def valid_actions(self):
         """The dense (valid [S, A], any_valid [S]) masks the plain twin
@@ -956,14 +1289,79 @@ class TensorMDP:
 
     # -- device RTDP (K6) ---------------------------------------------------
 
-    def padded_layout(self):
-        raise NotImplementedError(
-            "the padded [S*A, K] layout and device RTDP (K6) are not "
-            "ported yet: ROADMAP slice 3")
+    def max_segment(self) -> int:
+        """K, the longest segment's row count (1 for an empty table): the
+        width of the padded layout and of RTDP's successor draw."""
+        if self.n_segments == 0:
+            return 1
+        return int((self.seg_ptr[1:] - self.seg_ptr[:-1]).max())
 
-    def rtdp(self, *args, **kwargs):
-        raise NotImplementedError(
-            "device RTDP (K6) is not ported yet: ROADMAP slice 3")
+    def padded_layout(self):
+        """[S*A, K] padded per-(state, action) tables (Tdst int32,
+        Tpack [S*A, K, 3] (prob, reward, progress), K): slot j of row
+        s*A+a is the j-th row of segment (s, a) in compiled order, zeros
+        beyond. Memoized. Refuses (PaddedLayoutTooLarge) above the
+        CPR_MDP_PAD_BYTES ceiling (2 GiB by default). `rtdp` does not
+        use it: it reads the segment index."""
+        cached = getattr(self, "_padded_cache", None)
+        if cached is not None:
+            return cached
+        S, A, K = self.n_states, self.n_actions, self.max_segment()
+        item = self.prob.element_size()
+        need = S * A * K * (4 + 3 * item)
+        ceiling = int(os.environ.get(PAD_BYTES_ENV_VAR,
+                                     _PAD_BYTES_DEFAULT))
+        if need > ceiling:
+            raise PaddedLayoutTooLarge(
+                f"padded [S*A, K] layout needs {need:,} bytes "
+                f"(S={S}, A={A}, K={K}, dtype={self.prob.dtype}), over "
+                f"the {PAD_BYTES_ENV_VAR} ceiling of {ceiling:,}; solve "
+                f"large compiles through the COO sweep (value_iteration) "
+                f"or rtdp(), neither pads, or raise the ceiling")
+        i64 = torch.int64
+        key = self.src.to(i64) * A + self.act.to(i64)
+        first = torch.repeat_interleave(
+            self.seg_ptr[:-1].to(i64),
+            (self.seg_ptr[1:] - self.seg_ptr[:-1]).to(i64))
+        pos = torch.arange(key.shape[0], device=self.device) - first
+        Tdst = torch.zeros((S * A, K), dtype=torch.int32,
+                           device=self.device)
+        Tpack = torch.zeros((S * A, K, 3), dtype=self.prob.dtype,
+                            device=self.device)
+        Tdst[key, pos] = self.dst
+        for i, col in enumerate((self.prob, self.reward, self.progress)):
+            Tpack[key, pos, i] = col
+        out = (Tdst, Tpack, K)
+        object.__setattr__(self, "_padded_cache", out)  # frozen dataclass
+        return out
+
+    def rtdp(self, key, *, steps: int, batch: int = 256, eps: float = 0.2,
+             discount: float = 1.0, value0=None, progress0=None):
+        """Device RTDP: `batch` parallel eps-greedy trajectories with
+        greedy Bellman backups on every visited state, `steps` steps
+        from `key` (a `cpr_tpu_torch.random` key); terminal lanes
+        restart from the start distribution. Walks the states
+        `cpr_tpu.mdp.explicit.TensorMDP.rtdp` walks for the same key.
+
+        On the card one K6 launch runs the whole loop. K6 reads the
+        sorted table and its segment index and takes only K (the longest
+        segment, the width of the successor draw) from them, so it
+        builds no padded [S*A, K] copy and never raises
+        PaddedLayoutTooLarge where the reference's padded layout would:
+        a difference of layout, not of result. Float32 tables only.
+        Returns dict with rtdp_value / rtdp_progress arrays; unvisited
+        states keep their init."""
+        assert steps > 0 and batch > 0 and 0.0 <= eps <= 1.0
+        self._check_segment_width()
+        t0 = now()
+        r = _rtdp_walk(self, key, graph=False, max_steps=steps,
+                       batch=batch, cap=0, eps=eps, restart_p=0.0,
+                       discount=discount, stop_delta=0.0, decay=0.5,
+                       value0=value0, prog0=progress0)
+        return dict(rtdp_value=r["V"].cpu().numpy(),
+                    rtdp_progress=r["P"].cpu().numpy(),
+                    rtdp_steps=steps, rtdp_batch=batch,
+                    rtdp_time=now() - t0)
 
     # -- start-state aggregates -------------------------------------------
 

@@ -10,7 +10,10 @@ reference runs with:
     fold_in(k, d)    = threefry2x32(k, (0, d))
     bits(k, shape)   = x0 ^ x1 of threefry2x32(k, (0, j)), j the flat index
     uniform(k)       = bitcast_f32((bits >> 9) | 0x3f800000) - 1
+    uniform(k, lo, hi) = max(lo, uniform(k) * (hi - lo) + lo)
     exponential(k)   = -log1p(-uniform(k))
+    gumbel(k)        = -log(-log(uniform(k, tiny, 1)))   (mode "low")
+    categorical(k, logits) = argmax(gumbel(k, noise shape) + logits)
 
 A key is a tensor `[..., 2]` of 32-bit words, stored as int32 bit
 patterns because torch's uint32 has few operations; a leading batch of
@@ -157,9 +160,43 @@ def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
     return _draw(key, shape, MODE_BITS)
 
 
-def uniform(key: torch.Tensor, shape=()) -> torch.Tensor:
-    """`jax.random.uniform` on [0, 1), float32."""
-    return _draw(key, shape, MODE_UNIFORM)
+def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """`jax.random.uniform`, float32: on [0, 1) by default, else
+    `max(minval, u * (maxval - minval) + minval)` with both bounds and
+    every step rounded to float32, as jax computes it."""
+    u = _draw(key, shape, MODE_UNIFORM)
+    if minval == 0.0 and maxval == 1.0:
+        return u
+    lo = torch.tensor(minval, dtype=torch.float32, device=u.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=u.device)
+    return torch.maximum(lo, u * (hi - lo) + lo)
+
+
+def gumbel(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """`jax.random.gumbel` in its default mode "low", float32:
+    -log(-log(uniform(minval=tiny, maxval=1)))."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, axis: int = -1,
+                shape=None) -> torch.Tensor:
+    """`jax.random.categorical` with replacement (float32 logits): the
+    argmax, first index among equals, of gumbel noise plus the logits.
+    The noise plane has `shape` followed by the category axis where
+    `shape` is given (jax's layout: sample i of category j is flat
+    element i * n + j when `logits` is 1-d), else the shape of `logits`.
+    Returns int64 indices."""
+    if shape is None:
+        noise = gumbel(key, tuple(logits.shape))
+        return torch.argmax(noise + logits, dim=axis)
+    if logits.dim() != 1:
+        raise NotImplementedError(
+            "categorical(shape=) is ported for 1-d logits only")
+    shape = tuple(shape)
+    noise = gumbel(key, (*shape, logits.shape[0]))
+    return torch.argmax(noise + logits, dim=-1)
 
 
 def exponential(key: torch.Tensor, shape=()) -> torch.Tensor:

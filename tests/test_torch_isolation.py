@@ -144,7 +144,14 @@ for mod in ("cpr_tpu_torch.telemetry", "cpr_tpu_torch.native",
             "cpr_tpu_torch.mdp.compiler", "cpr_tpu_torch.mdp.implicit",
             "cpr_tpu_torch.mdp.models", "cpr_tpu_torch.mdp.generic",
             "cpr_tpu_torch.mdp.generic.native", "cpr_tpu_torch.experiments",
-            "cpr_tpu_torch.experiments.measure_mdp"):
+            "cpr_tpu_torch.experiments.measure_mdp",
+            "cpr_tpu_torch.integrity", "cpr_tpu_torch.resilience",
+            "cpr_tpu_torch.mdp.frontier", "cpr_tpu_torch.mdp.grid",
+            "cpr_tpu_torch.mdp.rtdp", "cpr_tpu_torch.mdp.rtdp_graph",
+            "cpr_tpu_torch.mdp.explorer", "cpr_tpu_torch.parallel",
+            "cpr_tpu_torch.parallel.grid",
+            "cpr_tpu_torch.experiments.break_even",
+            "cpr_tpu_torch.experiments.measure_rtdp"):
     importlib.import_module(mod)
 from cpr_tpu_torch.mdp import Compiler, ptmdp
 from cpr_tpu_torch.mdp.models import Fc16BitcoinSM
@@ -203,4 +210,79 @@ def test_mdp_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.pe_sweeps(tm, pol, 1.0, v, v, c.ctl, c.delta, 0, 1,
                           theta=0.0, max_iter=1)
+    assert kernels.launches == before
+
+
+BLOCKED_GRID_RUN = """
+import sys
+for name in ("jax", "jaxlib", "flax", "gymnasium", "cpr_tpu"):
+    sys.modules[name] = None
+from cpr_tpu_torch import random as rnd
+from cpr_tpu_torch.mdp import grid, rtdp_graph
+pm = grid.param_ptmdp(grid.compile_protocol("fc16", cutoff=3, n_workers=2),
+                      horizon=10)
+vi = grid.grid_value_iteration(pm, (0.3,), (0.5,), stop_delta=1e-5,
+                               device="cpu")
+assert vi["grid_converged"].all()
+r = rtdp_graph(pm.mdp.tensor(device="cpu"), rnd.PRNGKey(0, device="cpu"),
+               max_steps=5, batch=4, buffer=8)
+assert r["rtdp_steps"] == 5
+print("grid-isolated-ok")
+"""
+
+
+def test_grid_and_rtdp_run_with_jax_and_cpr_tpu_blocked():
+    # frontier workers are spawned processes: they import the port only
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", BLOCKED_GRID_RUN],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "grid-isolated-ok" in out.stdout
+
+
+def test_grid_and_rtdp_entry_points_need_a_device(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists")
+    from cpr_tpu_torch.experiments import measure_rows_grid
+    from cpr_tpu_torch.experiments.break_even import exact_revenue_curve
+    from cpr_tpu_torch.experiments.measure_rtdp import measure_rtdp_rows
+    from cpr_tpu_torch.mdp import grid
+
+    monkeypatch.setenv("CPR_MDP_CACHE", str(tmp_path))
+    pm = grid.compile_protocol("fc16", cutoff=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        grid.grid_value_iteration(pm, (0.3,), (0.5,), stop_delta=1e-5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        grid.solve_grid_cached("fc16", cutoff=3, alphas=(0.3,),
+                               gammas=(0.5,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        exact_revenue_curve("fc16", gamma=0.5, cutoff=3, alphas=(0.3,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        measure_rows_grid([("fc16", 3, {}, "fc16")], alphas=(0.3,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        measure_rtdp_rows([("fc16", lambda: None)])
+    assert os.listdir(tmp_path) == []
+
+
+def test_grid_and_rtdp_kernel_wrappers_refuse_cpu_tensors():
+    from cpr_tpu_torch.mdp import explicit as E
+    tm = _tiny_mdp().tensor(device="cpu")
+    S = tm.n_states
+    probs = tm.prob[None].clone()
+    valid = E.grid_valid_segments(tm, probs)
+    planes = [torch.zeros((1, S)), torch.zeros((1, S))]
+    pol = torch.zeros((1, S), dtype=torch.int32)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.grid_vi_sweeps(tm, probs, valid,
+                               torch.zeros(1, dtype=torch.int32), 1.0,
+                               planes, planes, pol,
+                               torch.zeros((1, 1), dtype=torch.int64), 1)
+    v = torch.zeros(S)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.rtdp_walkers(tm, torch.zeros(2, dtype=torch.int32), v, v,
+                             E.start_cdf(tm), graph=True, max_steps=1,
+                             batch=1, cap=1, eps=0.5, restart_p=0.5,
+                             discount=1.0, stop_delta=0.0, decay=0.5)
     assert kernels.launches == before

@@ -313,24 +313,27 @@ def test_measure_rows_matches_reference():
 
 
 def test_unported_options_raise(tables):
+    from cpr_tpu_torch.mdp import grid as G
+    from cpr_tpu_torch.mdp.rtdp_graph import rtdp_sharded_polish
     _, _, tm, _, _ = tables
     with pytest.raises(NotImplementedError, match="item 6"):
         tm.value_iteration(stop_delta=1e-3, impl="chunked",
                            checkpoint_path="vi.ckpt")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tm.padded_layout()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tm.rtdp(None, steps=1)
-    with pytest.raises(NotImplementedError, match="K7"):
-        E.make_grid_vi_chunk(tm.n_states, tm.n_actions)
-    with pytest.raises(NotImplementedError, match="K7"):
-        E.run_grid_chunk_driver(None, None, 1, 1, None, 1e-3, 1)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        E.run_grid_chunk_driver(None, None, 1, 1, torch.float32, 1e-3, 1,
+                                checkpoint_path="grid.ckpt")
     with pytest.raises(NotImplementedError, match="item 13"):
         measure_mdp.measure_rows([], mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="K7"):
-        measure_mdp.measure_rows_grid()
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="item 13"):
+        measure_mdp.measure_rows_grid([], mesh=object(), device=CPU)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        G.grid_value_iteration(None, (0.3,), (0.5,), mesh=object())
+    with pytest.raises(NotImplementedError, match="item 13"):
+        rtdp_sharded_polish(tm, None, None, rtdp_steps=1)
+    with pytest.raises(NotImplementedError, match="item 7c"):
         measure_mdp.model_battery(native=False)
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        G.compile_protocol("ghostdag", cutoff=3)
 
 
 def test_sweep_layout_indexes_segments(tables):
