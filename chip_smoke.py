@@ -73,13 +73,45 @@ Phases, one line each; any failure raises and the exit code is not 0:
      and the library yardstick (torch.sparse.mm, cuSPARSE CSR SpMV of
      the same probability matrix with V: the expectation part only);
      K7 per grid sweep of 12 points (yardstick: 12 SpMVs) and K6 per
-     launch of 256 steps, with their bounds.
+     launch of 256 steps, with their bounds;
+ 14. K8 (the block-DAG primitives, device functions of K10) through its
+     check kernel: the register-machine script of core/dag.py at 4096
+     lanes, a 128-slot window and 9 parent slots against the plain
+     `script_plain` on the card, every result, register and DAG plane
+     exactly; and the committed JAX fixture's script
+     (tests/fixtures/torch_port_dag_golden.npz);
+ 15. K10-bk and K10-eth `step_lanes` against their plain versions at
+     their gym paths' lanes (8192 bk, 4096 Ethereum), 128 ticks of
+     numpy-seeded actions and admit/step masks, the
+     outputs every tick and the whole carry (every DAG plane, stale rows
+     included); then the fixture's tick traces;
+ 16. the K10 streams against their plain versions: 4096 lanes x 256
+     steps, every policy of bk (k=8, constant) and Ethereum (byzantium),
+     window 128, unchunked and in chunks of 100, the stats and the final
+     carry; then the fixture's per-policy sums and final carries;
+ 17. the bk path (BASELINE.json config 2, bench.py:206-231), its launch
+     counts zeroed before it and read after (K1 and K10-bk only; K8's
+     device functions run inside K10, its check kernel not at all):
+     BkSSZ k=8, constant, window 128, get-ahead, 8192 lanes x 128 steps,
+     alpha 0.35, gamma 0.5, max_steps 120, unchunked, one warm and three
+     timed calls; relative revenue inside BK_GUARD = (0.05, 0.6); the
+     plain version on the same keys held to the kernel's stats; then 100
+     `step_lanes` ticks at 8192 lanes (the gym path);
+ 18. the Ethereum path (config 3, bench.py:234-254) the same way (K1,
+     K10-eth): byzantium, window 128, fn19, 4096 lanes x 4096 steps
+     in chunks of 128, max_steps 120, revenue inside ETH_GUARD = (0.33,
+     0.55); the plain version held to the kernel over the first 256
+     steps; 100 `step_lanes` ticks at 4096 lanes;
+ 19. K10 device times per 128-step launch at the paths' shapes and per
+     step_lanes tick, K8's check kernel per launch, the plain versions'
+     times, and the bounds (the lane state read and written once per
+     launch; the threefry work of every step and reset).
 Then the kernels line (JSON: launches summed over the main paths, the
 error of the main-shape comparison, the times and the bound) and the
 last line {"ok": true, "device": {...}}.
 
 Tolerances: integer state, keys, actions, done and integer-valued
-rewards bit-identical; time fields rtol 1e-5 (log1pf differs from the
+rewards (the DAG envs' dyadic rewards too) bit-identical; time fields rtol 1e-5 (log1pf differs from the
 other implementation by ULPs and the float32 sum carries it); unit
 observations atol 1e-6 (atanf); K1 exponential within 2 ULP of the plain
 version on the card and 4 ULP of XLA's on the CPU. MDP: K4 and K5 sum
@@ -183,6 +215,20 @@ GRID_CORNERS = ((0.25, 0.25), (0.4, 0.75))
 # as in the port; RTDP_STOP < 0 runs the whole step budget.
 RTDP_SEED, RTDP_STEPS, RTDP_TIMED_STEPS, RTDP_STOP = 0, 20000, 256, -1.0
 RTDP_BATCH, RTDP_BUFFER, RTDP_EPS, RTDP_RESTART_P = 256, 1024, 0.5, 0.5
+# The DAG envs (K8, K10): the checks' shapes, the two paths (BASELINE.json
+# configs 2 and 3) and their revenue guards (bench.py's), the fixture.
+DAG_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_dag_golden.npz"
+DAG_ENVS = {"bk": ("bk-8-constant", "get-ahead"),
+            "eth": ("ethereum-byzantium", "fn19")}
+# (the step_lanes checks run at the gym paths' lanes, BK_/ETH_LANES)
+DAG_WINDOW, DAG_CHECK_LANES, DAG_CHECK_STEPS, DAG_CHECK_TICKS = 128, 4096, \
+    256, 128
+K8_LANES, K8_OPS, K8_PARENTS = 4096, 480, 9
+BK_LANES, BK_STEPS, BK_MAX_STEPS, BK_GUARD = 8192, 128, 120, (0.05, 0.6)
+ETH_LANES, ETH_STEPS, ETH_CHUNK, ETH_MAX_STEPS = 4096, 4096, 128, 120
+ETH_GUARD, ETH_PLAIN_STEPS = (0.33, 0.55), 256
+DAG_TIME_FIELDS = ("time", "last_chain_time", "last_sim_time",
+                   "vis_d_since", "born_at")
 
 
 def say(phase, **kw):
@@ -216,7 +262,8 @@ def cuda_ms(fn, reps):
 
 def device_ms(fn, reps, kernel):
     """Mean device time per launch of the CUDA kernel whose name contains
-    `kernel`, from torch.profiler's CUPTI trace of `reps` calls of `fn`.
+    `kernel` (a string, or a tuple of strings it must all contain), from
+    torch.profiler's CUPTI trace of `reps` calls of `fn`.
 
     Before each call a fill of L2_SCRUB_BYTES leaves the L2 cache full of
     dirty lines of another buffer: the kernel reads its inputs from HBM
@@ -234,8 +281,9 @@ def device_ms(fn, reps, kernel):
             fn()
         torch.cuda.synchronize()
     total_us, count = 0.0, 0
+    parts = (kernel,) if isinstance(kernel, str) else kernel
     for ev in prof.key_averages():
-        if kernel in ev.key:
+        if all(p in ev.key for p in parts):
             total_us += getattr(ev, "device_time_total",
                                 getattr(ev, "cuda_time_total", 0.0))
             count += ev.count
@@ -1412,6 +1460,431 @@ def phase_grid_rtdp_times(dev, report, tm, probs):
            for k in ("K6", "K7")})
 
 
+# -- the block-DAG envs: K8, K10-bk, K10-eth ----------------------------------
+
+
+def dag_env(name):
+    from cpr_tpu_torch.envs import registry
+    return registry.get(DAG_ENVS[name][0], window=DAG_WINDOW)
+
+
+def compare_dag_state(got, want, what, rtol=1e-5):
+    """Two bk or Ethereum states (or DAGs), every tensor: the clock fields
+    within rtol (equal infinities included), all else exactly. Returns the
+    largest clock difference."""
+    import dataclasses
+    err = 0.0
+
+    def walk(g, w, name):
+        nonlocal err
+        if dataclasses.is_dataclass(g):
+            for f in dataclasses.fields(g):
+                walk(getattr(g, f.name), getattr(w, f.name),
+                     f"{name}.{f.name}")
+        elif isinstance(g, tuple):
+            for i, (a, b) in enumerate(zip(g, w)):
+                walk(a, b, f"{name}[{i}]")
+        elif name.rsplit(".", 1)[-1] in DAG_TIME_FIELDS:
+            same = g == w
+            d = torch.where(same, torch.zeros_like(g), (g - w).abs())
+            check(bool((same | (d <= rtol * w.abs())).all()),
+                  f"{what}: {name} beyond rtol {rtol}")
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+        else:
+            check(torch.equal(g, w), f"{what}: {name} differs")
+
+    walk(got, want, "state")
+    return err
+
+
+def fixture_dag_state(dfx, prefix, env, dev):
+    """The DAG fixture's state under `prefix` as a port state on `dev`."""
+    from cpr_tpu_torch import convert
+    d = {"dag": {}}
+    for k, v in dfx.items():
+        if k.startswith(prefix):
+            f = k[len(prefix):]
+            if f.startswith("dag."):
+                d["dag"][f[4:]] = list(v) if f == "dag.parents" else v
+            elif f != "obs_carry":
+                d[f] = v
+    return convert.dag_state_from_numpy(env, d, dev)
+
+
+def dag_plain_stats(env, keys, params, policy, n_steps, chunk=None,
+                    timed=False):
+    """The stats driver over the plain twin (`stream_plain`) on whatever
+    device `keys` lie, in chunks of `chunk` steps; returns (stats, carry)
+    and, if `timed`, each chunk's seconds (the first includes the stream
+    prologue, as the kernel's first launch does)."""
+    from cpr_tpu_torch.envs.base import EPISODE_KEYS
+    secs, totals, n_done = [], 0, 0
+    chunk = chunk or n_steps
+    t0 = time.perf_counter()
+    carry = clone_carry(env._stream_init(keys, params))
+    for start in range(0, n_steps, chunk):
+        sums, nd, _ = env.stream_plain(carry, params, policy,
+                                       min(chunk, n_steps - start))
+        totals, n_done = totals + sums, n_done + nd
+        if timed:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            secs.append(t1 - t0)
+            t0 = t1
+    nd = torch.clamp(n_done, min=1)
+    stats = {k: totals[j] / nd for j, k in enumerate(EPISODE_KEYS)}
+    stats["n_episodes"] = n_done
+    return (stats, carry, secs) if timed else (stats, carry)
+
+
+def phase_k8(dev, dfx, report):
+    """K8's check kernel against `script_plain` at main shapes and
+    against the JAX fixture's script."""
+    from cpr_tpu_torch.core import dag as D
+    ops, args, fargs = D.make_script(3, K8_LANES, K8_OPS, K8_PARENTS)
+    a, f = torch.from_numpy(args).to(dev), torch.from_numpy(fargs).to(dev)
+
+    def fresh(L, W, P):
+        return D.empty(L, W, P, ring=True, anc_masks=True, device=dev)
+
+    dk, rk, ok = D.dag_script(fresh(K8_LANES, DAG_WINDOW, K8_PARENTS), ops,
+                              a, f)
+    t0 = time.perf_counter()
+    dp, rp, op = D.script_plain(fresh(K8_LANES, DAG_WINDOW, K8_PARENTS), ops,
+                                a, f)
+    torch.cuda.synchronize()
+    report["K8"]["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(ok, op), "K8 script results differ from plain")
+    check(torch.equal(rk, rp), "K8 script registers differ from plain")
+    err = compare_dag_state(dk, dp, "K8 vs plain")
+    wraps = int(dk.gid.max())
+    check(wraps >= DAG_WINDOW, "K8 check did not wrap the window")
+    # against jax (committed fixture)
+    W, P = dfx["k8_dag.gid"].shape[1], dfx["k8_dag.parents"].shape[0]
+    L = dfx["k8_dag.gid"].shape[0]
+    dj, rj, oj = D.dag_script(fresh(L, W, P), dfx["k8_ops"],
+                              torch.from_numpy(dfx["k8_args"]).to(dev),
+                              torch.from_numpy(dfx["k8_fargs"]).to(dev))
+    check(np.array_equal(oj.cpu().numpy(), dfx["k8_out"]),
+          "K8 script results differ from jax")
+    check(np.array_equal(rj.cpu().numpy(), dfx["k8_regs"]),
+          "K8 registers differ from jax")
+    check(np.array_equal(torch.stack(dj.parents).cpu().numpy(),
+                         dfx["k8_dag.parents"]), "K8 parents differ from jax")
+    for name in D.FIELDS[1:]:
+        check(np.array_equal(getattr(dj, name).cpu().numpy(),
+                             dfx[f"k8_dag.{name}"]),
+              f"K8 {name} differs from jax")
+    report["K8"]["max_abs_err"] = err
+    say("k8", lanes=K8_LANES, ops=K8_OPS, window=DAG_WINDOW,
+        parents=K8_PARENTS, max_gid=wraps,
+        overflowed=int(dk.overflow.sum()), fixture_lanes=L, max_abs_err=err,
+        ok=True)
+
+
+def phase_k10_lanes(dev, dfx, report):
+    """K10-bk and K10-eth step_lanes against their plain versions over
+    seeded masks at the gym paths' lanes, then the fixture's tick
+    traces."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs.base import INFO_KEYS
+    from cpr_tpu_torch.params import make_params
+    for name in DAG_ENVS:
+        env = dag_env(name)
+        lanes = BK_LANES if name == "bk" else ETH_LANES
+        params = make_params(alpha=0.35, gamma=0.5, max_steps=32)
+        rng = np.random.default_rng(1)
+        carry = env.init_lanes(rnd.split(rnd.PRNGKey(11, dev), lanes), params)
+        fresh = env.init_lanes(rnd.split(rnd.PRNGKey(12, dev), lanes), params)
+        s_plain, o_plain = env._stream_init(
+            rnd.split(rnd.PRNGKey(11, dev), lanes), params)
+        err = compare_dag_state(carry[0], s_plain, f"{name} init_lanes")
+        check(float((carry[1] - o_plain).abs().max()) <= 1e-6, "init obs")
+        plain = clone_carry(carry)
+        n_done = 0
+        for t in range(DAG_CHECK_TICKS):
+            actions = torch.from_numpy(rng.integers(
+                0, env.n_actions, lanes).astype(np.int32)).to(dev)
+            admit = torch.from_numpy(rng.random(lanes) < 0.05).to(dev)
+            step = torch.from_numpy(rng.random(lanes) < 0.8).to(dev)
+            _, out = env.step_lanes(carry, actions, admit, fresh, step,
+                                    params)
+            _, out_p = env.step_lanes_plain(plain, actions, admit, fresh,
+                                            step, params)
+            err = max(err, compare_outputs(out, out_p,
+                                           f"{env.kernel_name} tick {t}"))
+            n_done += int(out[2].sum())
+        err = max(err, compare_dag_state(carry[0], plain[0],
+                                         f"{env.kernel_name} ticks"))
+        check(float((carry[1] - plain[1]).abs().max()) <= 1e-6, "carry obs")
+        check(n_done > 0, f"{name} step_lanes check never reset a lane")
+        # against jax (committed fixture): replay the tick trace
+        key = DAG_ENVS[name][0]
+        p3 = make_params(alpha=0.35, gamma=0.5, max_steps=12)
+        carry = env.init_lanes(rnd.from_numpy_words(
+            dfx[f"{name}_sl_keys"], dev), p3)
+        fresh = env.init_lanes(rnd.from_numpy_words(
+            dfx[f"{name}_sl_fresh_keys"], dev), p3)
+        cvt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        for t in range(dfx[f"{name}_sl_actions"].shape[0]):
+            _, out = env.step_lanes(carry, cvt(dfx[f"{name}_sl_actions"][t]),
+                                    cvt(dfx[f"{name}_sl_admit"][t]), fresh,
+                                    cvt(dfx[f"{name}_sl_step"][t]), p3)
+            want = (cvt(dfx[f"{name}_sl_out_obs"][t]),
+                    cvt(dfx[f"{name}_sl_out_reward"][t]),
+                    cvt(dfx[f"{name}_sl_out_done"][t]),
+                    {k: cvt(dfx[f"{name}_sl_out_info"][t][i])
+                     for i, k in enumerate(INFO_KEYS)})
+            compare_outputs(out, want, f"{key} step_lanes vs jax tick {t}")
+        compare_dag_state(carry[0], fixture_dag_state(
+            dfx, f"{name}_sl_final_", env, dev), f"{key} step_lanes vs jax")
+        report[env.kernel_name]["lanes_err"] = err
+        say(f"k10_{name}_lanes", lanes=lanes, ticks=DAG_CHECK_TICKS,
+            episodes_ended=n_done, max_abs_err=err, ok=True)
+
+
+def mixed_policy(env, n):
+    """One policy per group of n lanes, in `scripted_policies` order, each
+    read from the decoded observation as the JAX package computes it: the
+    plain twin runs every policy of an env in one batched call."""
+    def policy(obs):
+        group = torch.arange(obs.shape[0], device=obs.device) // n
+        out = torch.zeros(obs.shape[0], dtype=torch.int32, device=obs.device)
+        for i, name in enumerate(env.scripted_policies):
+            out = torch.where(group == i, env.policies[name](obs), out)
+        return out
+    return policy
+
+
+def phase_k10_streams(dev, dfx, report):
+    """The K10 streams against their plain versions (every policy,
+    unchunked and chunked), then against the fixture."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs.base import EPISODE_KEYS, map_state
+    from cpr_tpu_torch.params import make_params
+    for name in DAG_ENVS:
+        env = dag_env(name)
+        params = make_params(alpha=0.35, gamma=0.5, max_steps=64)
+        n = DAG_CHECK_LANES
+        keys = rnd.split(rnd.PRNGKey(21, dev), n)
+        err = report[env.kernel_name].pop("lanes_err")
+        n_pol = len(env.scripted_policies)
+        want_all, pcarry = dag_plain_stats(env, keys.repeat(n_pol, 1), params,
+                                           mixed_policy(env, n),
+                                           DAG_CHECK_STEPS)
+        for i, pol in enumerate(env.scripted_policies):
+            sl = slice(i * n, (i + 1) * n)
+            want = {k: v[sl] for k, v in want_all.items()}
+            for chunk in (None, 100):
+                got = env.make_episode_stats_fn(params, env.policies[pol],
+                                                DAG_CHECK_STEPS,
+                                                chunk=chunk)(keys)
+                err = max(err, compare_stats(got, want,
+                                             f"{env.kernel_name} {pol}"))
+            kcarry, _, _, _ = env._stream(None, keys, 1, DAG_CHECK_STEPS,
+                                          params, pol, False)
+            err = max(err, compare_dag_state(
+                kcarry[0], map_state(lambda t: t[sl], pcarry[0]),
+                f"{env.kernel_name} {pol}"))
+            check(int(want["n_episodes"].min()) >= 2,
+                  f"{name} check did not cross episode ends")
+        # against jax (committed fixture)
+        p2 = make_params(alpha=0.35, gamma=0.5, max_steps=200)
+        fkeys = rnd.from_numpy_words(dfx[f"{name}_keys"], dev)
+        main = DAG_ENVS[name][1]
+        for i, pol in enumerate(env.scripted_policies):
+            carry, sums, nd, _ = env._stream(None, fkeys, 1, 256, p2, pol,
+                                             True)
+            check(np.array_equal(nd.cpu().numpy(), dfx[f"{name}_p{i}_n_done"]),
+                  f"{name} {pol} episodes differ from jax")
+            ws = dfx[f"{name}_p{i}_sums"]
+            for j, k in enumerate(EPISODE_KEYS):
+                g = sums[j].cpu().numpy()
+                if "time" in k:
+                    check(bool((np.abs(g - ws[j]) <= 1e-5 * np.abs(ws[j]))
+                               .all()), f"{name} {pol} {k} vs jax")
+                else:
+                    check(np.array_equal(g, ws[j]),
+                          f"{name} {pol} {k} differs from jax")
+            check(float(np.abs(carry[1].cpu().numpy()
+                               - dfx[f"{name}_p{i}_obs"]).max()) <= 1e-6,
+                  f"{name} {pol} obs vs jax")
+            if pol == main:
+                compare_dag_state(carry[0], fixture_dag_state(
+                    dfx, f"{name}_final_", env, dev), f"{name} {pol} vs jax")
+        report[env.kernel_name]["max_abs_err"] = err
+        say(f"k10_{name}_streams", lanes=n, steps=DAG_CHECK_STEPS,
+            policies=n_pol, plain_lanes=n * n_pol, chunked=True,
+            max_abs_err=err, ok=True)
+
+
+def phase_dag_path(dev, report, name):
+    """A DAG env's main path (bench.py's config 2 or 3), its launch
+    counts, the plain version held to the kernel, then the gym path."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs.base import EPISODE_KEYS
+    from cpr_tpu_torch.params import make_params
+    env = dag_env(name)
+    pol = env.policies[DAG_ENVS[name][1]]
+    k10 = env.kernel_name
+    if name == "bk":
+        lanes, steps, chunk, guard = BK_LANES, BK_STEPS, None, BK_GUARD
+        max_steps, plain_steps = BK_MAX_STEPS, BK_STEPS
+    else:
+        lanes, steps, chunk, guard = ETH_LANES, ETH_STEPS, ETH_CHUNK, \
+            ETH_GUARD
+        max_steps, plain_steps = ETH_MAX_STEPS, ETH_PLAIN_STEPS
+    params = make_params(alpha=0.35, gamma=0.5, max_steps=max_steps)
+
+    kernels.reset_launches()
+    keys = rnd.split(rnd.PRNGKey(0, dev), lanes)
+    fn = env.make_episode_stats_fn(params, pol, steps, chunk=chunk)
+    stats = fn(keys)
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        stats = fn(keys)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K1", k10), name)
+    atk = float(stats["episode_reward_attacker"].mean())
+    dfn = float(stats["episode_reward_defender"].mean())
+    rel = atk / (atk + dfn)
+    check(all(torch.isfinite(stats[k]).all() for k in EPISODE_KEYS),
+          "non-finite stats")
+    check(guard[0] < rel < guard[1],
+          f"{name} relative revenue {rel} outside {guard}")
+    # lanes with an episode that overflowed the window (ended before
+    # max_steps: max_progress and max_time are unbounded here)
+    short = stats["episode_n_steps"] < max_steps
+    overflowed = int((short & (stats["n_episodes"] > 0)).sum())
+    say(name, lanes=lanes, steps=steps, chunk=chunk, rel_revenue=rel,
+        episodes=int(stats["n_episodes"].sum()),
+        lanes_overflowed=overflowed,
+        env_steps_per_s=lanes * steps / min(secs), call_s=secs,
+        launches=json.dumps(counts))
+
+    # the plain version on the same keys (the first plain_steps steps, in
+    # 128-step chunks as the timed launch runs them; the first chunk's
+    # time is the plain version's time of that launch)
+    part = env.make_episode_stats_fn(params, pol, plain_steps,
+                                     chunk=chunk)(keys)
+    want, _, chunk_s = dag_plain_stats(env, keys, params, pol, plain_steps,
+                                       chunk=128, timed=True)
+    report[k10]["plain_ms"] = chunk_s[0] * 1e3
+    err = compare_stats(part, want, f"{k10} vs plain at main shapes")
+    report[k10]["max_abs_err"] = max(report[k10]["max_abs_err"], err)
+    say(f"{name}_vs_plain", steps=plain_steps, max_abs_err=err, ok=True)
+
+    # the gym step path: resident lanes, one K10 launch per tick
+    kernels.reset_launches()
+    carry = env.reset_lanes(rnd.split(rnd.PRNGKey(1, dev), lanes), params)
+    fresh = env.reset_lanes(rnd.split(rnd.PRNGKey(2, dev), lanes), params)
+    no_admit = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    step_all = torch.ones(lanes, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tick_done = 0
+    for _ in range(MAIN_TICKS):
+        actions = pol(carry[1])
+        _, (obs, _, done, _) = env.step_lanes(carry, actions, no_admit, fresh,
+                                              step_all, params)
+        tick_done += done.sum()
+    torch.cuda.synchronize()
+    tick_s = time.perf_counter() - t0
+    gym_counts = dict(kernels.launches)
+    path_launches(gym_counts, ("K1", k10), f"{name} gym")
+    check(gym_counts[k10] == MAIN_TICKS + 2,
+          f"{k10} launched {gym_counts[k10]} times for {MAIN_TICKS} ticks "
+          "and two resets")
+    check(bool(torch.isfinite(obs).all()), "non-finite step_lanes obs")
+    say(f"{name}_gym", lanes=lanes, ticks=MAIN_TICKS,
+        ticks_per_s=MAIN_TICKS / tick_s,
+        lane_steps_per_s=MAIN_TICKS * lanes / tick_s,
+        episodes_ended=int(tick_done), launches=json.dumps(gym_counts))
+    return counts, gym_counts
+
+
+def carry_bytes(carry):
+    from cpr_tpu_torch.envs.base import map_state
+    total = [0]
+    map_state(lambda t: total.__setitem__(0, total[0] + t.nbytes), carry[0])
+    return total[0] + carry[1].nbytes
+
+
+def phase_dag_times(dev, report):
+    """K10 device times per 128-step launch at the paths' shapes and per
+    step_lanes tick, K8's check kernel per launch, the plain versions'
+    times and the bounds."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.core import dag as D
+    from cpr_tpu_torch.params import make_params
+    times = {}
+    for name, env_kind in (("bk", "BkEnv"), ("eth", "EthEnv")):
+        env = dag_env(name)
+        k10 = report[env.kernel_name]
+        L = BK_LANES if name == "bk" else ETH_LANES
+        max_steps = BK_MAX_STEPS if name == "bk" else ETH_MAX_STEPS
+        T = 128
+        params = make_params(alpha=0.35, gamma=0.5, max_steps=max_steps)
+        pid = env.scripted_policy_id(DAG_ENVS[name][1])
+        keys = rnd.split(rnd.PRNGKey(0, dev), L)
+        carry = env._empty_carry(L, dev)
+        k10["ms"] = device_ms(lambda: env._kernel_stream(
+            carry, keys, 1, T, params, pid, True, False), 3,
+            ("dag_stream_kernel", env_kind))
+        # keys in; the lane state (every DAG plane and scalar) read and
+        # written once, obs, sums and counts out; the threefry work of
+        # the prologue, every step and every reset this launch made
+        # (plain_ms: the path's first plain chunk, phase_dag_path)
+        _, n_done, _ = env._kernel_stream(carry, keys, 1, T, params, pid,
+                                          True, False)
+        resets = int(n_done.sum())
+        state_b = carry_bytes(carry)
+        k10_bytes = L * 8 + 2 * state_b + L * (7 * 4 + 4)
+        k10_ops = THREEFRY_OPS * (MINE_THREEFRY * (L * T + L + resets) + L)
+        k10["bound_ms"], k10["bound_by"] = bound_ms(k10_bytes, k10_ops)
+        k10["state_bytes"] = state_b
+        k10["launch_steps"] = T
+        # one step_lanes tick of every lane
+        carry = env.reset_lanes(keys, params)
+        fresh = env.reset_lanes(rnd.split(rnd.PRNGKey(3, dev), L), params)
+        actions = env.policies[DAG_ENVS[name][1]](carry[1])
+        no_admit = torch.zeros(L, dtype=torch.bool, device=dev)
+        step_all = torch.ones(L, dtype=torch.bool, device=dev)
+        tick = lambda: env.step_lanes(  # noqa: E731
+            carry, actions, no_admit, fresh, step_all, params)
+        k10["step_lanes_ms"] = device_ms(tick, 20,
+                                         ("dag_step_lanes_kernel", env_kind))
+        k10["step_lanes_plain_ms"] = event_ms(lambda: env.step_lanes_plain(
+            carry, actions, no_admit, fresh, step_all, params), 3)
+        k10["library_ms"] = None  # no PyTorch call computes an env step
+        times[env.kernel_name] = {f: k10[f] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "step_lanes_ms",
+            "step_lanes_plain_ms", "state_bytes")}
+
+    ops, args, fargs = D.make_script(3, K8_LANES, K8_OPS, K8_PARENTS)
+    a, f = torch.from_numpy(args).to(dev), torch.from_numpy(fargs).to(dev)
+    dag = D.empty(K8_LANES, DAG_WINDOW, K8_PARENTS, ring=True, anc_masks=True,
+                  device=dev)
+    k8 = report["K8"]
+    k8["ms"] = device_ms(lambda: D.dag_script(dag, ops, a, f), 3,
+                         "dag_script_kernel")
+    # the DAG read and written once, the script's arguments read, its
+    # results and registers written; no arithmetic to speak of
+    dag_b = carry_bytes((dag, torch.empty(0)))
+    k8_bytes = 2 * dag_b + a.nbytes + f.nbytes + K8_OPS * K8_LANES * 16 \
+        + K8_LANES * 32
+    k8["bound_ms"], k8["bound_by"] = bound_ms(k8_bytes, 0)
+    k8["library_ms"] = None
+    times["K8"] = {f: k8[f] for f in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by")}
+    say("dag_times", **{k: json.dumps(v) for k, v in times.items()})
+
+
 def parametric_capstone():
     """The capstone's structure, compiled once at the probe point with
     its exponent columns; returns (ParamMDP, host seconds)."""
@@ -1462,6 +1935,8 @@ def main() -> int:
         mfx = {k: f[k] for k in f.files}
     with np.load(GRID_FIXTURE) as f:
         gfx = {k: f[k] for k in f.files}
+    with np.load(DAG_FIXTURE) as f:
+        dfx = {k: f[k] for k in f.files}
     csrc = "cpr_tpu_torch/csrc"
     report = {
         "K1": dict(name="K1 threefry2x32", route="cuda",
@@ -1485,6 +1960,23 @@ def main() -> int:
         "K7": dict(name="K7 grid Bellman sweep", route="cuda",
                    source=f"{csrc}/mdp_sweep.cu",
                    replaces="cpr_tpu/mdp/explicit.py:715"),
+        # device functions that K10 runs inside its launches: the paths
+        # hold K8's own counter (its check kernel's) at 0, and its row's
+        # launches are the K10 launches of the paths
+        "K8": dict(name="K8 block-DAG primitives (device functions run "
+                   "inside K10-bk/K10-eth, launches theirs; ms, plain_ms "
+                   "and bound_ms are its check kernel dag_script_kernel's)",
+                   route="cuda",
+                   source=f"{csrc}/dag.cuh",
+                   replaces="cpr_tpu/core/dag.py:252"),
+        "K10-bk": dict(name="K10-bk Bk withholding stream and step_lanes",
+                       route="cuda", source=f"{csrc}/bk_stream.cu",
+                       replaces="cpr_tpu/envs/bk.py:340", max_abs_err=0.0),
+        "K10-eth": dict(name="K10-eth Ethereum withholding stream and "
+                        "step_lanes", route="cuda",
+                        source=f"{csrc}/ethereum_stream.cu",
+                        replaces="cpr_tpu/envs/ethereum.py:327",
+                        max_abs_err=0.0),
     }
     phase_k1(dev, fx, report)
     phase_k3(dev, fx)
@@ -1501,13 +1993,22 @@ def main() -> int:
                                                 compiled, capstone_rev)
     compiler.shutdown()
     rtdp_counts = phase_rtdp(dev, report, table, capstone_rev)
+    phase_k8(dev, dfx, report)
+    phase_k10_lanes(dev, dfx, report)
+    phase_k10_streams(dev, dfx, report)
+    bk_counts, bk_gym = phase_dag_path(dev, report, "bk")
+    eth_counts, eth_gym = phase_dag_path(dev, report, "eth")
     for k, r in report.items():
         r["launches"] = sum(c[k] for c in (stream_counts, gym_counts,
                                            mdp_counts, grid_counts,
-                                           rtdp_counts))
+                                           rtdp_counts, bk_counts, bk_gym,
+                                           eth_counts, eth_gym))
+    report["K8"]["launches"] = (report["K10-bk"]["launches"]
+                                + report["K10-eth"]["launches"])
     phase_times(dev, report, main_episodes)
     phase_mdp_times(dev, report, table, policy)
     phase_grid_rtdp_times(dev, report, grid_table, probs)
+    phase_dag_times(dev, report)
     for k, v in report.items():
         check(v["ms"] >= v["bound_ms"],
               f"{k} measured {v['ms']} ms, below its bound of "

@@ -1,7 +1,8 @@
 """Carrying state between the JAX package and the port.
 
 The system has no weights: what crosses over is the parameter record,
-PRNG keys, the per-lane Nakamoto `State` and compiled MDP tables.
+PRNG keys, the per-lane env states (Nakamoto's scalars; bk's and
+Ethereum's `Dag` plus scalars) and compiled MDP tables.
 Everything passes through numpy with the reference's field names; keys
 are uint32 word pairs there (jax's key data) and int32 bit patterns
 here.
@@ -9,6 +10,8 @@ here.
     params_from_numpy({f: np.asarray(getattr(jax_params, f)) ...})
     state_from_numpy({f: np.asarray(getattr(jax_state, f)) ...}, device)
     state_to_numpy(state) -> {field: np.ndarray}
+    dag_state_from_numpy(env, {"dag": {f: ...}, f: ...}, device)
+    dag_state_to_numpy(state) -> {"dag": {f: ...}, f: ...}
     tensor_mdp(tm.n_states, tm.n_actions, *(np.asarray(getattr(tm, f))
                for f in ("start", "src", "act", "dst", "prob", "reward",
                          "progress")), device=device)
@@ -80,3 +83,62 @@ def tensor_mdp(n_states: int, n_actions: int, start, src, act, dst, prob,
         n_states, n_actions, put(start, fdt), put(src, np.int32),
         put(act, np.int32), put(dst, np.int32), put(prob, fdt),
         put(reward, fdt), put(progress, fdt))
+
+
+def dag_state_from_numpy(env, d: dict, device=None):
+    """A bk or Ethereum state [L] for `env` (a `DagEnv`) from numpy arrays
+    under the reference's field names: `d["dag"]` holds the `Dag` fields
+    (`parents` a sequence of [L, B] planes), the other keys the env
+    state's scalars (`key` as uint32 [L, 2]). Shapes and dtypes must be
+    the reference's."""
+    from cpr_tpu_torch.core import dag as D
+
+    dev = _device.resolve(device)
+    names = [f for f in env.state_cls.__dataclass_fields__ if f != "dag"]
+    missing = set(names + ["dag"]) - set(d)
+    missing |= {f"dag.{f}" for f in set(D.FIELDS) - set(d.get("dag", {}))}
+    if missing:
+        raise KeyError(f"missing state fields: {sorted(missing)}")
+    planes = d["dag"]
+
+    def put(x, dt):
+        return torch.from_numpy(np.array(x, dtype=dt)).to(dev)
+
+    np_dt = {torch.int32: np.int32, torch.float32: np.float32,
+             torch.bool: np.bool_}
+    dag = D.Dag(
+        parents=tuple(put(p, np.int32) for p in planes["parents"]),
+        **{f: put(planes[f], np_dt[D.PLANE_DTYPES[f]])
+           for f in D.FIELDS if f != "parents"})
+    out = {}
+    for f in names:
+        if f == "key":
+            out[f] = rnd.from_numpy_words(d[f], dev)
+        else:
+            dt = (np.int32 if f in env.int_fields else np.bool_
+                  if f in env.bool_fields else np.float32)
+            out[f] = put(d[f], dt)
+    return env.state_cls(dag=dag, **out)
+
+
+def dag_state_to_numpy(state) -> dict:
+    """{"dag": {field: np.ndarray, "parents": [planes]}, field: ...} of a
+    bk or Ethereum state, `key` as uint32 [L, 2]."""
+    import dataclasses
+
+    def np_(t):
+        return t.detach().cpu().numpy()
+
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if f.name == "dag":
+            out["dag"] = {g.name: ([np_(p) for p in v.parents]
+                                   if g.name == "parents"
+                                   else np_(getattr(v, g.name)))
+                          for g in dataclasses.fields(v)}
+        elif f.name == "key":
+            out["key"] = rnd.to_numpy_words(v)
+        else:
+            out[f.name] = np_(v)
+    return out

@@ -1,0 +1,348 @@
+// The episode-stream and step_lanes drivers of the DAG envs' kernels
+// (K10-bk, K10-eth), one warp per lane, templated on the env.
+//
+// Replaces: cpr_tpu/envs/base.py:342-506 `make_episode_stats_fn` (its
+// scan over `_autoreset_body`, 206-231) with `rollout` (303-328) as the
+// STORE_TRAJ variant and `init_lanes`/`reset_lanes` (245-257) as its
+// zero-length launches, and base.py:259-301 `step_lanes`; the auto-reset
+// is the logical reset of base.py:87-124 (rows [0, 2) of every DAG plane
+// and every scalar switch to the fresh state, computed in place). Plain
+// twins: cpr_tpu_torch/envs/base.py `stream_plain`, `step_lanes_plain`.
+// The design follows K2/K3 (csrc/nakamoto_stream.cu) with a warp where
+// those have a thread: the lane's scalars are warp-uniform registers,
+// its DAG is K8's `LaneDag` (csrc/dag.cuh).
+//
+// An env supplies, as static device functions of a struct:
+//   kObs                       observation length
+//   reset(g, s, key, p, c)     dag cleared to rows [0, 2), fresh scalars,
+//                              genesis and the first interaction
+//   step(g, s, action, p, c, out)   one step and finish_step
+//   obs_ints(g, s, c, v)       the observation's natural-scale fields
+//   encode(v, c, f)            obs.encode of those fields
+//   policy(id, v, c)           a scripted policy on the integer fields
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "dag.cuh"
+#include "threefry.cuh"
+
+namespace cpr {
+
+// Per-lane scalars of a DAG env state (ctypes `_EnvPtrs`): i = public,
+// private, event, pending_append | race_tip, steps, n_activations;
+// f = time and the five last_* fields; b = ethereum's mining_own,
+// mining_foreign.
+struct EnvPtrs {
+  int32_t* i[6];
+  float* f[6];
+  bool* b[2];
+  uint2* key;
+};
+
+struct EnvParams {
+  float alpha;
+  float gamma;
+  float activation_delay;
+  float max_progress;
+  float max_time;
+  int32_t max_steps;
+};
+
+// Static env options (ctypes `_EnvConfig`).
+struct EnvConfig {
+  int32_t k;           // bk: votes per block
+  int32_t constant;    // incentive scheme: bk constant | block, eth constant | discount
+  int32_t ctk;         // bk: release selection width (capacity_topk)
+  int32_t max_uncles;  // eth
+  int32_t pref_work;   // eth: preference by work (else height)
+  int32_t prog_work;   // eth: progress by work (else height)
+  int32_t whitepaper;  // eth: the whitepaper preset's policy fields
+  int32_t strict;      // eth: strict_match
+  int32_t unit;        // unit observations
+};
+
+// Trajectory, time-major: obs [T, L, kObs], action/reward/done [T, L],
+// info [12, T, L].
+struct DagTrajPtrs {
+  float* obs;
+  int32_t* action;
+  float* reward;
+  bool* done;
+  float* info;
+};
+
+constexpr int kInfo = 12;    // INFO_KEYS, in order
+constexpr int kEpisode = 7;  // info[5..11]: the episode_* keys
+constexpr int kMaxObs = 10;
+constexpr int kWarpsPerBlock = 4;
+
+struct Scal {
+  int32_t pub, priv, event, x, steps, nact;
+  float time, last[5];  // last_reward_attacker .. last_sim_time
+  bool own, foreign;
+  uint2 key;
+};
+
+struct StepOut {
+  float reward;
+  bool done;
+  float info[kInfo];
+};
+
+__device__ __forceinline__ Scal load_scal(const EnvPtrs& e, int64_t i) {
+  Scal s;
+  s.pub = e.i[0][i];
+  s.priv = e.i[1][i];
+  s.event = e.i[2][i];
+  s.x = e.i[3][i];
+  s.steps = e.i[4][i];
+  s.nact = e.i[5][i];
+  s.time = e.f[0][i];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) s.last[j] = e.f[1 + j][i];
+  s.own = e.b[0] != nullptr ? e.b[0][i] : false;
+  s.foreign = e.b[1] != nullptr ? e.b[1][i] : false;
+  s.key = e.key[i];
+  return s;
+}
+
+__device__ __forceinline__ void store_scal(const EnvPtrs& e, int64_t i,
+                                           const Scal& s) {
+  if ((threadIdx.x & 31) != 0) return;
+  e.i[0][i] = s.pub;
+  e.i[1][i] = s.priv;
+  e.i[2][i] = s.event;
+  e.i[3][i] = s.x;
+  e.i[4][i] = s.steps;
+  e.i[5][i] = s.nact;
+  e.f[0][i] = s.time;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) e.f[1 + j][i] = s.last[j];
+  if (e.b[0] != nullptr) e.b[0][i] = s.own;
+  if (e.b[1] != nullptr) e.b[1][i] = s.foreign;
+  e.key[i] = s.key;
+}
+
+// Fresh scalars on `key` (the reset's zero state before its first draw).
+__device__ __forceinline__ void zero_scal(Scal& s, uint2 key, int32_t event) {
+  s.pub = s.priv = 0;
+  s.event = event;
+  s.x = kNone;
+  s.steps = s.nact = 0;
+  s.time = 0.f;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) s.last[j] = 0.f;
+  s.own = s.foreign = true;
+  s.key = key;
+}
+
+// The four keys of one activation: split(key, 4) and one 32-bit draw from
+// each of the last three (jax.random.split + exponential/uniform).
+struct Draws {
+  uint2 key;
+  float e, u1, u2;
+};
+
+__device__ __forceinline__ Draws draw4(uint2 key) {
+  Draws r;
+  r.key = split_key(key, 0u);
+  r.e = exponential_of_bits(random_bits(split_key(key, 1u), 0u));
+  r.u1 = uniform_of_bits(random_bits(split_key(key, 2u), 0u));
+  r.u2 = uniform_of_bits(random_bits(split_key(key, 3u), 0u));
+  return r;
+}
+
+// base.py:137-171 `finish_step`.
+__device__ __forceinline__ void finish_step(Scal& s, const EnvParams& p,
+                                            float ra, float rd,
+                                            float progress, float ct,
+                                            bool extra_done, StepOut& o) {
+  o.done = !(s.steps < p.max_steps && progress < p.max_progress &&
+             s.time < p.max_time) ||
+           extra_done;
+  o.reward = ra - s.last[0];
+  o.info[0] = o.reward;
+  o.info[1] = rd - s.last[1];
+  o.info[2] = progress - s.last[2];
+  o.info[3] = ct - s.last[3];
+  o.info[4] = s.time - s.last[4];
+  o.info[5] = ra;
+  o.info[6] = rd;
+  o.info[7] = progress;
+  o.info[8] = ct;
+  o.info[9] = s.time;
+  o.info[10] = (float)s.steps;
+  o.info[11] = (float)s.nact;
+  s.last[0] = ra;
+  s.last[1] = rd;
+  s.last[2] = progress;
+  s.last[3] = ct;
+  s.last[4] = s.time;
+}
+
+// obs.py field encodings, float32 in the JAX package's order.
+__device__ __forceinline__ float enc_uint(int32_t x, float scale, bool unit) {
+  if (!unit) return (float)x;
+  const float two_over_pi = (float)(2.0 / 3.14159265358979323846);
+  return two_over_pi * atanf((float)x / scale);
+}
+__device__ __forceinline__ float enc_int(int32_t x, float scale, bool unit) {
+  if (!unit) return (float)x;
+  const float pi = (float)3.14159265358979323846;
+  return 0.5f + atanf((float)x / scale) / pi;
+}
+__device__ __forceinline__ float enc_discrete(int32_t x, int n, bool unit) {
+  if (!unit) return (float)x;
+  return (float)x / (float)(n - 1);
+}
+
+// Thread f < n of the warp writes element f of `v` to `out`.
+__device__ __forceinline__ void put_row(float* out, const float* v, int n) {
+  const int t = threadIdx.x & 31;
+#pragma unroll
+  for (int f = 0; f < kMaxObs; ++f)
+    if (f < n && f == t) out[f] = v[f];
+}
+
+template <class Env, bool STORE_TRAJ>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+dag_stream_kernel(const __grid_constant__ DagPtrs dp,
+                  const __grid_constant__ EnvPtrs ep, float* __restrict__ obs,
+                  const uint2* __restrict__ keys, int init_mode,
+                  int64_t n_lanes, int length, EnvParams p, EnvConfig c,
+                  int policy_id, float* __restrict__ sums,
+                  int32_t* __restrict__ n_done, DagTrajPtrs traj) {
+  const int64_t lane = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+  if (lane >= n_lanes) return;  // whole warps
+  LaneDag g;
+  g.bind(dp, lane);
+  Scal s;
+  if (init_mode == 0) {
+    g.load_scalars();
+    s = load_scal(ep, lane);
+  } else {
+    const uint2 k = keys[lane];
+    Env::reset(g, s, init_mode == 1 ? split_key(k, 1u) : k, p, c);
+  }
+  int32_t v[kMaxObs];
+  float f[kMaxObs];
+  Env::obs_ints(g, s, c, v);
+  float acc[kEpisode];
+#pragma unroll
+  for (int k = 0; k < kEpisode; ++k) acc[k] = 0.f;
+  int32_t nd = 0;
+  const int t = threadIdx.x & 31;
+  for (int step = 0; step < length; ++step) {
+    const int action = Env::policy(policy_id, v, c);
+    const int64_t ti = step * n_lanes + lane;
+    if (STORE_TRAJ) {
+      Env::encode(v, c, f);
+      put_row(traj.obs + ti * Env::kObs, f, Env::kObs);
+      if (t == 0) traj.action[ti] = action;
+    }
+    StepOut o;
+    Env::step(g, s, action, p, c, o);
+    if (STORE_TRAJ && t == 0) {
+      traj.reward[ti] = o.reward;
+      traj.done[ti] = o.done;
+#pragma unroll
+      for (int k = 0; k < kInfo; ++k)
+        traj.info[(int64_t)k * length * n_lanes + ti] = o.info[k];
+    }
+    if (o.done) {
+#pragma unroll
+      for (int k = 0; k < kEpisode; ++k) acc[k] += o.info[5 + k];
+      nd += 1;
+      Env::reset(g, s, s.key, p, c);
+    }
+    Env::obs_ints(g, s, c, v);
+  }
+  store_scal(ep, lane, s);
+  g.store_scalars();
+  Env::encode(v, c, f);
+  put_row(obs + lane * Env::kObs, f, Env::kObs);
+  if (sums != nullptr && t == 0) {
+#pragma unroll
+    for (int k = 0; k < kEpisode; ++k) sums[k * n_lanes + lane] = acc[k];
+    n_done[lane] = nd;
+  }
+}
+
+// Admit (copy the fresh lane whole), step the lanes in step_mask, leave
+// the rest bit for bit; outputs zero/false outside step_mask, out_obs the
+// raw post-step observation for stepped lanes and the held one elsewhere.
+template <class Env>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+dag_step_lanes_kernel(const __grid_constant__ DagPtrs dp,
+                      const __grid_constant__ EnvPtrs ep,
+                      float* __restrict__ obs,
+                      const int32_t* __restrict__ actions,
+                      const bool* __restrict__ admit,
+                      const __grid_constant__ DagPtrs fdp,
+                      const __grid_constant__ EnvPtrs fep,
+                      const float* __restrict__ fresh_obs,
+                      const bool* __restrict__ step_mask, int64_t n_lanes,
+                      EnvParams p, EnvConfig c, float* __restrict__ out_obs,
+                      float* __restrict__ reward, bool* __restrict__ done,
+                      float* __restrict__ info) {
+  const int64_t lane = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+  if (lane >= n_lanes) return;
+  const int t = threadIdx.x & 31;
+  const int F = Env::kObs;
+  LaneDag g;
+  g.bind(dp, lane);
+  const bool admitted = admit[lane];
+  Scal s;
+  if (admitted) {
+    g.copy_from(fdp);
+    s = load_scal(fep, lane);
+  } else {
+    g.load_scalars();
+    s = load_scal(ep, lane);
+  }
+  int32_t v[kMaxObs];
+  float f[kMaxObs];
+  if (step_mask[lane]) {
+    StepOut o;
+    Env::step(g, s, actions[lane], p, c, o);
+    Env::obs_ints(g, s, c, v);
+    Env::encode(v, c, f);
+    put_row(out_obs + lane * F, f, F);
+    if (o.done) Env::reset(g, s, s.key, p, c);
+    store_scal(ep, lane, s);
+    g.store_scalars();
+    Env::obs_ints(g, s, c, v);
+    Env::encode(v, c, f);
+    put_row(obs + lane * F, f, F);
+    if (t == 0) {
+      reward[lane] = o.reward;
+      done[lane] = o.done;
+#pragma unroll
+      for (int k = 0; k < kInfo; ++k) info[k * n_lanes + lane] = o.info[k];
+    }
+    return;
+  }
+  if (admitted) {
+    store_scal(ep, lane, s);
+    g.store_scalars();
+    if (t < F) obs[lane * F + t] = fresh_obs[lane * F + t];
+  }
+  __syncwarp();
+  if (t < F) out_obs[lane * F + t] = obs[lane * F + t];
+  if (t == 0) {
+    reward[lane] = 0.f;
+    done[lane] = false;
+#pragma unroll
+    for (int k = 0; k < kInfo; ++k) info[k * n_lanes + lane] = 0.f;
+  }
+}
+
+inline unsigned dag_blocks_for(int64_t n_lanes) {
+  return (unsigned)((n_lanes + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+}  // namespace cpr

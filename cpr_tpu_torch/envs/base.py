@@ -14,8 +14,9 @@ run on any device.
 The drivers — `init_lanes`, `reset_lanes`, `step_lanes`, `rollout` and
 the function `make_episode_stats_fn` builds — dispatch on the device of
 their tensors: on a CUDA tensor they launch the env's kernels (K2 the
-fused episode stream, K3 the one-tick lane step) or raise; on a CPU
-tensor they run the plain twins `stream_plain` and `step_lanes_plain`.
+fused episode stream, K3 the one-tick lane step; K10-bk and K10-eth for
+the DAG envs of `DagEnv`) or raise; on a CPU tensor they run the plain
+twins `stream_plain` and `step_lanes_plain`.
 Where the JAX package donates the carry (base.py:259, :472) the port
 updates it in place: after `step_lanes` and between chunks of the stats
 driver the caller's carry tensors hold the new state.
@@ -54,16 +55,22 @@ def _lane_where(mask, a, b):
 
 
 def map_state(fn, *states):
-    """Apply `fn` field by field over states of one dataclass type."""
-    cls = type(states[0])
-    return cls(**{f.name: fn(*(getattr(s, f.name) for s in states))
-                  for f in dataclasses.fields(cls)})
+    """Apply `fn` tensor by tensor over states of one dataclass type
+    (nested dataclasses and tuples, as the DAG envs' `dag.parents`, are
+    mapped through)."""
+    s0 = states[0]
+    if dataclasses.is_dataclass(s0):
+        return type(s0)(**{f.name: map_state(fn, *(getattr(s, f.name)
+                                                   for s in states))
+                           for f in dataclasses.fields(s0)})
+    if isinstance(s0, tuple):
+        return tuple(map_state(fn, *xs) for xs in zip(*states))
+    return fn(*states)
 
 
 def copy_state_(dst, src) -> None:
     """Write `src` into the tensors of `dst` (the in-place carry update)."""
-    for f in dataclasses.fields(dst):
-        getattr(dst, f.name).copy_(getattr(src, f.name))
+    map_state(lambda d, s: d.copy_(s), dst, src)
 
 
 def _index_params(params, idx):
@@ -75,9 +82,9 @@ def _index_params(params, idx):
         if getattr(params, f.name).dim() > 0})
 
 
-def _no_kernel(what):
+def _no_kernel(what, item):
     return NotImplementedError(
-        f"{what}: this env has no CUDA kernel yet (ROADMAP item 8)")
+        f"{what}: no CUDA kernel for this yet (ROADMAP item {item})")
 
 
 class TorchEnv:
@@ -101,10 +108,47 @@ class TorchEnv:
     observation_length: int
     policies: dict[str, Callable]
     scripted_policies: tuple[str, ...] = ()
+    # Envs whose state carries a `dag` set this to the most DAG rows a
+    # fresh reset() populates: an auto-reset then switches only those
+    # rows of every DAG plane (and n, overflow, live_floor and every
+    # other field) to the fresh state, and rows >= R keep what they held
+    # — the reference's logical reset (cpr_tpu/envs/base.py:85-119),
+    # whose queries reject those stale rows through the gid and
+    # exists() filters. None switches whole states.
+    reset_dag_rows: int | None = None
+    # ROADMAP item of the kernels an env without them waits for
+    kernel_item = "8b"
 
     def select_reset(self, done, rstate, state):
-        """where(done, rstate, state) for auto-reset streams."""
-        return map_state(lambda a, b: _lane_where(done, a, b), rstate, state)
+        """where(done, rstate, state) for auto-reset streams, the logical
+        reset where `reset_dag_rows` is set."""
+        idx = done.nonzero().squeeze(1)
+        return self._splice_reset(state, idx,
+                                  map_state(lambda t: t[idx], rstate))
+
+    def _splice_reset(self, state, idx, rstate):
+        """`state` with the lanes `idx` switched to `rstate` (one fresh
+        state per index) as `select_reset` switches them."""
+        R = self.reset_dag_rows
+
+        def whole(a, r):
+            a = a.clone()
+            a[idx] = r
+            return a
+
+        if R is None:
+            return map_state(whole, state, rstate)
+
+        def rows(a, r):
+            if a.dim() == 1:
+                return whole(a, r)
+            a = a.clone()
+            a[idx, :R] = r[:, :R]
+            return a
+
+        return state.replace(dag=map_state(rows, state.dag, rstate.dag), **{
+            f.name: whole(getattr(state, f.name), getattr(rstate, f.name))
+            for f in dataclasses.fields(state) if f.name != "dag"})
 
     def decode_obs(self, obs):
         """float observation -> per-field natural-scale int values
@@ -179,7 +223,7 @@ class TorchEnv:
 
         The reference resets every lane and selects; resetting only the
         lanes that are done gives the same bits (the kernels branch the
-        same way).
+        same way). The splice is `select_reset`'s, logical reset included.
 
         Returns (state, obs_next, step_obs, reward, done, info) where
         `obs_next` is the continuation observation (post-reset at done)
@@ -190,14 +234,9 @@ class TorchEnv:
         if idx.numel():
             rstate, robs = self.reset(state.key[idx],
                                       _index_params(params, idx))
-
-            def splice(a, r):
-                a = a.clone()
-                a[idx] = r
-                return a
-
-            state = map_state(splice, state, rstate)
-            obs_next = splice(obs2, robs)
+            state = self._splice_reset(state, idx, rstate)
+            obs_next = obs2.clone()
+            obs_next[idx] = robs
         return state, obs_next, obs2, reward, done, info
 
     def _autoreset_body(self, params, policy):
@@ -309,15 +348,15 @@ class TorchEnv:
     # -- kernel hooks -------------------------------------------------------
 
     def _empty_carry(self, n: int, device):
-        raise _no_kernel(type(self).__name__)
+        raise _no_kernel(type(self).__name__, self.kernel_item)
 
     def _kernel_stream(self, carry, keys, init_mode, length, params,
                        policy_id, with_sums, store_traj):
-        raise _no_kernel(type(self).__name__)
+        raise _no_kernel(type(self).__name__, self.kernel_item)
 
     def _kernel_step_lanes(self, carry, actions, admit_mask, fresh_states,
                            step_mask, params):
-        raise _no_kernel(type(self).__name__)
+        raise _no_kernel(type(self).__name__, self.kernel_item)
 
     # -- drivers (kernel on CUDA, plain twin on CPU) ------------------------
 
@@ -476,6 +515,73 @@ class TorchEnv:
             return stats
 
         return fn
+
+
+class DagEnv(TorchEnv):
+    """Base of the envs whose state is a lane-batched `core.dag.Dag` plus
+    per-lane scalars (bk, ethereum), with the hooks of their K10 kernels.
+
+    A subclass sets `state_cls`, `int_fields`, `bool_fields` (its scalar
+    fields besides the float32 ones and `key`), `kernel_name` (its launch
+    counter), `kernel_lib` (its K10 library's entry points,
+    `cpr_k10_<kernel_lib>_*`), `kernel_config()`, and the DAG modes
+    `capacity`, `max_parents`, `ring`, `anc_masks`, `lift`. The kernels'
+    limits are `kernels.check_dag_modes`'; full mode runs in the plain
+    version only."""
+
+    reset_dag_rows = 2
+    kernel_item = "8c"
+    bool_fields: tuple[str, ...] = ()
+
+    def kernel_config(self) -> dict[str, int]:
+        """The env's static options for its K10 kernel, by the field
+        names of `EnvConfig` (csrc/dag_env.cuh) but `unit`."""
+        raise NotImplementedError
+
+    def _check_kernel(self):
+        from cpr_tpu_torch import kernels
+        kernels.check_dag_modes(type(self).__name__, self.capacity,
+                                self.max_parents, self.ring, self.anc_masks,
+                                self.lift)
+
+    def _empty_carry(self, n: int, device):
+        from cpr_tpu_torch.core import dag as D
+        self._check_kernel()
+        dag = D.empty(n, self.capacity, self.max_parents, lift=self.lift,
+                      ring=self.ring, anc_masks=self.anc_masks,
+                      device=device)
+
+        def scalar(f):
+            if f == "key":
+                return torch.empty((n, 2), dtype=torch.int32, device=device)
+            dt = (torch.int32 if f in self.int_fields else torch.bool
+                  if f in self.bool_fields else torch.float32)
+            return torch.empty((n,), dtype=dt, device=device)
+
+        state = self.state_cls(dag=dag, **{
+            f.name: scalar(f.name) for f in dataclasses.fields(self.state_cls)
+            if f.name != "dag"})
+        return state, torch.empty((n, self.observation_length),
+                                  dtype=torch.float32, device=device)
+
+    def _kernel_stream(self, carry, keys, init_mode, length, params,
+                       policy_id, with_sums, store_traj):
+        from cpr_tpu_torch import kernels
+        state, obs = carry
+        return kernels.dag_stream(self, state, obs, keys, init_mode, length,
+                                  params, policy_id, with_sums=with_sums,
+                                  store_traj=store_traj)
+
+    def _kernel_step_lanes(self, carry, actions, admit_mask, fresh_states,
+                           step_mask, params):
+        from cpr_tpu_torch import kernels
+        state, obs = carry
+        fstate, fobs = fresh_states
+        out_obs, reward, done, info = kernels.dag_step_lanes(
+            self, state, obs, actions, admit_mask, fstate, fobs, step_mask,
+            params)
+        return out_obs, reward, done, {k: info[i]
+                                       for i, k in enumerate(INFO_KEYS)}
 
 
 def relative_reward(info: dict[str, Any]) -> torch.Tensor:

@@ -3,9 +3,9 @@ cpr_tpu/envs/registry.py).
 
 Reference counterpart: the protocol/attack-space registry and string keys
 (simulator/protocols/cpr_protocols.ml:11-180) with the `of_key` grammar
-(cpr_protocols.ml:786-903). The grammar is the JAX package's, whole; only
-`nakamoto` is registered so far, and a key of any other valid family
-raises a KeyError saying it is not ported yet.
+(cpr_protocols.ml:786-903). The grammar is the JAX package's, whole;
+`nakamoto`, `bk` and the `ethereum` families are registered, and a key of
+any other valid family raises a KeyError naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -29,9 +29,11 @@ _INFO = {
     "tailstormjune": "Tailstorm, June'22 variant (W&B run 257 repro)",
 }
 
-# families the JAX package has and this package does not yet
-_NOT_PORTED = ("bk", "ethereum", "ethereum-whitepaper", "ethereum-byzantium",
-               "spar", "stree", "sdag", "tailstorm", "tailstormjune")
+# families the JAX package has and this package does not yet, with the
+# ROADMAP item that brings them
+_NOT_PORTED = {f: "8b, slice 5: vote quorums K9 and their envs"
+               for f in ("spar", "stree", "sdag", "tailstorm",
+                         "tailstormjune")}
 
 
 def register(key: str, factory: Callable):
@@ -63,7 +65,7 @@ def _factory(key: str):
         if family in _NOT_PORTED:
             raise KeyError(
                 f"env family '{family}' is not ported to cpr_tpu_torch yet "
-                "(ROADMAP item 8); use cpr_tpu for it")
+                f"(ROADMAP item {_NOT_PORTED[family]}); use cpr_tpu for it")
         raise KeyError(f"unknown env '{key}'; choose from {sorted(_REGISTRY)}")
     return factory, parsed
 
@@ -180,7 +182,18 @@ def _ensure_builtin():
     global _BUILTIN_LOADED
     if _BUILTIN_LOADED:
         return
+    from cpr_tpu_torch.envs.bk import BkSSZ
+    from cpr_tpu_torch.envs.ethereum import EthereumSSZ
     from cpr_tpu_torch.envs.nakamoto import NakamotoSSZ
 
     _BUILTIN_LOADED = True
-    _REGISTRY.setdefault("nakamoto", NakamotoSSZ)
+    for key, factory in [
+        ("nakamoto", NakamotoSSZ),
+        ("bk", BkSSZ),
+        ("ethereum", EthereumSSZ),
+        ("ethereum-whitepaper",
+         lambda **kw: EthereumSSZ("whitepaper", **kw)),
+        ("ethereum-byzantium",
+         lambda **kw: EthereumSSZ("byzantium", **kw)),
+    ]:
+        _REGISTRY.setdefault(key, factory)

@@ -7,7 +7,7 @@ module registers `core-torch-v0`, `cpr-torch-v0` and
 (`core-v0`, `cpr-v0`, `cpr-nakamoto-v0`): gymnasium keeps the first
 registration of an id, so in a process that imports both packages a
 shared id would silently resolve to whichever registered first. The
-FC16, generic and tailstorm ids wait for their slices (ROADMAP item 8).
+FC16, generic and tailstorm ids wait for slice 5 (ROADMAP item 8b).
 """
 
 from __future__ import annotations

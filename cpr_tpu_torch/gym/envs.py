@@ -4,8 +4,9 @@ cpr_tpu/gym/envs.py).
 Reference counterpart: gym/ocaml/cpr_gym/envs.py — `Core(gym.Env)` over
 the OCaml engine (:9-93) and the registered ids (:96,166-192).
 
-Both adapters drive the env's resident lane API (`step_lanes`, kernel
-K3 on CUDA) with constant masks, over carries made by `reset_lanes`,
+Both adapters drive the env's resident lane API (`step_lanes`: kernel
+K3 on CUDA for Nakamoto, K10-bk or K10-eth for the DAG envs) with
+constant masks, over carries made by `reset_lanes`,
 with the JAX package's key schedule: the same seed gives the same
 stream. `device` picks where the lanes live; it defaults to the CUDA
 device and raises where there is none.

@@ -31,12 +31,16 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu", "rtdp.cu")
+SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu", "rtdp.cu",
+           "dag_script.cu", "bk_stream.cu", "ethereum_stream.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# launches per kernel since the last reset_launches()
-launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
+# launches per kernel since the last reset_launches(). K8 is a set of
+# device functions (csrc/dag.cuh) that K10 runs inside its own launches;
+# its count is that of its check kernel (csrc/dag_script.cu).
+launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
+            "K8": 0, "K10-bk": 0, "K10-eth": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -160,6 +164,30 @@ class _LoopCtl(ctypes.Structure):
                 ("stop_delta", ctypes.c_double), ("max_iter", _i64)]
 
 
+_MAX_WINDOW = 128  # csrc/dag.cuh kNS = 4 slots per thread of a warp
+_MAX_PARENTS = 17  # csrc/dag.cuh kDagMaxParents
+_DAG_PLANES = ("auxf", "auxg", "aux2", "gid", "live_floor", "chain",
+               "closure", "kind", "height", "aux", "pow_hash", "signer",
+               "miner", "vis_a", "vis_d", "vis_d_since", "born_at",
+               "cum_atk", "cum_def", "cum_prog", "n", "overflow")
+
+
+class _DagPtrs(ctypes.Structure):
+    _fields_ = [("parents", _p * _MAX_PARENTS)] + [
+        (f, _p) for f in _DAG_PLANES] + [("W", ctypes.c_int32),
+                                         ("P", ctypes.c_int32)]
+
+
+class _EnvPtrs(ctypes.Structure):
+    _fields_ = [("i", _p * 6), ("f", _p * 6), ("b", _p * 2), ("key", _p)]
+
+
+class _EnvConfig(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int32) for f in (
+        "k", "constant", "ctk", "max_uncles", "pref_work", "prog_work",
+        "whitepaper", "strict", "unit")]
+
+
 def _load() -> dict[str, ctypes.CDLL]:
     with _lock:
         if _libs:
@@ -202,7 +230,30 @@ def _load() -> dict[str, ctypes.CDLL]:
         rt.cpr_k6_rtdp.restype = _int
         rt.cpr_k6_error_string.argtypes = [_int]
         rt.cpr_k6_error_string.restype = ctypes.c_char_p
-        _libs.update(random=rnd, nakamoto=nak, mdp=mdp, rtdp=rt)
+        dp, ep = ctypes.POINTER(_DagPtrs), ctypes.POINTER(_EnvPtrs)
+        cfg = ctypes.POINTER(_EnvConfig)
+        k8 = ctypes.CDLL(str(paths["dag_script.cu"]))
+        k8.cpr_k8_dag_script.argtypes = [dp, _p, _int, _p, _int, _p, _i64, _p,
+                                         _p, _p]
+        k8.cpr_k8_dag_script.restype = _int
+        k8.cpr_k8_error_string.argtypes = [_int]
+        k8.cpr_k8_error_string.restype = ctypes.c_char_p
+        _libs.update(random=rnd, nakamoto=nak, mdp=mdp, rtdp=rt, dag=k8)
+        for name, src in (("bk", "bk_stream.cu"),
+                          ("eth", "ethereum_stream.cu")):
+            lib = ctypes.CDLL(str(paths[src]))
+            stream_fn = getattr(lib, f"cpr_k10_{name}_stream")
+            stream_fn.argtypes = [dp, ep, _p, _p, _int, _i64, _int, pp, cfg,
+                                  _int, _p, _p, _p, _p]
+            stream_fn.restype = _int
+            lanes_fn = getattr(lib, f"cpr_k10_{name}_step_lanes")
+            lanes_fn.argtypes = [dp, ep, _p, _p, _p, dp, ep, _p, _p, _i64, pp,
+                                 cfg, _p, _p, _p, _p, _p]
+            lanes_fn.restype = _int
+            err = f"cpr_k10_{name}_error_string"
+            getattr(lib, err).argtypes = [_int]
+            getattr(lib, err).restype = ctypes.c_char_p
+            _libs[f"k10_{name}"] = lib
         return _libs
 
 
@@ -555,3 +606,198 @@ def rtdp_walkers(table, words, V, P, cdf, *, graph: bool, max_steps: int,
     return dict(V=V, P=P, visits=visits, buf_s=buf_s[0][:cap],
                 buf_pri=buf_pri[0][:cap], s=walkers, t=int(t_out[0]),
                 resid=float(resid[0]))
+
+
+# -- K8 / K10 -----------------------------------------------------------------
+
+def check_dag_modes(name, W, P, ring, masks, lifted) -> None:
+    """The DAG kernels' limits: ring windows of at most `_MAX_WINDOW`
+    slots with ancestry planes, no lifting, at most `_MAX_PARENTS`
+    parent slots."""
+    if not (ring and masks) or lifted:
+        raise NotImplementedError(
+            f"{name} in full mode (window=None) or without ancestry planes "
+            "has no CUDA kernel yet (ROADMAP item 8c); pass window=, or run "
+            "the plain version on the CPU")
+    if not 0 < W <= _MAX_WINDOW or not 0 < P <= _MAX_PARENTS:
+        raise NotImplementedError(
+            f"{name}: the DAG kernels hold windows of at most {_MAX_WINDOW} "
+            f"slots and at most {_MAX_PARENTS} parent slots, this one has "
+            f"{W} and {P} (ROADMAP item 8c)")
+
+
+def _dag_ptrs(dag, dev, name) -> _DagPtrs:
+    """Check a lane-batched core.dag.Dag in ring mode with ancestry planes
+    for the DAG kernels and point a `_DagPtrs` at it."""
+    from cpr_tpu_torch.core.dag import PLANE_DTYPES
+    L, W, P = dag.n_lanes, dag.capacity, dag.max_parents
+    check_dag_modes(name, W, P, dag.is_ring, dag.has_masks, dag.lifted)
+    ptrs = _DagPtrs()
+    for i, plane in enumerate(dag.parents):
+        _want(plane, f"{name}.parents[{i}]", torch.int32, (L, W), dev)
+        ptrs.parents[i] = plane.data_ptr()
+    for f in _DAG_PLANES:
+        t = getattr(dag, f)
+        shape = ((L,) if f in ("live_floor", "n", "overflow") else
+                 (L, W, W) if f in ("chain", "closure") else (L, W))
+        _want(t, f"{name}.{f}", PLANE_DTYPES[f], shape, dev,
+              align=1 if PLANE_DTYPES[f] == torch.bool else 4)
+        setattr(ptrs, f, t.data_ptr())
+    ptrs.W, ptrs.P = W, P
+    return ptrs
+
+
+def _env_ptrs(env, state, n, dev, name) -> _EnvPtrs:
+    ptrs = _EnvPtrs()
+    ints = env.int_fields
+    floats = ("time", "last_reward_attacker", "last_reward_defender",
+              "last_progress", "last_chain_time", "last_sim_time")
+    for j, f in enumerate(ints):
+        t = getattr(state, f)
+        _want(t, f"{name}.{f}", torch.int32, (n,), dev)
+        ptrs.i[j] = t.data_ptr()
+    for j, f in enumerate(floats):
+        t = getattr(state, f)
+        _want(t, f"{name}.{f}", torch.float32, (n,), dev)
+        ptrs.f[j] = t.data_ptr()
+    for j, f in enumerate(env.bool_fields):
+        t = getattr(state, f)
+        _want(t, f"{name}.{f}", torch.bool, (n,), dev, align=1)
+        ptrs.b[j] = t.data_ptr()
+    _want(state.key, f"{name}.key", torch.int32, (n, 2), dev, align=8)
+    ptrs.key = state.key.data_ptr()
+    return ptrs
+
+
+def _env_config(env) -> _EnvConfig:
+    cfg = env.kernel_config()
+    unknown = set(cfg) - {f for f, _ in _EnvConfig._fields_}
+    if unknown:  # ctypes would keep them as plain attributes
+        raise ValueError(f"{env.kernel_name}: no EnvConfig field {unknown}")
+    return _EnvConfig(unit=int(env.unit_observation),
+                      **{f: int(v) for f, v in cfg.items()})
+
+
+def _k10(env, entry: str):
+    """The env's K10 library (`env.kernel_lib`) and its `entry` point."""
+    lib = _load()[f"k10_{env.kernel_lib}"]
+    return lib, getattr(lib, f"cpr_k10_{env.kernel_lib}_{entry}")
+
+
+def dag_stream(env, state, obs, keys, init_mode: int, length: int, params,
+               policy_id: int, with_sums: bool = True,
+               store_traj: bool = False):
+    """K10 (the library `env.kernel_lib`): `length` auto-resetting
+    steps of every lane under the scripted policy `policy_id`, updating
+    the carry (`state`, a bk or Ethereum state on the card, and `obs`
+    [L, F]) IN PLACE; init_mode as in `stream`. Returns (sums [7, L],
+    n_done [L], traj) as `stream` does, traj obs [T, L, F]."""
+    dev = obs.device
+    if dev.type != "cuda":
+        raise ValueError(f"{env.kernel_name} takes CUDA tensors")
+    n, F = obs.shape[0], env.observation_length
+    dp = _dag_ptrs(state.dag, dev, "state.dag")
+    ep = _env_ptrs(env, state, n, dev, "state")
+    _want(obs, "obs", torch.float32, (n, F), dev)
+    kp = None
+    if init_mode != 0:
+        _want(keys, "keys", torch.int32, (n, 2), dev, align=8)
+        kp = keys.data_ptr()
+    sums = n_done = traj = None
+    if with_sums:
+        sums = torch.empty((7, n), dtype=torch.float32, device=dev)
+        n_done = torch.empty((n,), dtype=torch.int32, device=dev)
+    tp = None
+    if store_traj:
+        f32 = dict(dtype=torch.float32, device=dev)
+        traj = (torch.empty((length, n, F), **f32),
+                torch.empty((length, n), dtype=torch.int32, device=dev),
+                torch.empty((length, n), **f32),
+                torch.empty((length, n), dtype=torch.bool, device=dev),
+                torch.empty((12, length, n), **f32))
+        tp = ctypes.byref(_TrajPtrs(*(t.data_ptr() for t in traj)))
+    p, c = _params(params), _env_config(env)
+    lib, fn = _k10(env, "stream")
+    with torch.cuda.device(dev):
+        rc = fn(ctypes.byref(dp), ctypes.byref(ep), obs.data_ptr(), kp,
+                init_mode, n, length, ctypes.byref(p), ctypes.byref(c),
+                policy_id, None if sums is None else sums.data_ptr(),
+                None if n_done is None else n_done.data_ptr(), tp,
+                _stream(dev))
+    _check(rc, lib, f"cpr_k10_{env.kernel_lib}_error_string",
+           f"{env.kernel_name} stream")
+    launches[env.kernel_name] += 1
+    return sums, n_done, traj
+
+
+def dag_step_lanes(env, state, obs, actions, admit_mask, fresh_state,
+                   fresh_obs, step_mask, params):
+    """K10 one tick of the resident lane block; the carry
+    (`state`, `obs`) is updated in place. Returns (out_obs [L, F],
+    reward [L], done [L] bool, info [12, L])."""
+    dev = obs.device
+    if dev.type != "cuda":
+        raise ValueError(f"{env.kernel_name} takes CUDA tensors")
+    n, F = obs.shape[0], env.observation_length
+    dp = _dag_ptrs(state.dag, dev, "state.dag")
+    ep = _env_ptrs(env, state, n, dev, "state")
+    fdp = _dag_ptrs(fresh_state.dag, dev, "fresh_state.dag")
+    fep = _env_ptrs(env, fresh_state, n, dev, "fresh_state")
+    if fresh_state.dag.capacity != state.dag.capacity or \
+            fresh_state.dag.max_parents != state.dag.max_parents:
+        raise ValueError("fresh_state: another DAG shape than the carry's")
+    _want(obs, "obs", torch.float32, (n, F), dev)
+    _want(fresh_obs, "fresh_obs", torch.float32, (n, F), dev)
+    _want(actions, "actions", torch.int32, (n,), dev)
+    _want(admit_mask, "admit_mask", torch.bool, (n,), dev, align=1)
+    _want(step_mask, "step_mask", torch.bool, (n,), dev, align=1)
+    out_obs = torch.empty((n, F), dtype=torch.float32, device=dev)
+    reward = torch.empty((n,), dtype=torch.float32, device=dev)
+    done = torch.empty((n,), dtype=torch.bool, device=dev)
+    info = torch.empty((12, n), dtype=torch.float32, device=dev)
+    p, c = _params(params), _env_config(env)
+    lib, fn = _k10(env, "step_lanes")
+    with torch.cuda.device(dev):
+        rc = fn(ctypes.byref(dp), ctypes.byref(ep), obs.data_ptr(),
+                actions.data_ptr(), admit_mask.data_ptr(), ctypes.byref(fdp),
+                ctypes.byref(fep), fresh_obs.data_ptr(), step_mask.data_ptr(),
+                n, ctypes.byref(p), ctypes.byref(c), out_obs.data_ptr(),
+                reward.data_ptr(), done.data_ptr(), info.data_ptr(),
+                _stream(dev))
+    _check(rc, lib, f"cpr_k10_{env.kernel_lib}_error_string",
+           f"{env.kernel_name} step_lanes")
+    launches[env.kernel_name] += 1
+    return out_obs, reward, done, info
+
+
+def dag_script(dag, ops, args, fargs):
+    """K8's check kernel: the script of `core.dag.make_script` on `dag`
+    (ring window with ancestry planes, on the card), updated in place.
+    `ops` [T] host int32; `args` [T, L, 8 + P] int32, `fargs` [T, L, 4]
+    float32 on the card. Returns (regs [L, 8], out [T, L, 4])."""
+    from cpr_tpu_torch.core.dag import RING_OPS, SCRIPT_OUT, SCRIPT_REGS
+    dev = dag.device
+    if dev.type != "cuda":
+        raise ValueError("K8 takes CUDA tensors")
+    L, P = dag.n_lanes, dag.max_parents
+    dp = _dag_ptrs(dag, dev, "dag")
+    ops_t = torch.as_tensor(ops, dtype=torch.int32)
+    if not bool(torch.isin(ops_t, torch.tensor(RING_OPS)).all()):
+        raise NotImplementedError(
+            "K8's check kernel runs the ring-window ops only; the walk-based "
+            "queries are full mode (ROADMAP item 8c)")
+    T = int(ops_t.shape[0])
+    ops_d = ops_t.to(dev)
+    _want(args, "args", torch.int32, (T, L, 8 + P), dev)
+    _want(fargs, "fargs", torch.float32, (T, L, 4), dev)
+    regs = torch.empty((L, SCRIPT_REGS), dtype=torch.int32, device=dev)
+    out = torch.empty((T, L, SCRIPT_OUT), dtype=torch.int32, device=dev)
+    lib = _load()["dag"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k8_dag_script(ctypes.byref(dp), ops_d.data_ptr(), T,
+                                   args.data_ptr(), 8 + P, fargs.data_ptr(),
+                                   L, regs.data_ptr(), out.data_ptr(),
+                                   _stream(dev))
+    _check(rc, lib, "cpr_k8_error_string", "K8 dag_script")
+    launches["K8"] += 1
+    return regs, out

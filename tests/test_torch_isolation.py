@@ -52,7 +52,9 @@ for name in ("jax", "jaxlib", "flax", "gymnasium", "cpr_tpu"):
 import importlib
 for mod in ("cpr_tpu_torch", "cpr_tpu_torch.envs", "cpr_tpu_torch.envs.nakamoto",
             "cpr_tpu_torch.kernels", "cpr_tpu_torch.convert",
-            "cpr_tpu_torch.random", "chip_smoke"):
+            "cpr_tpu_torch.random", "cpr_tpu_torch.core.dag",
+            "cpr_tpu_torch.envs.bk", "cpr_tpu_torch.envs.ethereum",
+            "chip_smoke"):
     importlib.import_module(mod)
 from cpr_tpu_torch import envs, random
 from cpr_tpu_torch.params import make_params
@@ -62,6 +64,13 @@ stats = env.make_episode_stats_fn(make_params(alpha=0.35, gamma=0.5,
                                   "sapirshtein-2016-sm1", 20)(
     random.split(random.PRNGKey(0, device="cpu"), 4))
 assert int(stats["n_episodes"].sum()) == 8
+for key in ("bk-2-constant", "ethereum-byzantium"):
+    env = envs.get(key, window=32)
+    stats = env.make_episode_stats_fn(make_params(alpha=0.35, gamma=0.5,
+                                                  max_steps=6),
+                                      env.scripted_policies[1], 14)(
+        random.split(random.PRNGKey(0, device="cpu"), 2))
+    assert int(stats["n_episodes"].sum()) == 4, key
 try:
     import cpr_tpu_torch.gym
 except ImportError:
@@ -103,6 +112,24 @@ def test_entry_points_need_a_device():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rnd.from_numpy_words(np.zeros((1, 2), np.uint32))
     assert rnd.PRNGKey(0, device="cpu").device.type == "cpu"
+    # the bk and Ethereum entry points: the gym surface and the state
+    # conversion resolve their device the same way
+    from cpr_tpu_torch import convert
+    from cpr_tpu_torch.envs.bk import BkSSZ
+    from cpr_tpu_torch.envs.ethereum import EthereumSSZ
+    gym = pytest.importorskip("cpr_tpu_torch.gym")
+    for key in ("bk-8-constant", "ethereum-byzantium"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            gym.Core(key, max_steps=8, window=128)
+    for env in (BkSSZ(k=2, window=32), EthereumSSZ(window=32)):
+        params = make_params(alpha=0.35, gamma=0.5, max_steps=8)
+        state = env.init_lanes(rnd.split(rnd.PRNGKey(0, device="cpu"), 2),
+                               params)[0]
+        d = convert.dag_state_to_numpy(state)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            convert.dag_state_from_numpy(env, d)
+        assert convert.dag_state_from_numpy(env, d, device="cpu") \
+            .dag.gid.device.type == "cpu"
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -119,6 +146,21 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.step_lanes(state, obs, torch.zeros(4, dtype=torch.int32),
                            mask, state, obs, mask, params, True, True)
+    from cpr_tpu_torch.core import dag as D
+    from cpr_tpu_torch.envs.bk import BkSSZ
+    from cpr_tpu_torch.envs.ethereum import EthereumSSZ
+    for denv in (BkSSZ(k=2, window=32), EthereumSSZ(window=32)):
+        dstate, dobs = denv.init_lanes(keys, params)
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.dag_stream(denv, dstate, dobs, keys, 1, 4, params, 0)
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.dag_step_lanes(denv, dstate, dobs,
+                                   torch.zeros(4, dtype=torch.int32), mask,
+                                   dstate, dobs, mask, params)
+    ops, args, fargs = D.make_script(0, 4, 3, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.dag_script(D.empty(4, 16, 3, ring=True, anc_masks=True), ops,
+                           torch.from_numpy(args), torch.from_numpy(fargs))
     assert kernels.launches == before
 
 

@@ -340,16 +340,17 @@ def test_parse_key_grammar(key):
 
 
 def test_registry_surface():
-    assert tregistry.keys() == ["nakamoto"]
+    assert tregistry.keys() == ["bk", "ethereum", "ethereum-byzantium",
+                                "ethereum-whitepaper", "nakamoto"]
     env = tregistry.get("nakamoto")
     assert isinstance(env, TEnv) and tregistry.get("nakamoto") is env
     assert tregistry.get_sized("nakamoto", 128) is env
     assert tregistry.describe("nakamoto") == jregistry.describe("nakamoto")
     raw = tregistry.get("nakamoto", unit_observation=False)
     assert raw is not env and raw.unit_observation is False
-    for key in ("bk-8-constant", "tailstorm-8-discount-heuristic",
-                "ethereum-byzantium"):
-        with pytest.raises(KeyError, match="not ported .* item 8"):
+    for key in ("spar-3-block", "tailstorm-8-discount-heuristic",
+                "sdag-2-constant-altruistic"):
+        with pytest.raises(KeyError, match="not ported .* item 8b, slice 5"):
             tregistry.get(key)
     with pytest.raises(KeyError, match="cannot parse"):
         tregistry.get("nosuch")
