@@ -106,6 +106,44 @@ Phases, one line each; any failure raises and the exit code is not 0:
      step_lanes tick, K8's check kernel per launch, the plain versions'
      times, and the bounds (the lane state read and written once per
      launch; the threefry work of every step and reset).
+ 20. (in phase 14) K8's second script, the vote-quorum envs' queries
+     `last_by_age` and `descendants_mask`, at the same shapes against its
+     plain version and against the fixture's second script;
+ 21. K10-ts and K10-stree `step_lanes` against their plain versions at
+     4096 lanes over 128 ticks of seeded masks, then the tick traces of
+     the vote-quorum fixture (tests/fixtures/torch_port_quorum_golden.npz);
+ 22. their streams against their plain versions: 4096 lanes x 256 steps,
+     every policy (7 Tailstorm, 6 Stree) in one batched plain call,
+     unchunked and in chunks of 100; then the fixture's sums and carries;
+ 22b. K10-ts and K10-stree under the schemes and selections the paths
+     do not run (VOTE_VARIANTS: altruistic, optimal, constant, punish,
+     hybrid, and a 40-slot ring at k = 4 that wraps and overflows with a
+     16-position release scan), 512
+     lanes x 160 steps, every policy, against their plain versions, with
+     the episodes whose ring wrapped counted (`ring_peaks`);
+ 23. K9 (the vote quorums, device functions of K10-ts/K10-stree) through
+     its check kernel: 4096 lanes of each env's plain stream carry (every
+     policy on its share of the lanes, 190 steps into episodes of
+     max_steps 200, window 128: the rings have wrapped), every output
+     against `quorum.check_plain`, then the fixture's carries and inputs
+     against cpr_tpu's outputs;
+ 24. the Tailstorm path (BASELINE.json config 4 without PPO,
+     bench.py:257-309), its launch counts zeroed before it and read after
+     (K1 and K10-ts only): tailstorm-8-discount-heuristic, window 128,
+     get-ahead, 4096 lanes x 1024 steps in chunks of 128, alpha 0.35,
+     gamma 0.5, max_steps 120, one warm and three timed calls; relative
+     revenue within VOTE_GUARD of VOTE_REVENUE; the plain version on the
+     same keys held to the kernel over the first 256 steps, its first 64
+     lanes' revenue held to VOTE_REVENUE (the CPU reference's, equal to
+     cpr_tpu's) and its episodes whose ring wrapped counted; 100
+     `step_lanes` ticks at 4096 lanes (the gym path cpr-tailstorm-torch-
+     v0);
+ 25. the Stree path the same way (K1, K10-stree): stree-8-constant-
+     heuristic, override-catchup;
+ 26. K10-ts and K10-stree device times per 128-step launch and per tick,
+     K9's check kernel per launch, the plain versions' times and the
+     bounds (the threefry work: 9 blocks per mining draw; K9's the bytes
+     its check reads, `k9_bytes`).
 Then the kernels line (JSON: launches summed over the main paths, the
 error of the main-shape comparison, the times and the bound) and the
 last line {"ok": true, "device": {...}}.
@@ -136,6 +174,7 @@ action, whose progress differs).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -219,7 +258,9 @@ RTDP_BATCH, RTDP_BUFFER, RTDP_EPS, RTDP_RESTART_P = 256, 1024, 0.5, 0.5
 # configs 2 and 3) and their revenue guards (bench.py's), the fixture.
 DAG_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_dag_golden.npz"
 DAG_ENVS = {"bk": ("bk-8-constant", "get-ahead"),
-            "eth": ("ethereum-byzantium", "fn19")}
+            "eth": ("ethereum-byzantium", "fn19"),
+            "ts": ("tailstorm-8-discount-heuristic", "get-ahead"),
+            "stree": ("stree-8-constant-heuristic", "override-catchup")}
 # (the step_lanes checks run at the gym paths' lanes, BK_/ETH_LANES)
 DAG_WINDOW, DAG_CHECK_LANES, DAG_CHECK_STEPS, DAG_CHECK_TICKS = 128, 4096, \
     256, 128
@@ -229,6 +270,50 @@ ETH_LANES, ETH_STEPS, ETH_CHUNK, ETH_MAX_STEPS = 4096, 4096, 128, 120
 ETH_GUARD, ETH_PLAIN_STEPS = (0.33, 0.55), 256
 DAG_TIME_FIELDS = ("time", "last_chain_time", "last_sim_time",
                    "vis_d_since", "born_at")
+# The vote-quorum envs (K9, K10-ts, K10-stree): BASELINE.json config 4's
+# env (bench.py:257-309, without PPO) and Stree at the same shape, their
+# fixture and revenue guards: +-0.05 around the plain version's revenue
+# (bench.py's per-lane means) on the path's first 64 lanes over the first
+# VOTE_PLAIN_STEPS steps, which equals cpr_tpu's bit for bit on the CPU;
+# the path checks that value too.
+QUORUM_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_quorum_golden.npz"
+VOTE_LANES, VOTE_STEPS, VOTE_CHUNK, VOTE_MAX_STEPS = 4096, 1024, 128, 120
+VOTE_PLAIN_STEPS, VOTE_REF_LANES = 256, 64
+VOTE_REVENUE = {"ts": 0.33653560280799866, "stree": 0.3744279146194458}
+VOTE_GUARD = 0.05
+K9_STEPS, K9_MAX_STEPS = 190, 200  # K9's carries: rings wrapped
+# every scheme and selection the paths do not run, and a k = 4 ring of 40
+# slots that wraps and overflows, with a release scan of 16 positions (its
+# release-everything branch); 2 launches of each policy a variant
+VOTE_VARIANTS = {
+    "tailstorm": (dict(k=8, incentive_scheme="constant",
+                       subblock_selection="altruistic"),
+                  dict(k=8, incentive_scheme="punish",
+                       subblock_selection="optimal"),
+                  dict(k=8, incentive_scheme="hybrid",
+                       subblock_selection="heuristic"),
+                  dict(k=4, incentive_scheme="discount",
+                       subblock_selection="optimal", window=40,
+                       release_scan=16)),
+    "stree": (dict(k=8, incentive_scheme="discount",
+                   subblock_selection="altruistic"),
+              dict(k=8, incentive_scheme="hybrid",
+                   subblock_selection="optimal"),
+              dict(k=8, incentive_scheme="punish",
+                   subblock_selection="heuristic"),
+              dict(k=4, incentive_scheme="constant",
+                   subblock_selection="optimal", window=40,
+                   release_scan=16))}
+VARIANT_LANES, VARIANT_STEPS = 512, 160
+MINE_THREEFRY5 = 9  # split into 5, then one draw from each of 4 keys
+# name: (lanes, steps, chunk, max_steps, guard, plain steps) of each path
+DAG_PATHS = {
+    "bk": (BK_LANES, BK_STEPS, None, BK_MAX_STEPS, BK_GUARD, BK_STEPS),
+    "eth": (ETH_LANES, ETH_STEPS, ETH_CHUNK, ETH_MAX_STEPS, ETH_GUARD,
+            ETH_PLAIN_STEPS),
+    **{n: (VOTE_LANES, VOTE_STEPS, VOTE_CHUNK, VOTE_MAX_STEPS,
+           (VOTE_REVENUE[n] - VOTE_GUARD, VOTE_REVENUE[n] + VOTE_GUARD),
+           VOTE_PLAIN_STEPS) for n in ("ts", "stree")}}
 
 
 def say(phase, **kw):
@@ -268,25 +353,32 @@ def device_ms(fn, reps, kernel):
     Before each call a fill of L2_SCRUB_BYTES leaves the L2 cache full of
     dirty lines of another buffer: the kernel reads its inputs from HBM
     and its writes evict lines that go back to HBM, as they would for a
-    caller that did other work between calls. Raises if the trace holds
-    no such kernel."""
+    caller that did other work between calls. A trace that lost a
+    launch record (the profiler once reported 2 of 3 launches) is taken
+    again, twice at most; raises if it still does not hold every
+    launch."""
     from torch.profiler import ProfilerActivity, profile
     scrub = torch.empty(L2_SCRUB_BYTES // 4, dtype=torch.float32,
                         device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            scrub.fill_(float(i))
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
     parts = (kernel,) if isinstance(kernel, str) else kernel
-    for ev in prof.key_averages():
-        if all(p in ev.key for p in parts):
-            total_us += getattr(ev, "device_time_total",
-                                getattr(ev, "cuda_time_total", 0.0))
-            count += ev.count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                scrub.fill_(float(i))
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for ev in prof.key_averages():
+            if all(p in ev.key for p in parts):
+                total_us += getattr(ev, "device_time_total",
+                                    getattr(ev, "cuda_time_total", 0.0))
+                count += ev.count
+        if count == reps and total_us > 0:
+            break
+        say("device_ms", kernel=json.dumps(parts), traced=count,
+            expected=reps, retry=True)
     check(count == reps and total_us > 0,
           f"profiler trace holds {count} launches of *{kernel}*, "
           f"expected {reps}")
@@ -1537,6 +1629,43 @@ def dag_plain_stats(env, keys, params, policy, n_steps, chunk=None,
     return (stats, carry, secs) if timed else (stats, carry)
 
 
+@contextlib.contextmanager
+def ring_peaks(env):
+    """Around a plain run of the DAG env `env`, each episode's peak ring
+    count: the DAG's append count `n`, read after every step before a done
+    lane resets (n > capacity: a gid past the window was handed out, the
+    ring wrapped). Yields a dict that holds, after the run, the episodes
+    ended (`episodes`), those of them that wrapped (`wrapped`) and each
+    lane's peak `n` over the run, the episode in flight included
+    (`peak`)."""
+    rec = {"episodes": 0, "wrapped": 0, "peak": 0}
+    step = env.step
+
+    def spy(state, action, params):
+        out = step(state, action, params)
+        n, done = out[0].dag.n, out[3]
+        rec["episodes"] = rec["episodes"] + done.sum()
+        rec["wrapped"] = rec["wrapped"] + (done & (n > env.capacity)).sum()
+        rec["peak"] = torch.maximum(torch.as_tensor(rec["peak"]).to(n), n)
+        return out
+
+    env.step = spy
+    try:
+        yield rec
+    finally:
+        del env.step
+
+
+def ring_report(env, rec):
+    """`ring_peaks`' record as the smoke's report fields."""
+    peak = rec["peak"]
+    return dict(episodes_ended=int(rec["episodes"]),
+                episodes_wrapped=int(rec["wrapped"]),
+                lanes_wrapped=int((peak > env.capacity).sum()),
+                ring_peak_max=int(peak.max()),
+                ring_peak_mean=float(peak.float().mean()))
+
+
 def phase_k8(dev, dfx, report):
     """K8's check kernel against `script_plain` at main shapes and
     against the JAX fixture's script."""
@@ -1575,23 +1704,45 @@ def phase_k8(dev, dfx, report):
         check(np.array_equal(getattr(dj, name).cpu().numpy(),
                              dfx[f"k8_dag.{name}"]),
               f"K8 {name} differs from jax")
+    # the second script: the vote-quorum envs' last_by_age and
+    # descendants_mask, at main shapes and against jax
+    ops, args, fargs = D.make_script(4, K8_LANES, K8_OPS, K8_PARENTS,
+                                     ops=D.RING_OPS_Q)
+    a, f = torch.from_numpy(args).to(dev), torch.from_numpy(fargs).to(dev)
+    dk, rk, ok = D.dag_script(fresh(K8_LANES, DAG_WINDOW, K8_PARENTS), ops,
+                              a, f)
+    dp, rp, op = D.script_plain(fresh(K8_LANES, DAG_WINDOW, K8_PARENTS), ops,
+                                a, f)
+    check(torch.equal(ok, op) and torch.equal(rk, rp),
+          "K8 second script differs from plain")
+    err = max(err, compare_dag_state(dk, dp, "K8 second script vs plain"))
+    dj, rj, oj = D.dag_script(fresh(L, W, P), dfx["k8q_ops"],
+                              torch.from_numpy(dfx["k8q_args"]).to(dev),
+                              torch.from_numpy(dfx["k8q_fargs"]).to(dev))
+    check(np.array_equal(oj.cpu().numpy(), dfx["k8q_out"])
+          and np.array_equal(rj.cpu().numpy(), dfx["k8q_regs"]),
+          "K8 second script differs from jax")
+    for name in D.FIELDS[1:]:
+        check(np.array_equal(getattr(dj, name).cpu().numpy(),
+                             dfx[f"k8q_dag.{name}"]),
+              f"K8 second script {name} differs from jax")
     report["K8"]["max_abs_err"] = err
     say("k8", lanes=K8_LANES, ops=K8_OPS, window=DAG_WINDOW,
         parents=K8_PARENTS, max_gid=wraps,
-        overflowed=int(dk.overflow.sum()), fixture_lanes=L, max_abs_err=err,
-        ok=True)
+        overflowed=int(dk.overflow.sum()), fixture_lanes=L,
+        second_script=True, max_abs_err=err, ok=True)
 
 
-def phase_k10_lanes(dev, dfx, report):
-    """K10-bk and K10-eth step_lanes against their plain versions over
-    seeded masks at the gym paths' lanes, then the fixture's tick
-    traces."""
+def phase_k10_lanes(dev, dfx, report, names):
+    """The K10 step_lanes of the envs `names` against their plain
+    versions over seeded masks at the gym paths' lanes, then the
+    fixture's (`dfx`) tick traces."""
     from cpr_tpu_torch import random as rnd
     from cpr_tpu_torch.envs.base import INFO_KEYS
     from cpr_tpu_torch.params import make_params
-    for name in DAG_ENVS:
+    for name in names:
         env = dag_env(name)
-        lanes = BK_LANES if name == "bk" else ETH_LANES
+        lanes = DAG_PATHS[name][0]
         params = make_params(alpha=0.35, gamma=0.5, max_steps=32)
         rng = np.random.default_rng(1)
         carry = env.init_lanes(rnd.split(rnd.PRNGKey(11, dev), lanes), params)
@@ -1656,13 +1807,14 @@ def mixed_policy(env, n):
     return policy
 
 
-def phase_k10_streams(dev, dfx, report):
-    """The K10 streams against their plain versions (every policy,
-    unchunked and chunked), then against the fixture."""
+def phase_k10_streams(dev, dfx, report, names):
+    """The K10 streams of the envs `names` against their plain versions
+    (every policy, unchunked and chunked), then against the fixture
+    (`dfx`)."""
     from cpr_tpu_torch import random as rnd
     from cpr_tpu_torch.envs.base import EPISODE_KEYS, map_state
     from cpr_tpu_torch.params import make_params
-    for name in DAG_ENVS:
+    for name in names:
         env = dag_env(name)
         params = make_params(alpha=0.35, gamma=0.5, max_steps=64)
         n = DAG_CHECK_LANES
@@ -1718,6 +1870,145 @@ def phase_k10_streams(dev, dfx, report):
             max_abs_err=err, ok=True)
 
 
+def phase_vote_variants(dev, report):
+    """K10-ts and K10-stree under every scheme and selection the paths do
+    not run (VOTE_VARIANTS), every policy, against their plain versions:
+    the stats and the whole final carry."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs import registry
+    from cpr_tpu_torch.envs.base import map_state
+    from cpr_tpu_torch.params import make_params
+    n, steps = VARIANT_LANES, VARIANT_STEPS
+    params = make_params(alpha=0.35, gamma=0.5, max_steps=64)
+    keys = rnd.split(rnd.PRNGKey(41, dev), n)
+    for family, variants in VOTE_VARIANTS.items():
+        for kw in variants:
+            env = registry.get(family, **{"window": DAG_WINDOW, **kw})
+            n_pol = len(env.scripted_policies)
+            with ring_peaks(env) as ring:
+                want_all, pcarry = dag_plain_stats(
+                    env, keys.repeat(n_pol, 1), params, mixed_policy(env, n),
+                    steps)
+            err = 0.0
+            for i, pol in enumerate(env.scripted_policies):
+                sl = slice(i * n, (i + 1) * n)
+                carry, sums, nd, _ = env._stream(None, keys, 1, steps,
+                                                 params, pol, False)
+                what = f"{env.kernel_name} {json.dumps(kw)} {pol}"
+                err = max(err, compare_dag_state(
+                    carry[0], map_state(lambda t: t[sl], pcarry[0]), what))
+                got = env.make_episode_stats_fn(params, pol, steps)(keys)
+                err = max(err, compare_stats(
+                    got, {k: v[sl] for k, v in want_all.items()}, what))
+            r = report[env.kernel_name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            say(f"{family}_variant", **{k: v for k, v in kw.items()},
+                lanes=n, steps=steps, policies=n_pol, max_abs_err=err,
+                **ring_report(env, ring), ok=True)
+
+
+def phase_k9(dev, qfx, report):
+    """K9's check kernel against `check_plain` on 4096 lanes of each vote
+    env's plain stream carry (every policy on its share of the lanes,
+    K9_STEPS steps into episodes of K9_MAX_STEPS, so that rings have
+    wrapped), and against the fixture's carries and inputs (jax's
+    outputs). Returns the carries."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs import quorum as Q
+    from cpr_tpu_torch.kernels import _CHECK_CFG
+    from cpr_tpu_torch.params import make_params
+    k9 = report["K9"]
+    carries = {}
+    for name in ("ts", "stree"):
+        env = dag_env(name)
+        n = DAG_CHECK_LANES
+        group = -(-n // len(env.scripted_policies))
+        params = make_params(alpha=0.35, gamma=0.5, max_steps=K9_MAX_STEPS)
+        _, carry = dag_plain_stats(env, rnd.split(rnd.PRNGKey(31, dev), n),
+                                   params, mixed_policy(env, group),
+                                   K9_STEPS)
+        carries[name] = carry
+        state = carry[0]
+        inputs = {k: v.contiguous() for k, v in
+                  Q.check_inputs(env, state).items()}
+        cfg = Q.check_cfg(env)
+        got = Q.quorum_check(state.dag, inputs, cfg)
+        want = Q.check_plain(state.dag, inputs, cfg)
+        for k, w in want.items():
+            check(torch.equal(got[k], w), f"K9 {name} {k} differs from plain")
+        wrapped = int((state.dag.gid.max(1).values >= env.capacity).sum())
+        # against jax (committed fixture)
+        fcfg = {f: int(v) for f, v in zip(_CHECK_CFG,
+                                           qfx[f"k9_{name}_cfg"])}
+        fstate = fixture_dag_state(qfx, f"k9_{name}_state_", env, dev)
+        fin = {f: torch.from_numpy(qfx[f"k9_{name}_in_{f}"]).to(dev)
+               for f in ("cand", "own", "seen", "score", "stale", "pub",
+                         "priv")}
+        fout = Q.quorum_check(fstate.dag, fin, fcfg)
+        for k, v in fout.items():
+            check(np.array_equal(v.cpu().numpy(), qfx[f"k9_{name}_out_{k}"]),
+                  f"K9 {name} {k} differs from jax")
+        say(f"k9_{name}", lanes=n, window=env.capacity, C=cfg["C"],
+            found=json.dumps(want["found"].sum(1).tolist()),
+            release_flips=int(want["rfound"].sum()), lanes_wrapped=wrapped,
+            fixture_lanes=int(fin["pub"].shape[0]), ok=True)
+    k9["max_abs_err"] = 0.0  # every output is an integer or a bool
+    return carries
+
+
+def k9_bytes(dag, inputs, cfg, out):
+    """The bytes K9's check must move on these lanes (csrc/quorum.cuh):
+    the per-slot planes it scans whole (gid, signer, kind, vis_d and the
+    inputs cand and stale), one 32-byte sector of the chain plane per slot
+    (the column of `pub` that `descendants` reads), the closure row and the
+    gathered values (aux, own, seen, score) of each candidate in the frame,
+    the height (and for Tailstorm the auxg) of each release position and
+    of `pub`, the lane scalars (n, live_floor, overflow, pub, priv), and
+    every output written once. Counted at this run's data: the framed
+    candidates from `cidx`, the release positions from the withheld
+    non-stale slots."""
+    L, W = dag.gid.shape
+    framed = int((out["cidx"] >= 0).sum())
+    cands = dag.exists() & ~dag.vis_d & ~inputs["stale"]
+    positions = int(cands.sum(1).clamp(max=cfg["R"]).sum()) + L
+    per_pos = 4 + (4 if cfg["env"] == 0 else 0)
+    chain_lanes = int((inputs["pub"] >= 0).sum())
+    return (L * W * (4 + 4 + 4 + 1 + 1 + 1) + chain_lanes * W * 32
+            + framed * (W + 4 + 1 + 4 + 4) + positions * per_pos
+            + L * (4 + 4 + 1 + 4 + 4)
+            + sum(v.nbytes for v in out.values()))
+
+
+def phase_k9_times(dev, report, carries):
+    """K9's check kernel per launch at 4096 lanes of Tailstorm carries,
+    its plain version's time (warm, the median of three calls), and its
+    bound: the bytes of `k9_bytes` (no arithmetic to speak of)."""
+    from cpr_tpu_torch.envs import quorum as Q
+    env = dag_env("ts")
+    state = carries["ts"][0]
+    inputs = {k: v.contiguous() for k, v in
+              Q.check_inputs(env, state).items()}
+    cfg = Q.check_cfg(env)
+    k9 = report["K9"]
+    k9["ms"] = device_ms(lambda: Q.quorum_check(state.dag, inputs, cfg), 3,
+                         "quorum_check_kernel")
+    out = Q.quorum_check(state.dag, inputs, cfg)
+    Q.check_plain(state.dag, inputs, cfg)
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Q.check_plain(state.dag, inputs, cfg)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    k9["plain_ms"] = sorted(secs)[1] * 1e3
+    k9["bound_ms"], k9["bound_by"] = bound_ms(
+        k9_bytes(state.dag, inputs, cfg, out), 0)
+    k9["library_ms"] = None  # no PyTorch call computes a quorum
+    say("k9_times", **{f: k9[f] for f in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by")})
+
+
 def phase_dag_path(dev, report, name):
     """A DAG env's main path (bench.py's config 2 or 3), its launch
     counts, the plain version held to the kernel, then the gym path."""
@@ -1728,13 +2019,7 @@ def phase_dag_path(dev, report, name):
     env = dag_env(name)
     pol = env.policies[DAG_ENVS[name][1]]
     k10 = env.kernel_name
-    if name == "bk":
-        lanes, steps, chunk, guard = BK_LANES, BK_STEPS, None, BK_GUARD
-        max_steps, plain_steps = BK_MAX_STEPS, BK_STEPS
-    else:
-        lanes, steps, chunk, guard = ETH_LANES, ETH_STEPS, ETH_CHUNK, \
-            ETH_GUARD
-        max_steps, plain_steps = ETH_MAX_STEPS, ETH_PLAIN_STEPS
+    lanes, steps, chunk, max_steps, guard, plain_steps = DAG_PATHS[name]
     params = make_params(alpha=0.35, gamma=0.5, max_steps=max_steps)
 
     kernels.reset_launches()
@@ -1772,12 +2057,27 @@ def phase_dag_path(dev, report, name):
     # time is the plain version's time of that launch)
     part = env.make_episode_stats_fn(params, pol, plain_steps,
                                      chunk=chunk)(keys)
-    want, _, chunk_s = dag_plain_stats(env, keys, params, pol, plain_steps,
-                                       chunk=128, timed=True)
+    with ring_peaks(env) as ring:
+        want, _, chunk_s = dag_plain_stats(env, keys, params, pol,
+                                           plain_steps, chunk=128,
+                                           timed=True)
     report[k10]["plain_ms"] = chunk_s[0] * 1e3
     err = compare_stats(part, want, f"{k10} vs plain at main shapes")
     report[k10]["max_abs_err"] = max(report[k10]["max_abs_err"], err)
-    say(f"{name}_vs_plain", steps=plain_steps, max_abs_err=err, ok=True)
+    extra = {}
+    if name in VOTE_REVENUE:
+        # the guard's reference: bench.py's revenue of the plain version
+        # on the first 64 lanes (the keys of split(PRNGKey(0), 64))
+        r = VOTE_REF_LANES
+        a = float(want["episode_reward_attacker"][:r].mean())
+        d = float(want["episode_reward_defender"][:r].mean())
+        check(abs(a / (a + d) - VOTE_REVENUE[name]) <= 1e-6,
+              f"{name} 64-lane reference revenue {a / (a + d)}, expected "
+              f"{VOTE_REVENUE[name]}")
+        # the episodes of the plain run whose ring wrapped
+        extra = dict(ref_revenue_64=a / (a + d), **ring_report(env, ring))
+    say(f"{name}_vs_plain", steps=plain_steps, max_abs_err=err, ok=True,
+        **extra)
 
     # the gym step path: resident lanes, one K10 launch per tick
     kernels.reset_launches()
@@ -1815,19 +2115,23 @@ def carry_bytes(carry):
     return total[0] + carry[1].nbytes
 
 
-def phase_dag_times(dev, report):
+ENV_KINDS = {"bk": "BkEnv", "eth": "EthEnv", "ts": "TailstormEnv",
+             "stree": "StreeEnv"}
+
+
+def phase_dag_times(dev, report, names):
     """K10 device times per 128-step launch at the paths' shapes and per
-    step_lanes tick, K8's check kernel per launch, the plain versions'
-    times and the bounds."""
+    step_lanes tick for the envs `names`, the plain versions' times and
+    the bounds; with bk, K8's check kernel per launch."""
     from cpr_tpu_torch import random as rnd
     from cpr_tpu_torch.core import dag as D
     from cpr_tpu_torch.params import make_params
     times = {}
-    for name, env_kind in (("bk", "BkEnv"), ("eth", "EthEnv")):
+    for name in names:
+        env_kind = ENV_KINDS[name]
         env = dag_env(name)
         k10 = report[env.kernel_name]
-        L = BK_LANES if name == "bk" else ETH_LANES
-        max_steps = BK_MAX_STEPS if name == "bk" else ETH_MAX_STEPS
+        L, _, _, max_steps, _, _ = DAG_PATHS[name]
         T = 128
         params = make_params(alpha=0.35, gamma=0.5, max_steps=max_steps)
         pid = env.scripted_policy_id(DAG_ENVS[name][1])
@@ -1840,12 +2144,19 @@ def phase_dag_times(dev, report):
         # written once, obs, sums and counts out; the threefry work of
         # the prologue, every step and every reset this launch made
         # (plain_ms: the path's first plain chunk, phase_dag_path)
-        _, n_done, _ = env._kernel_stream(carry, keys, 1, T, params, pid,
-                                          True, False)
+        sums, n_done, _ = env._kernel_stream(carry, keys, 1, T, params, pid,
+                                             True, False)
         resets = int(n_done.sum())
         state_b = carry_bytes(carry)
         k10_bytes = L * 8 + 2 * state_b + L * (7 * 4 + 4)
-        k10_ops = THREEFRY_OPS * (MINE_THREEFRY * (L * T + L + resets) + L)
+        if name in VOTE_REVENUE:
+            # the threefry work of this launch's mining draws (9 blocks
+            # each: the finished episodes' and the running ones')
+            mines = int(sums[6].sum()) + int(carry[0].n_activations.sum())
+            k10_ops = THREEFRY_OPS * (MINE_THREEFRY5 * mines + L)
+        else:
+            k10_ops = THREEFRY_OPS * (MINE_THREEFRY * (L * T + L + resets)
+                                      + L)
         k10["bound_ms"], k10["bound_by"] = bound_ms(k10_bytes, k10_ops)
         k10["state_bytes"] = state_b
         k10["launch_steps"] = T
@@ -1865,6 +2176,9 @@ def phase_dag_times(dev, report):
         times[env.kernel_name] = {f: k10[f] for f in (
             "ms", "plain_ms", "bound_ms", "bound_by", "step_lanes_ms",
             "step_lanes_plain_ms", "state_bytes")}
+    if "bk" not in names:
+        say("dag_times", **{k: json.dumps(v) for k, v in times.items()})
+        return
 
     ops, args, fargs = D.make_script(3, K8_LANES, K8_OPS, K8_PARENTS)
     a, f = torch.from_numpy(args).to(dev), torch.from_numpy(fargs).to(dev)
@@ -1937,6 +2251,8 @@ def main() -> int:
         gfx = {k: f[k] for k in f.files}
     with np.load(DAG_FIXTURE) as f:
         dfx = {k: f[k] for k in f.files}
+    with np.load(QUORUM_FIXTURE) as f:
+        qfx = {k: f[k] for k in f.files}
     csrc = "cpr_tpu_torch/csrc"
     report = {
         "K1": dict(name="K1 threefry2x32", route="cuda",
@@ -1977,6 +2293,23 @@ def main() -> int:
                         source=f"{csrc}/ethereum_stream.cu",
                         replaces="cpr_tpu/envs/ethereum.py:327",
                         max_abs_err=0.0),
+        # device functions that K10-ts/K10-stree run inside their
+        # launches, like K8
+        "K9": dict(name="K9 vote quorums (device functions run inside "
+                   "K10-ts/K10-stree, launches theirs; ms, plain_ms and "
+                   "bound_ms are its check kernel quorum_check_kernel's)",
+                   route="cuda", source=f"{csrc}/quorum.cuh",
+                   replaces="cpr_tpu/envs/quorum.py:65"),
+        "K10-ts": dict(name="K10-ts Tailstorm withholding stream and "
+                       "step_lanes", route="cuda",
+                       source=f"{csrc}/tailstorm_stream.cu",
+                       replaces="cpr_tpu/envs/tailstorm.py:417",
+                       max_abs_err=0.0),
+        "K10-stree": dict(name="K10-stree Stree withholding stream and "
+                          "step_lanes", route="cuda",
+                          source=f"{csrc}/stree_stream.cu",
+                          replaces="cpr_tpu/envs/stree.py:283",
+                          max_abs_err=0.0),
     }
     phase_k1(dev, fx, report)
     phase_k3(dev, fx)
@@ -1994,21 +2327,33 @@ def main() -> int:
     compiler.shutdown()
     rtdp_counts = phase_rtdp(dev, report, table, capstone_rev)
     phase_k8(dev, dfx, report)
-    phase_k10_lanes(dev, dfx, report)
-    phase_k10_streams(dev, dfx, report)
+    phase_k10_lanes(dev, dfx, report, ("bk", "eth"))
+    phase_k10_streams(dev, dfx, report, ("bk", "eth"))
     bk_counts, bk_gym = phase_dag_path(dev, report, "bk")
     eth_counts, eth_gym = phase_dag_path(dev, report, "eth")
+    vote = ("ts", "stree")
+    phase_k10_lanes(dev, qfx, report, vote)
+    phase_k10_streams(dev, qfx, report, vote)
+    phase_vote_variants(dev, report)
+    k9_carries = phase_k9(dev, qfx, report)
+    ts_counts, ts_gym = phase_dag_path(dev, report, "ts")
+    stree_counts, stree_gym = phase_dag_path(dev, report, "stree")
     for k, r in report.items():
         r["launches"] = sum(c[k] for c in (stream_counts, gym_counts,
                                            mdp_counts, grid_counts,
                                            rtdp_counts, bk_counts, bk_gym,
-                                           eth_counts, eth_gym))
-    report["K8"]["launches"] = (report["K10-bk"]["launches"]
-                                + report["K10-eth"]["launches"])
+                                           eth_counts, eth_gym, ts_counts,
+                                           ts_gym, stree_counts, stree_gym))
+    report["K8"]["launches"] = sum(report[k]["launches"] for k in (
+        "K10-bk", "K10-eth", "K10-ts", "K10-stree"))
+    report["K9"]["launches"] = (report["K10-ts"]["launches"]
+                                + report["K10-stree"]["launches"])
     phase_times(dev, report, main_episodes)
     phase_mdp_times(dev, report, table, policy)
     phase_grid_rtdp_times(dev, report, grid_table, probs)
-    phase_dag_times(dev, report)
+    phase_dag_times(dev, report, ("bk", "eth"))
+    phase_dag_times(dev, report, vote)
+    phase_k9_times(dev, report, k9_carries)
     for k, v in report.items():
         check(v["ms"] >= v["bound_ms"],
               f"{k} measured {v['ms']} ms, below its bound of "

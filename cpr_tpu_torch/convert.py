@@ -1,8 +1,9 @@
 """Carrying state between the JAX package and the port.
 
 The system has no weights: what crosses over is the parameter record,
-PRNG keys, the per-lane env states (Nakamoto's scalars; bk's and
-Ethereum's `Dag` plus scalars) and compiled MDP tables.
+PRNG keys, the per-lane env states (Nakamoto's scalars; bk's,
+Ethereum's, Tailstorm's and Stree's `Dag` plus scalars, and the latter
+two's `stale` plane) and compiled MDP tables.
 Everything passes through numpy with the reference's field names; keys
 are uint32 word pairs there (jax's key data) and int32 bit patterns
 here.
@@ -86,11 +87,11 @@ def tensor_mdp(n_states: int, n_actions: int, start, src, act, dst, prob,
 
 
 def dag_state_from_numpy(env, d: dict, device=None):
-    """A bk or Ethereum state [L] for `env` (a `DagEnv`) from numpy arrays
+    """A DAG env state [L] for `env` (a `DagEnv`) from numpy arrays
     under the reference's field names: `d["dag"]` holds the `Dag` fields
     (`parents` a sequence of [L, B] planes), the other keys the env
-    state's scalars (`key` as uint32 [L, 2]). Shapes and dtypes must be
-    the reference's."""
+    state's scalars and planes (`key` as uint32 [L, 2]). Shapes and
+    dtypes must be the reference's."""
     from cpr_tpu_torch.core import dag as D
 
     dev = _device.resolve(device)
@@ -116,14 +117,15 @@ def dag_state_from_numpy(env, d: dict, device=None):
             out[f] = rnd.from_numpy_words(d[f], dev)
         else:
             dt = (np.int32 if f in env.int_fields else np.bool_
-                  if f in env.bool_fields else np.float32)
+                  if f in env.bool_fields or f in env.plane_fields
+                  else np.float32)
             out[f] = put(d[f], dt)
     return env.state_cls(dag=dag, **out)
 
 
 def dag_state_to_numpy(state) -> dict:
     """{"dag": {field: np.ndarray, "parents": [planes]}, field: ...} of a
-    bk or Ethereum state, `key` as uint32 [L, 2]."""
+    DAG env state, `key` as uint32 [L, 2]."""
     import dataclasses
 
     def np_(t):

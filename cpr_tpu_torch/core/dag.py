@@ -370,6 +370,26 @@ def first_by_age(dag: Dag, mask):
     return where(mask.any(1), best, torch.full_like(best, NONE))
 
 
+def last_by_age(dag: Dag, mask):
+    """Latest-appended block in `mask` per lane, NONE if empty (dag.py:463):
+    the wrap-safe form of the highest masked slot."""
+    key = where(mask, dag.age_key(), torch.full_like(dag.age_key(), -1))
+    best = torch.argmax(key, dim=1).to(I32)
+    return where(mask.any(1), best, torch.full_like(best, NONE))
+
+
+def descendants_mask(dag: Dag, a) -> torch.Tensor:
+    """[L, B] blocks with `a` [L] on their chain row, `a` included
+    (dag.py:471): one column of the chain plane. In a ring a row's bit at
+    column a means the current occupant only if the row's owner is at
+    least as young as it (`gid >= gid[a]`)."""
+    ai = a.clamp(min=0)
+    col = dag.chain[lanes(dag), :, ai] & (a >= 0)[:, None]
+    if dag.is_ring:
+        col = col & (dag.gid >= at(dag.gid, ai)[:, None])
+    return col & dag.exists()
+
+
 def select_vis(cond, released: Dag, dag: Dag) -> Dag:
     """where(cond, released, dag) on the two fields release changes."""
     c = cond[:, None]
@@ -601,6 +621,11 @@ def top_k_by(score, mask, k: int, largest: bool = False):
 #                  born_at    out (sum of valid slots, n valid, first, last)
 #   COUNTS         r: out (exists, newer than r, precursor-children of r,
 #                  first_by_age(exists))
+#   LAST_BY_AGE    block, kind, dst: of its precursor-children of kind
+#   DESCENDANTS    a: out (its descendants_mask's count, last_by_age,
+#                  first_by_age, and count of defender-visible ones)
+# (the vote-quorum envs' queries, in a second script `RING_OPS_Q` so that
+# the first script's draws stay as they were)
 # and, in full mode only (the walk-based queries):
 #   RELEASE_CHAIN, RELEASE_CLOSURE   tip; fargs time    out (visible, ...)
 #   BLOCK_AT_HEIGHT  tip, depth, dst       CA_HEIGHT  a, b, dst
@@ -608,9 +633,10 @@ def top_k_by(score, mask, k: int, largest: bool = False):
 (OP_APPEND, OP_RELEASE_MASKED, OP_SELECT_VIS, OP_RELEASE_TOPK, OP_RETIRE,
  OP_CA, OP_CHAIN_FIRST, OP_FIRST_BY_AGE, OP_TOPK, OP_COUNTS,
  OP_RELEASE_CHAIN, OP_RELEASE_CLOSURE, OP_BLOCK_AT_HEIGHT,
- OP_CA_HEIGHT) = range(14)
+ OP_CA_HEIGHT, OP_LAST_BY_AGE, OP_DESCENDANTS) = range(16)
 SCRIPT_REGS, SCRIPT_TOPK, SCRIPT_OUT = 8, 5, 4
 RING_OPS = tuple(range(10))
+RING_OPS_Q = RING_OPS + (OP_LAST_BY_AGE, OP_DESCENDANTS)
 FULL_OPS = (OP_APPEND, OP_RELEASE_TOPK, OP_RETIRE, OP_FIRST_BY_AGE, OP_TOPK,
             OP_COUNTS, OP_RELEASE_CHAIN, OP_RELEASE_CLOSURE,
             OP_BLOCK_AT_HEIGHT, OP_CA_HEIGHT)
@@ -653,7 +679,8 @@ def make_script(seed: int, n_lanes: int, n_ops: int, max_parents: int,
             fargs[t, :, 3] = rng.random(L)
         else:
             a[:, 0], a[:, 1], a[:, 2] = reg(), reg(), reg()
-            if op[t] in (OP_SELECT_VIS, OP_FIRST_BY_AGE, OP_TOPK):
+            if op[t] in (OP_SELECT_VIS, OP_FIRST_BY_AGE, OP_TOPK,
+                         OP_LAST_BY_AGE):
                 a[:, 1] = rng.integers(0, 2, L)
             if op[t] in (OP_RELEASE_TOPK, OP_CHAIN_FIRST, OP_BLOCK_AT_HEIGHT):
                 a[:, 1] = rng.integers(0, SCRIPT_TOPK + 1, L)
@@ -723,7 +750,7 @@ def _script_op(dag: Dag, regs, op: int, a, f):
         regs = set_reg(a[:, 1].clamp(min=0), dropped)
         out[:, 0], out[:, 1] = dag.live_floor, dropped
     elif op in (OP_CA, OP_CHAIN_FIRST, OP_FIRST_BY_AGE, OP_BLOCK_AT_HEIGHT,
-                OP_CA_HEIGHT):
+                OP_CA_HEIGHT, OP_LAST_BY_AGE):
         if op == OP_CA:
             v = common_ancestor_masked(dag, x, y)
         elif op == OP_CHAIN_FIRST:
@@ -731,6 +758,9 @@ def _script_op(dag: Dag, regs, op: int, a, f):
         elif op == OP_FIRST_BY_AGE:
             v = first_by_age(dag, children0_mask(dag, x)
                              & (dag.kind == a[:, 1:2]))
+        elif op == OP_LAST_BY_AGE:
+            v = last_by_age(dag, children0_mask(dag, x)
+                            & (dag.kind == a[:, 1:2]))
         elif op == OP_BLOCK_AT_HEIGHT:
             v = block_at_height(dag, x, hreg(x) - a[:, 1])
         else:
@@ -749,6 +779,12 @@ def _script_op(dag: Dag, regs, op: int, a, f):
         out[:, 1] = (newer_than(dag, x) & ex).sum(1)
         out[:, 2] = children0_mask(dag, x).sum(1)
         out[:, 3] = first_by_age(dag, ex)
+    elif op == OP_DESCENDANTS:
+        m = descendants_mask(dag, x)
+        out[:, 0] = m.sum(1)
+        out[:, 1] = last_by_age(dag, m)
+        out[:, 2] = first_by_age(dag, m)
+        out[:, 3] = (m & dag.vis_d).sum(1)
     elif op in (OP_RELEASE_CHAIN, OP_RELEASE_CLOSURE):
         fn = release_chain if op == OP_RELEASE_CHAIN else release_closure
         dag = fn(dag, x, f[:, 0])

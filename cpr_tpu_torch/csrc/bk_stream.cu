@@ -263,7 +263,8 @@ struct BkEnv {
 
   // bk.py:303-326 on the logically reset DAG
   __device__ static void reset(LaneDag& g, Scal& s, uint2 key,
-                               const EnvParams& p, const EnvConfig& c) {
+                               const EnvParams& p, const EnvConfig& c,
+                               bool*) {
     g.clear_rows(2);
     cpr::zero_scal(s, key, kEvPow);
     Row root;
@@ -279,7 +280,7 @@ struct BkEnv {
 
   // bk.py:538-570
   __device__ static void step(LaneDag& g, Scal& s, int action,
-                              const EnvParams& p, const EnvConfig& c,
+                              const EnvParams& p, const EnvConfig& c, bool*,
                               StepOut& o) {
     apply(g, s, action, c);
     advance(g, s, p, c);
@@ -369,23 +370,9 @@ cudaError_t cpr_k10_bk_stream(const cpr::DagPtrs* dp, const cpr::EnvPtrs* ep,
                               const EnvParams* p, const EnvConfig* c,
                               int policy_id, void* sums, void* n_done,
                               const cpr::DagTrajPtrs* traj, void* stream) {
-  if (n_lanes <= 0) return cudaSuccess;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const unsigned blocks = cpr::dag_blocks_for(n_lanes);
-  const unsigned threads = 32 * cpr::kWarpsPerBlock;
-  if (traj != nullptr) {
-    cpr::dag_stream_kernel<BkEnv, true><<<blocks, threads, 0, st>>>(
-        *dp, *ep, static_cast<float*>(obs), static_cast<const uint2*>(keys),
-        init_mode, n_lanes, length, *p, *c, policy_id,
-        static_cast<float*>(sums), static_cast<int32_t*>(n_done), *traj);
-  } else {
-    cpr::dag_stream_kernel<BkEnv, false><<<blocks, threads, 0, st>>>(
-        *dp, *ep, static_cast<float*>(obs), static_cast<const uint2*>(keys),
-        init_mode, n_lanes, length, *p, *c, policy_id,
-        static_cast<float*>(sums), static_cast<int32_t*>(n_done),
-        cpr::DagTrajPtrs{});
-  }
-  return cudaGetLastError();
+  return cpr::launch_dag_stream<BkEnv>(dp, ep, obs, keys, init_mode, n_lanes,
+                                      length, p, c, policy_id, sums, n_done,
+                                      traj, stream);
 }
 
 // K10-bk step_lanes launch; the carry (`dp`, `ep`, `obs`) is updated in
@@ -396,18 +383,9 @@ cudaError_t cpr_k10_bk_step_lanes(
     const cpr::EnvPtrs* fep, const void* fresh_obs, const void* step_mask,
     int64_t n_lanes, const EnvParams* p, const EnvConfig* c, void* out_obs,
     void* reward, void* done, void* info, void* stream) {
-  if (n_lanes <= 0) return cudaSuccess;
-  cpr::dag_step_lanes_kernel<BkEnv>
-      <<<cpr::dag_blocks_for(n_lanes), 32 * cpr::kWarpsPerBlock, 0,
-         (cudaStream_t)stream>>>(
-          *dp, *ep, static_cast<float*>(obs),
-          static_cast<const int32_t*>(actions),
-          static_cast<const bool*>(admit), *fdp, *fep,
-          static_cast<const float*>(fresh_obs),
-          static_cast<const bool*>(step_mask), n_lanes, *p, *c,
-          static_cast<float*>(out_obs), static_cast<float*>(reward),
-          static_cast<bool*>(done), static_cast<float*>(info));
-  return cudaGetLastError();
+  return cpr::launch_dag_step_lanes<BkEnv>(
+      dp, ep, obs, actions, admit, fdp, fep, fresh_obs, step_mask, n_lanes, p,
+      c, out_obs, reward, done, info, stream);
 }
 
 const char* cpr_k10_bk_error_string(int err) {

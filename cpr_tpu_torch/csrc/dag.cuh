@@ -6,11 +6,12 @@
 // `retire_below` (369), `_valid_row`/`chain_mask`/`closure_mask`
 // (383-407), `release`/`release_masked`/`select_vis` (409, 486, 529),
 // `common_ancestor_masked` (418), `chain_first_at_most` (428),
-// `drop_if_retired` (441), `first_by_age` (454), `newer_than`/
+// `drop_if_retired` (441), `first_by_age` (454), `last_by_age` (463),
+// `descendants_mask` (471), `newer_than`/
 // `children0_mask` (499-527), `mask_of`/`top_k_by` (820-860). Plain twin:
 // cpr_tpu_torch/core/dag.py. Its own check kernel is csrc/dag_script.cu;
 // on the main path it runs inside K10 (csrc/bk_stream.cu,
-// csrc/ethereum_stream.cu).
+// csrc/ethereum_stream.cu, csrc/tailstorm_stream.cu, csrc/stree_stream.cu).
 //
 // Layout: a lane's DAG is the slice `lane` of the port's lane-batched
 // planes: `[L][W]` per field and per parent slot, `[L][W][W]` bool for
@@ -275,6 +276,36 @@ struct LaneDag {
     }
     warp_select<false>(k, s);
     return mask_any(m) ? s : kNone;
+  }
+  // dag.py:463: latest gid in m
+  __device__ int32_t last_by_age(Mask m) const {
+    int32_t k = INT32_MIN;
+    int s = INT32_MAX;
+#pragma unroll
+    for (int j = 0; j < kNS; ++j) {
+      if (!in(j)) continue;
+      const int32_t v = (m >> j) & 1u ? d->gid[o(slot(j))] : -1;
+      if (v > k) {
+        k = v;
+        s = slot(j);
+      }
+    }
+    warp_select<true>(k, s);
+    return mask_any(m) ? s : kNone;
+  }
+  // dag.py:471: blocks with `a` on their chain row (a column of the chain
+  // plane), the ring guard gid >= gid[a]
+  __device__ Mask descendants(int32_t a) const {
+    if (a < 0) return 0u;
+    const int32_t ga = at(d->gid, a);
+    Mask m = 0;
+#pragma unroll
+    for (int j = 0; j < kNS; ++j) {
+      if (!in(j)) continue;
+      const int s = slot(j);
+      if (row(d->chain, s)[a] && d->gid[o(s)] >= ga) m |= 1u << j;
+    }
+    return m & exists();
   }
   // min over m of a float plane, +inf when empty (jnp.where(m, x, inf).min())
   __device__ float min_where(const float* plane, Mask m) const {

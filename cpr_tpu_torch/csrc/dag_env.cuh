@@ -1,5 +1,6 @@
 // The episode-stream and step_lanes drivers of the DAG envs' kernels
-// (K10-bk, K10-eth), one warp per lane, templated on the env.
+// (K10-bk, K10-eth, K10-ts, K10-stree), one warp per lane, templated on
+// the env.
 //
 // Replaces: cpr_tpu/envs/base.py:342-506 `make_episode_stats_fn` (its
 // scan over `_autoreset_body`, 206-231) with `rollout` (303-328) as the
@@ -14,9 +15,11 @@
 //
 // An env supplies, as static device functions of a struct:
 //   kObs                       observation length
-//   reset(g, s, key, p, c)     dag cleared to rows [0, 2), fresh scalars,
+//   reset(g, s, key, p, c, x)  dag cleared to rows [0, 2), fresh scalars,
 //                              genesis and the first interaction
-//   step(g, s, action, p, c, out)   one step and finish_step
+//   step(g, s, action, p, c, x, out)   one step and finish_step
+// where x is the env's per-slot plane [L][W] (`EnvPtrs::stale`; LaneDag's
+// plane reads index it by lane), nullptr for an env without one;
 //   obs_ints(g, s, c, v)       the observation's natural-scale fields
 //   encode(v, c, f)            obs.encode of those fields
 //   policy(id, v, c)           a scripted policy on the integer fields
@@ -33,14 +36,17 @@
 namespace cpr {
 
 // Per-lane scalars of a DAG env state (ctypes `_EnvPtrs`): i = public,
-// private, event, pending_append | race_tip, steps, n_activations;
-// f = time and the five last_* fields; b = ethereum's mining_own,
-// mining_foreign.
+// private, event, pending_append | race_tip, steps, n_activations and
+// tailstorm's match_tgt; f = time and the five last_* fields; b =
+// ethereum's mining_own, mining_foreign | tailstorm's def_dirty | stree's
+// mining_excl; `stale` the [L][W] bool plane of tailstorm and stree. An
+// env without a field passes nullptr.
 struct EnvPtrs {
-  int32_t* i[6];
+  int32_t* i[7];
   float* f[6];
   bool* b[2];
   uint2* key;
+  bool* stale;
 };
 
 struct EnvParams {
@@ -54,7 +60,7 @@ struct EnvParams {
 
 // Static env options (ctypes `_EnvConfig`).
 struct EnvConfig {
-  int32_t k;           // bk: votes per block
+  int32_t k;           // bk: votes per block; tailstorm, stree: k
   int32_t constant;    // incentive scheme: bk constant | block, eth constant | discount
   int32_t ctk;         // bk: release selection width (capacity_topk)
   int32_t max_uncles;  // eth
@@ -62,6 +68,11 @@ struct EnvConfig {
   int32_t prog_work;   // eth: progress by work (else height)
   int32_t whitepaper;  // eth: the whitepaper preset's policy fields
   int32_t strict;      // eth: strict_match
+  int32_t scheme;      // tailstorm, stree: constant | discount | punish | hybrid
+  int32_t selection;   // tailstorm, stree: altruistic | heuristic | optimal
+  int32_t cmax;        // tailstorm, stree: quorum candidate frame C
+  int32_t rscan;       // tailstorm, stree: release scan R
+  int32_t opt_window;  // tailstorm, stree: optimal selection's window
   int32_t unit;        // unit observations
 };
 
@@ -81,7 +92,7 @@ constexpr int kMaxObs = 10;
 constexpr int kWarpsPerBlock = 4;
 
 struct Scal {
-  int32_t pub, priv, event, x, steps, nact;
+  int32_t pub, priv, event, x, steps, nact, y;
   float time, last[5];  // last_reward_attacker .. last_sim_time
   bool own, foreign;
   uint2 key;
@@ -101,6 +112,7 @@ __device__ __forceinline__ Scal load_scal(const EnvPtrs& e, int64_t i) {
   s.x = e.i[3][i];
   s.steps = e.i[4][i];
   s.nact = e.i[5][i];
+  s.y = e.i[6] != nullptr ? e.i[6][i] : kNone;
   s.time = e.f[0][i];
 #pragma unroll
   for (int j = 0; j < 5; ++j) s.last[j] = e.f[1 + j][i];
@@ -119,6 +131,7 @@ __device__ __forceinline__ void store_scal(const EnvPtrs& e, int64_t i,
   e.i[3][i] = s.x;
   e.i[4][i] = s.steps;
   e.i[5][i] = s.nact;
+  if (e.i[6] != nullptr) e.i[6][i] = s.y;
   e.f[0][i] = s.time;
 #pragma unroll
   for (int j = 0; j < 5; ++j) e.f[1 + j][i] = s.last[j];
@@ -131,7 +144,7 @@ __device__ __forceinline__ void store_scal(const EnvPtrs& e, int64_t i,
 __device__ __forceinline__ void zero_scal(Scal& s, uint2 key, int32_t event) {
   s.pub = s.priv = 0;
   s.event = event;
-  s.x = kNone;
+  s.x = s.y = kNone;
   s.steps = s.nact = 0;
   s.time = 0.f;
 #pragma unroll
@@ -154,6 +167,28 @@ __device__ __forceinline__ Draws draw4(uint2 key) {
   r.u1 = uniform_of_bits(random_bits(split_key(key, 2u), 0u));
   r.u2 = uniform_of_bits(random_bits(split_key(key, 3u), 0u));
   return r;
+}
+
+// The five keys of one mining draw: split(key, 5) and one 32-bit draw from
+// each of the last four (tailstorm.py:496-514, stree.py:307-319).
+struct Draws5 {
+  uint2 key;
+  float e, u_mine, u_hash, u_gamma;
+};
+
+__device__ __forceinline__ Draws5 draw5(uint2 key) {
+  Draws5 r;
+  r.key = split_key(key, 0u);
+  r.e = exponential_of_bits(random_bits(split_key(key, 1u), 0u));
+  r.u_mine = uniform_of_bits(random_bits(split_key(key, 2u), 0u));
+  r.u_hash = uniform_of_bits(random_bits(split_key(key, 3u), 0u));
+  r.u_gamma = uniform_of_bits(random_bits(split_key(key, 4u), 0u));
+  return r;
+}
+
+// The lane's row of a per-slot plane outside the DAG (`EnvPtrs::stale`).
+__device__ __forceinline__ bool* lane_plane(bool* plane, const LaneDag& g) {
+  return plane + g.lane * (int64_t)g.W;
 }
 
 // base.py:137-171 `finish_step`.
@@ -220,13 +255,14 @@ dag_stream_kernel(const __grid_constant__ DagPtrs dp,
   if (lane >= n_lanes) return;  // whole warps
   LaneDag g;
   g.bind(dp, lane);
+  bool* x = ep.stale;
   Scal s;
   if (init_mode == 0) {
     g.load_scalars();
     s = load_scal(ep, lane);
   } else {
     const uint2 k = keys[lane];
-    Env::reset(g, s, init_mode == 1 ? split_key(k, 1u) : k, p, c);
+    Env::reset(g, s, init_mode == 1 ? split_key(k, 1u) : k, p, c, x);
   }
   int32_t v[kMaxObs];
   float f[kMaxObs];
@@ -245,7 +281,7 @@ dag_stream_kernel(const __grid_constant__ DagPtrs dp,
       if (t == 0) traj.action[ti] = action;
     }
     StepOut o;
-    Env::step(g, s, action, p, c, o);
+    Env::step(g, s, action, p, c, x, o);
     if (STORE_TRAJ && t == 0) {
       traj.reward[ti] = o.reward;
       traj.done[ti] = o.done;
@@ -257,7 +293,7 @@ dag_stream_kernel(const __grid_constant__ DagPtrs dp,
 #pragma unroll
       for (int k = 0; k < kEpisode; ++k) acc[k] += o.info[5 + k];
       nd += 1;
-      Env::reset(g, s, s.key, p, c);
+      Env::reset(g, s, s.key, p, c, x);
     }
     Env::obs_ints(g, s, c, v);
   }
@@ -295,11 +331,18 @@ dag_step_lanes_kernel(const __grid_constant__ DagPtrs dp,
   const int F = Env::kObs;
   LaneDag g;
   g.bind(dp, lane);
+  bool* x = ep.stale;
   const bool admitted = admit[lane];
   Scal s;
   if (admitted) {
     g.copy_from(fdp);
     s = load_scal(fep, lane);
+    if (x != nullptr) {
+      bool* dst = lane_plane(x, g);
+      const bool* src = lane_plane(fep.stale, g);
+      for (int j = t; j < g.W; j += 32) dst[j] = src[j];
+      __syncwarp();
+    }
   } else {
     g.load_scalars();
     s = load_scal(ep, lane);
@@ -308,11 +351,11 @@ dag_step_lanes_kernel(const __grid_constant__ DagPtrs dp,
   float f[kMaxObs];
   if (step_mask[lane]) {
     StepOut o;
-    Env::step(g, s, actions[lane], p, c, o);
+    Env::step(g, s, actions[lane], p, c, x, o);
     Env::obs_ints(g, s, c, v);
     Env::encode(v, c, f);
     put_row(out_obs + lane * F, f, F);
-    if (o.done) Env::reset(g, s, s.key, p, c);
+    if (o.done) Env::reset(g, s, s.key, p, c, x);
     store_scal(ep, lane, s);
     g.store_scalars();
     Env::obs_ints(g, s, c, v);
@@ -343,6 +386,55 @@ dag_step_lanes_kernel(const __grid_constant__ DagPtrs dp,
 
 inline unsigned dag_blocks_for(int64_t n_lanes) {
   return (unsigned)((n_lanes + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+// The host side of every K10 env's two entry points: launch on `stream`,
+// return the launch's error.
+template <class Env>
+cudaError_t launch_dag_stream(const DagPtrs* dp, const EnvPtrs* ep, void* obs,
+                              const void* keys, int init_mode,
+                              int64_t n_lanes, int length, const EnvParams* p,
+                              const EnvConfig* c, int policy_id, void* sums,
+                              void* n_done, const DagTrajPtrs* traj,
+                              void* stream) {
+  if (n_lanes <= 0) return cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const unsigned blocks = dag_blocks_for(n_lanes);
+  const unsigned threads = 32 * kWarpsPerBlock;
+  if (traj != nullptr) {
+    dag_stream_kernel<Env, true><<<blocks, threads, 0, st>>>(
+        *dp, *ep, static_cast<float*>(obs), static_cast<const uint2*>(keys),
+        init_mode, n_lanes, length, *p, *c, policy_id,
+        static_cast<float*>(sums), static_cast<int32_t*>(n_done), *traj);
+  } else {
+    dag_stream_kernel<Env, false><<<blocks, threads, 0, st>>>(
+        *dp, *ep, static_cast<float*>(obs), static_cast<const uint2*>(keys),
+        init_mode, n_lanes, length, *p, *c, policy_id,
+        static_cast<float*>(sums), static_cast<int32_t*>(n_done),
+        DagTrajPtrs{});
+  }
+  return cudaGetLastError();
+}
+
+template <class Env>
+cudaError_t launch_dag_step_lanes(
+    const DagPtrs* dp, const EnvPtrs* ep, void* obs, const void* actions,
+    const void* admit, const DagPtrs* fdp, const EnvPtrs* fep,
+    const void* fresh_obs, const void* step_mask, int64_t n_lanes,
+    const EnvParams* p, const EnvConfig* c, void* out_obs, void* reward,
+    void* done, void* info, void* stream) {
+  if (n_lanes <= 0) return cudaSuccess;
+  dag_step_lanes_kernel<Env>
+      <<<dag_blocks_for(n_lanes), 32 * kWarpsPerBlock, 0,
+         (cudaStream_t)stream>>>(
+          *dp, *ep, static_cast<float*>(obs),
+          static_cast<const int32_t*>(actions),
+          static_cast<const bool*>(admit), *fdp, *fep,
+          static_cast<const float*>(fresh_obs),
+          static_cast<const bool*>(step_mask), n_lanes, *p, *c,
+          static_cast<float*>(out_obs), static_cast<float*>(reward),
+          static_cast<bool*>(done), static_cast<float*>(info));
+  return cudaGetLastError();
 }
 
 }  // namespace cpr

@@ -25,7 +25,7 @@ using cpr::mask_count;
 constexpr int kRegs = 8, kTopK = 5, kOut = 4;
 enum Op {
   kAppend = 0, kReleaseMasked, kSelectVis, kReleaseTopK, kRetire, kCa,
-  kChainFirst, kFirstByAge, kTopKOp, kCounts
+  kChainFirst, kFirstByAge, kTopKOp, kCounts, kLastByAge = 14, kDescendants
 };
 
 __global__ void __launch_bounds__(128)
@@ -126,6 +126,17 @@ dag_script_kernel(const __grid_constant__ cpr::DagPtrs dp,
         }
         o[2] = idx[0];
         o[3] = idx[kTopK - 1];
+        break;
+      }
+      case kLastByAge:
+        o[0] = regs[a[2]] = g.last_by_age(g.children0(x) & g.kind_is(a[1]));
+        break;
+      case kDescendants: {
+        const Mask m = g.descendants(x);
+        o[0] = mask_count(m);
+        o[1] = g.last_by_age(m);
+        o[2] = g.first_by_age(m);
+        o[3] = mask_count(m & g.bools(g.d->vis_d));
         break;
       }
       default: {  // kCounts

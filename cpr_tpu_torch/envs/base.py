@@ -14,8 +14,8 @@ run on any device.
 The drivers — `init_lanes`, `reset_lanes`, `step_lanes`, `rollout` and
 the function `make_episode_stats_fn` builds — dispatch on the device of
 their tensors: on a CUDA tensor they launch the env's kernels (K2 the
-fused episode stream, K3 the one-tick lane step; K10-bk and K10-eth for
-the DAG envs of `DagEnv`) or raise; on a CPU tensor they run the plain
+fused episode stream, K3 the one-tick lane step; K10-bk, K10-eth,
+K10-ts and K10-stree for the DAG envs of `DagEnv`) or raise; on a CPU tensor they run the plain
 twins `stream_plain` and `step_lanes_plain`.
 Where the JAX package donates the carry (base.py:259, :472) the port
 updates it in place: after `step_lanes` and between chunks of the stats
@@ -519,10 +519,12 @@ class TorchEnv:
 
 class DagEnv(TorchEnv):
     """Base of the envs whose state is a lane-batched `core.dag.Dag` plus
-    per-lane scalars (bk, ethereum), with the hooks of their K10 kernels.
+    per-lane scalars (bk, ethereum, tailstorm, stree), with the hooks of
+    their K10 kernels.
 
     A subclass sets `state_cls`, `int_fields`, `bool_fields` (its scalar
-    fields besides the float32 ones and `key`), `kernel_name` (its launch
+    fields besides the float32 ones and `key`), `plane_fields` (its
+    per-slot bool planes [L, B] outside the DAG), `kernel_name` (its launch
     counter), `kernel_lib` (its K10 library's entry points,
     `cpr_k10_<kernel_lib>_*`), `kernel_config()`, and the DAG modes
     `capacity`, `max_parents`, `ring`, `anc_masks`, `lift`. The kernels'
@@ -532,6 +534,7 @@ class DagEnv(TorchEnv):
     reset_dag_rows = 2
     kernel_item = "8c"
     bool_fields: tuple[str, ...] = ()
+    plane_fields: tuple[str, ...] = ()
 
     def kernel_config(self) -> dict[str, int]:
         """The env's static options for its K10 kernel, by the field
@@ -554,6 +557,9 @@ class DagEnv(TorchEnv):
         def scalar(f):
             if f == "key":
                 return torch.empty((n, 2), dtype=torch.int32, device=device)
+            if f in self.plane_fields:
+                return torch.empty((n, self.capacity), dtype=torch.bool,
+                                   device=device)
             dt = (torch.int32 if f in self.int_fields else torch.bool
                   if f in self.bool_fields else torch.float32)
             return torch.empty((n,), dtype=dt, device=device)

@@ -4,8 +4,9 @@ cpr_tpu/envs/registry.py).
 Reference counterpart: the protocol/attack-space registry and string keys
 (simulator/protocols/cpr_protocols.ml:11-180) with the `of_key` grammar
 (cpr_protocols.ml:786-903). The grammar is the JAX package's, whole;
-`nakamoto`, `bk` and the `ethereum` families are registered, and a key of
-any other valid family raises a KeyError naming the slice that brings it.
+`nakamoto`, `bk`, the `ethereum` families, `stree`, `tailstorm` and
+`tailstormjune` are registered, and a key of any other valid family
+raises a KeyError naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -31,9 +32,8 @@ _INFO = {
 
 # families the JAX package has and this package does not yet, with the
 # ROADMAP item that brings them
-_NOT_PORTED = {f: "8b, slice 5: vote quorums K9 and their envs"
-               for f in ("spar", "stree", "sdag", "tailstorm",
-                         "tailstormjune")}
+_NOT_PORTED = {"spar": "8d, slice 6: the Spar env",
+               "sdag": "8d, slice 6: the Sdag env over the altruistic K9"}
 
 
 def register(key: str, factory: Callable):
@@ -185,6 +185,9 @@ def _ensure_builtin():
     from cpr_tpu_torch.envs.bk import BkSSZ
     from cpr_tpu_torch.envs.ethereum import EthereumSSZ
     from cpr_tpu_torch.envs.nakamoto import NakamotoSSZ
+    from cpr_tpu_torch.envs.stree import StreeSSZ
+    from cpr_tpu_torch.envs.tailstorm import TailstormSSZ
+    from cpr_tpu_torch.envs.tailstorm_june import TailstormJuneSSZ
 
     _BUILTIN_LOADED = True
     for key, factory in [
@@ -195,5 +198,8 @@ def _ensure_builtin():
          lambda **kw: EthereumSSZ("whitepaper", **kw)),
         ("ethereum-byzantium",
          lambda **kw: EthereumSSZ("byzantium", **kw)),
+        ("stree", StreeSSZ),
+        ("tailstorm", TailstormSSZ),
+        ("tailstormjune", TailstormJuneSSZ),
     ]:
         _REGISTRY.setdefault(key, factory)

@@ -2,12 +2,13 @@
 (port of cpr_tpu/gym/__init__.py).
 
 Reference counterpart: gym/ocaml/cpr_gym/envs.py:96-192. Importing this
-module registers `core-torch-v0`, `cpr-torch-v0` and
-`cpr-nakamoto-torch-v0`. The ids differ from the JAX package's
-(`core-v0`, `cpr-v0`, `cpr-nakamoto-v0`): gymnasium keeps the first
-registration of an id, so in a process that imports both packages a
-shared id would silently resolve to whichever registered first. The
-FC16, generic and tailstorm ids wait for slice 5 (ROADMAP item 8b).
+module registers `core-torch-v0`, `cpr-torch-v0`, `cpr-nakamoto-torch-v0`
+and `cpr-tailstorm-torch-v0`. The ids differ from the JAX package's
+(`core-v0`, `cpr-v0`, `cpr-nakamoto-v0`, `cpr-tailstorm-v0`): gymnasium
+keeps the first registration of an id, so in a process that imports both
+packages a shared id would silently resolve to whichever registered
+first. The FC16 and generic ids (`FC16SSZwPT-v0`, `cpr-generic-v0`) wait
+for `gym/generic_env.py` in slice 6 (ROADMAP item 8d).
 """
 
 from __future__ import annotations
@@ -58,7 +59,8 @@ def env_fn(protocol="nakamoto", protocol_args=None,
     return env
 
 
-ENV_IDS = ("core-torch-v0", "cpr-torch-v0", "cpr-nakamoto-torch-v0")
+ENV_IDS = ("core-torch-v0", "cpr-torch-v0", "cpr-nakamoto-torch-v0",
+           "cpr-tailstorm-torch-v0")
 
 
 def _register():
@@ -67,6 +69,12 @@ def _register():
         dict(id="cpr-torch-v0", entry_point=env_fn),
         dict(id="cpr-nakamoto-torch-v0", entry_point=env_fn,
              kwargs=dict(protocol="nakamoto", reward="sparse_relative")),
+        dict(id="cpr-tailstorm-torch-v0", entry_point=env_fn,
+             kwargs=dict(protocol="tailstorm",
+                         _protocol_args=dict(
+                             k=8, incentive_scheme="discount",
+                             subblock_selection="heuristic"),
+                         reward="sparse_per_progress")),
     ]
     for spec in specs:  # per-id guard: re-import must be idempotent
         if spec["id"] not in gymnasium.envs.registry:

@@ -32,15 +32,18 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu", "rtdp.cu",
-           "dag_script.cu", "bk_stream.cu", "ethereum_stream.cu")
+           "dag_script.cu", "bk_stream.cu", "ethereum_stream.cu",
+           "quorum_check.cu", "tailstorm_stream.cu", "stree_stream.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# launches per kernel since the last reset_launches(). K8 is a set of
-# device functions (csrc/dag.cuh) that K10 runs inside its own launches;
-# its count is that of its check kernel (csrc/dag_script.cu).
+# launches per kernel since the last reset_launches(). K8 and K9 are sets
+# of device functions (csrc/dag.cuh, csrc/quorum.cuh) that K10 runs inside
+# its own launches; their counts are those of their check kernels
+# (csrc/dag_script.cu, csrc/quorum_check.cu).
 launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
-            "K8": 0, "K10-bk": 0, "K10-eth": 0}
+            "K8": 0, "K9": 0, "K10-bk": 0, "K10-eth": 0, "K10-ts": 0,
+            "K10-stree": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -179,13 +182,35 @@ class _DagPtrs(ctypes.Structure):
 
 
 class _EnvPtrs(ctypes.Structure):
-    _fields_ = [("i", _p * 6), ("f", _p * 6), ("b", _p * 2), ("key", _p)]
+    _fields_ = [("i", _p * 7), ("f", _p * 6), ("b", _p * 2), ("key", _p),
+                ("stale", _p)]
 
 
 class _EnvConfig(ctypes.Structure):
     _fields_ = [(f, ctypes.c_int32) for f in (
         "k", "constant", "ctk", "max_uncles", "pref_work", "prog_work",
-        "whitepaper", "strict", "unit")]
+        "whitepaper", "strict", "scheme", "selection", "cmax", "rscan",
+        "opt_window", "unit")]
+
+
+_MAX_FRAME = 64  # csrc/quorum.cuh kQMaxC: one 64-bit mask of candidates
+_CHECK_CFG = ("env", "C", "q", "k", "width", "window", "discount", "punish",
+              "depth_plus", "miner_share", "R")
+
+
+class _CheckIn(ctypes.Structure):
+    _fields_ = [(f, _p) for f in ("cand", "own", "seen", "score", "stale",
+                                  "pub", "priv")]
+
+
+class _CheckCfg(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int32) for f in _CHECK_CFG]
+
+
+class _CheckOut(ctypes.Structure):
+    _fields_ = [(f, _p) for f in ("cidx", "cvalid", "abits", "found",
+                                  "leaves", "row", "ovr", "mat", "rfound",
+                                  "head", "stale")]
 
 
 def _load() -> dict[str, ctypes.CDLL]:
@@ -238,9 +263,19 @@ def _load() -> dict[str, ctypes.CDLL]:
         k8.cpr_k8_dag_script.restype = _int
         k8.cpr_k8_error_string.argtypes = [_int]
         k8.cpr_k8_error_string.restype = ctypes.c_char_p
-        _libs.update(random=rnd, nakamoto=nak, mdp=mdp, rtdp=rt, dag=k8)
+        k9 = ctypes.CDLL(str(paths["quorum_check.cu"]))
+        k9.cpr_k9_quorum_check.argtypes = [
+            dp, ctypes.POINTER(_CheckIn), ctypes.POINTER(_CheckCfg), _i64,
+            ctypes.POINTER(_CheckOut), _p]
+        k9.cpr_k9_quorum_check.restype = _int
+        k9.cpr_k9_error_string.argtypes = [_int]
+        k9.cpr_k9_error_string.restype = ctypes.c_char_p
+        _libs.update(random=rnd, nakamoto=nak, mdp=mdp, rtdp=rt, dag=k8,
+                     quorum=k9)
         for name, src in (("bk", "bk_stream.cu"),
-                          ("eth", "ethereum_stream.cu")):
+                          ("eth", "ethereum_stream.cu"),
+                          ("ts", "tailstorm_stream.cu"),
+                          ("stree", "stree_stream.cu")):
             lib = ctypes.CDLL(str(paths[src]))
             stream_fn = getattr(lib, f"cpr_k10_{name}_stream")
             stream_fn.argtypes = [dp, ep, _p, _p, _int, _i64, _int, pp, cfg,
@@ -626,6 +661,19 @@ def check_dag_modes(name, W, P, ring, masks, lifted) -> None:
             f"{W} and {P} (ROADMAP item 8c)")
 
 
+def check_quorum_modes(name, C, R, width) -> None:
+    """K9's limits: a candidate frame of at most `_MAX_FRAME` (k <= 12 for
+    Tailstorm and Stree), a release scan of at most `_MAX_WINDOW`
+    positions, parent rows of at most 16 leaves."""
+    if not (0 < C <= _MAX_FRAME and 0 < R <= _MAX_WINDOW
+            and 0 < width <= 16):
+        raise NotImplementedError(
+            f"{name}: the quorum kernels hold candidate frames of at most "
+            f"{_MAX_FRAME}, release scans of at most {_MAX_WINDOW} and rows "
+            f"of at most 16 leaves, this one has {C}, {R} and {width} "
+            "(ROADMAP item 8c)")
+
+
 def _dag_ptrs(dag, dev, name) -> _DagPtrs:
     """Check a lane-batched core.dag.Dag in ring mode with ancestry planes
     for the DAG kernels and point a `_DagPtrs` at it."""
@@ -664,6 +712,10 @@ def _env_ptrs(env, state, n, dev, name) -> _EnvPtrs:
         t = getattr(state, f)
         _want(t, f"{name}.{f}", torch.bool, (n,), dev, align=1)
         ptrs.b[j] = t.data_ptr()
+    for f in env.plane_fields:  # the one per-slot plane: `stale`
+        t = getattr(state, f)
+        _want(t, f"{name}.{f}", torch.bool, (n, env.capacity), dev, align=1)
+        ptrs.stale = t.data_ptr()
     _want(state.key, f"{name}.key", torch.int32, (n, 2), dev, align=8)
     ptrs.key = state.key.data_ptr()
     return ptrs
@@ -689,7 +741,7 @@ def dag_stream(env, state, obs, keys, init_mode: int, length: int, params,
                store_traj: bool = False):
     """K10 (the library `env.kernel_lib`): `length` auto-resetting
     steps of every lane under the scripted policy `policy_id`, updating
-    the carry (`state`, a bk or Ethereum state on the card, and `obs`
+    the carry (`state`, a DAG env's state on the card, and `obs`
     [L, F]) IN PLACE; init_mode as in `stream`. Returns (sums [7, L],
     n_done [L], traj) as `stream` does, traj obs [T, L, F]."""
     dev = obs.device
@@ -770,19 +822,66 @@ def dag_step_lanes(env, state, obs, actions, admit_mask, fresh_state,
     return out_obs, reward, done, info
 
 
+def quorum_check(dag, inputs: dict, cfg: dict) -> dict:
+    """K9's check kernel (csrc/quorum_check.cu) on `dag` (ring window with
+    ancestry planes, on the card, read only). `inputs` as
+    `envs.quorum.check_plain` takes them: cand, own [L, W] bool, seen,
+    score [L, W] float32, stale [L, W] bool, pub, priv [L] int32; `cfg` its
+    options (`_CHECK_CFG`). Returns the dict `check_plain` returns."""
+    dev = dag.device
+    if dev.type != "cuda":
+        raise ValueError("K9 takes CUDA tensors")
+    L, W = dag.n_lanes, dag.capacity
+    C, width = int(cfg["C"]), int(cfg["width"])
+    check_quorum_modes("K9 check", C, int(cfg["R"]), width)
+    dp = _dag_ptrs(dag, dev, "dag")
+    for f, dt in (("cand", torch.bool), ("own", torch.bool),
+                  ("seen", torch.float32), ("score", torch.float32),
+                  ("stale", torch.bool)):
+        _want(inputs[f], f, dt, (L, W), dev,
+              align=1 if dt == torch.bool else 4)
+    for f in ("pub", "priv"):
+        _want(inputs[f], f, torch.int32, (L,), dev)
+    cin = _CheckIn(*(inputs[f].data_ptr() for f in (
+        "cand", "own", "seen", "score", "stale", "pub", "priv")))
+    ccfg = _CheckCfg(*(int(cfg[f]) for f in _CHECK_CFG))
+    b = dict(dtype=torch.bool, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = dict(cidx=torch.empty((L, C), **i32),
+               cvalid=torch.empty((L, C), **b),
+               abits=torch.empty((L, C, C), **b),
+               found=torch.empty((3, L), **b),
+               leaves=torch.empty((3, L, C), **b),
+               row=torch.empty((3, L, width), **i32),
+               ovr=torch.empty((L, W), **b), mat=torch.empty((L, W), **b),
+               rfound=torch.empty((L,), **b), head=torch.empty((L,), **i32),
+               stale=torch.empty((L, W), **b))
+    cout = _CheckOut(*(out[f].data_ptr() for f in (
+        "cidx", "cvalid", "abits", "found", "leaves", "row", "ovr", "mat",
+        "rfound", "head", "stale")))
+    lib = _load()["quorum"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k9_quorum_check(ctypes.byref(dp), ctypes.byref(cin),
+                                     ctypes.byref(ccfg), L,
+                                     ctypes.byref(cout), _stream(dev))
+    _check(rc, lib, "cpr_k9_error_string", "K9 quorum_check")
+    launches["K9"] += 1
+    return out
+
+
 def dag_script(dag, ops, args, fargs):
     """K8's check kernel: the script of `core.dag.make_script` on `dag`
     (ring window with ancestry planes, on the card), updated in place.
     `ops` [T] host int32; `args` [T, L, 8 + P] int32, `fargs` [T, L, 4]
     float32 on the card. Returns (regs [L, 8], out [T, L, 4])."""
-    from cpr_tpu_torch.core.dag import RING_OPS, SCRIPT_OUT, SCRIPT_REGS
+    from cpr_tpu_torch.core.dag import RING_OPS_Q, SCRIPT_OUT, SCRIPT_REGS
     dev = dag.device
     if dev.type != "cuda":
         raise ValueError("K8 takes CUDA tensors")
     L, P = dag.n_lanes, dag.max_parents
     dp = _dag_ptrs(dag, dev, "dag")
     ops_t = torch.as_tensor(ops, dtype=torch.int32)
-    if not bool(torch.isin(ops_t, torch.tensor(RING_OPS)).all()):
+    if not bool(torch.isin(ops_t, torch.tensor(RING_OPS_Q)).all()):
         raise NotImplementedError(
             "K8's check kernel runs the ring-window ops only; the walk-based "
             "queries are full mode (ROADMAP item 8c)")

@@ -2,7 +2,9 @@
 plain twin of K8) against cpr_tpu.core.dag on the CPU.
 
 A numpy-seeded register-machine script (`core.dag.make_script`: appends,
-releases, retirements and every query the bk and Ethereum envs use) runs
+releases, retirements and every query the bk and Ethereum envs use, and
+in a second script the Tailstorm and Stree envs' `last_by_age` and
+`descendants_mask`) runs
 through the reference (vmapped over lanes, one `lax.switch` per op in a
 `lax.scan`) and through `script_plain`: in ring mode with ancestry
 planes on a window small enough to wrap and overflow, and in full mode
@@ -26,6 +28,8 @@ L, T, P = 16, 240, 3
 # as here); the ring wraps and overflows.
 MODES = {
     "ring": (24, True, True, False, D.RING_OPS),
+    # the vote-quorum envs' queries (last_by_age, descendants_mask)
+    "ring-q": (24, True, True, False, D.RING_OPS_Q),
     "full": (T, False, False, False, D.FULL_OPS),
     "full-lift": (T, False, False, True, D.FULL_OPS),
 }
@@ -110,6 +114,11 @@ def jax_script(capacity, ring, masks, lift, allowed, ops, args, fargs):
                 return dag, regs, out4(
                     ex.sum(), (JD.newer_than(dag, x) & ex).sum(),
                     JD.children0_mask(dag, x).sum(), JD.first_by_age(dag, ex))
+            if op == D.OP_DESCENDANTS:
+                m = JD.descendants_mask(dag, x)
+                return dag, regs, out4(m.sum(), JD.last_by_age(dag, m),
+                                       JD.first_by_age(dag, m),
+                                       (m & dag.vis_d).sum())
             if op in (D.OP_RELEASE_CHAIN, D.OP_RELEASE_CLOSURE):
                 fn2 = (JD.release_chain if op == D.OP_RELEASE_CHAIN
                        else JD.release_closure)
@@ -123,6 +132,9 @@ def jax_script(capacity, ring, masks, lift, allowed, ops, args, fargs):
             elif op == D.OP_FIRST_BY_AGE:
                 v = JD.first_by_age(dag, JD.children0_mask(dag, x)
                                     & (dag.kind == a[1]))
+            elif op == D.OP_LAST_BY_AGE:
+                v = JD.last_by_age(dag, JD.children0_mask(dag, x)
+                                   & (dag.kind == a[1]))
             elif op == D.OP_BLOCK_AT_HEIGHT:
                 v = JD.block_at_height(dag, x, hreg(dag, x) - a[1])
             else:
@@ -179,7 +191,7 @@ def test_script_matches_reference(mode):
     np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
     np.testing.assert_array_equal(regs.numpy(), np.asarray(jregs))
     assert_dag(dag, jdag, mode)
-    if mode == "ring":
+    if mode.startswith("ring"):
         appended = out[torch.from_numpy(ops == D.OP_APPEND)][..., 0] >= 0
         assert int(appended.sum(0).min()) > 2 * MODES[mode][0]  # wrapped
         assert bool(dag.overflow.any()) and not bool(dag.overflow.all())

@@ -5,7 +5,8 @@ K10-eth).
 (JAX on the CPU):
 - `k8_*`: a ring-window script of `core.dag.make_script` (64 lanes, 240
   ops, a 32-slot window that wraps and overflows) with every result, the
-  registers and the final DAG;
+  registers and the final DAG; `k8q_*` the same for a second script that
+  adds the vote-quorum envs' `last_by_age` and `descendants_mask`;
 - `bk_*` (Bₖ k=8, constant, window 128, max_steps 200) and `eth_*`
   (Ethereum byzantium, window 128, max_steps 200): 64 lanes x 256 steps
   of the auto-reset stream under every scripted policy — per-lane episode
@@ -36,6 +37,7 @@ FIXTURE = (Path(__file__).resolve().parent / "fixtures"
            / "torch_port_dag_golden.npz")
 
 K8_LANES, K8_OPS, K8_WINDOW, K8_PARENTS, K8_SEED = 64, 240, 32, 3, 11
+K8Q_SEED = 13  # the second script: the vote-quorum envs' queries
 LANES, STEPS, SEED = 64, 256, 5
 SL_LANES, SL_TICKS, SL_MAX_STEPS = 32, 40, 12
 # env name: (registry key, kwargs, max_steps, the benchmark's policy)
@@ -111,6 +113,16 @@ def build_golden() -> dict[str, np.ndarray]:
             x = getattr(dag, g)
             out[f"k8_dag.{g}"] = (np.stack([np.asarray(p) for p in x])
                                   if g == "parents" else np.asarray(x))
+        ops, args, fargs = D.make_script(K8Q_SEED, K8_LANES, K8_OPS,
+                                         K8_PARENTS, ops=D.RING_OPS_Q)
+        dag, regs, res = jax_script(K8_WINDOW, True, True, False,
+                                    D.RING_OPS_Q, ops, args, fargs)
+        out.update(k8q_ops=ops, k8q_args=args, k8q_fargs=fargs,
+                   k8q_out=np.asarray(res), k8q_regs=np.asarray(regs))
+        for g in dag.__dataclass_fields__:
+            x = getattr(dag, g)
+            out[f"k8q_dag.{g}"] = (np.stack([np.asarray(p) for p in x])
+                                   if g == "parents" else np.asarray(x))
 
         for name, (key, kw, max_steps, main) in ENVS.items():
             env = jregistry.get(key, **kw)
@@ -184,6 +196,11 @@ def test_fixture_matches_reference(committed):
 def test_fixture_exercises_wrap_reset_and_overflow(committed):
     fx = committed
     assert fx["k8_dag.overflow"].any() and fx["k8_dag.live_floor"].max() > 0
+    # the second script ran both queries and found blocks with them
+    from cpr_tpu_torch.core import dag as D
+    for op in (D.OP_LAST_BY_AGE, D.OP_DESCENDANTS):
+        res = fx["k8q_out"][fx["k8q_ops"] == op]
+        assert len(res) and (res[..., 0] > 0).any(), op
     for name in ENVS:
         # the 128-slot ring wrapped within an episode, and lanes reset
         assert fx[f"{name}_final_dag.gid"].max() >= 128, name
@@ -206,17 +223,19 @@ def test_port_replays_fixture(committed):
     from test_torch_bk import assert_state_numpy
 
     fx = committed
-    dag = D.empty(K8_LANES, K8_WINDOW, K8_PARENTS, ring=True, anc_masks=True)
-    dag, regs, out = D.dag_script(dag, fx["k8_ops"],
-                                  torch.from_numpy(fx["k8_args"]),
-                                  torch.from_numpy(fx["k8_fargs"]))
-    np.testing.assert_array_equal(out.numpy(), fx["k8_out"])
-    np.testing.assert_array_equal(regs.numpy(), fx["k8_regs"])
-    np.testing.assert_array_equal(torch.stack(dag.parents).numpy(),
-                                  fx["k8_dag.parents"])
-    for f in D.FIELDS[1:]:
-        np.testing.assert_array_equal(getattr(dag, f).numpy(),
-                                      fx[f"k8_dag.{f}"], err_msg=f)
+    for s in ("k8", "k8q"):
+        dag = D.empty(K8_LANES, K8_WINDOW, K8_PARENTS, ring=True,
+                      anc_masks=True)
+        dag, regs, out = D.dag_script(dag, fx[f"{s}_ops"],
+                                      torch.from_numpy(fx[f"{s}_args"]),
+                                      torch.from_numpy(fx[f"{s}_fargs"]))
+        np.testing.assert_array_equal(out.numpy(), fx[f"{s}_out"])
+        np.testing.assert_array_equal(regs.numpy(), fx[f"{s}_regs"])
+        np.testing.assert_array_equal(torch.stack(dag.parents).numpy(),
+                                      fx[f"{s}_dag.parents"])
+        for f in D.FIELDS[1:]:
+            np.testing.assert_array_equal(getattr(dag, f).numpy(),
+                                          fx[f"{s}_dag.{f}"], err_msg=f)
 
     for name, (key, kw, _, _) in ENVS.items():
         env = registry.get(key, **kw)

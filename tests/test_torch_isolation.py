@@ -54,6 +54,8 @@ for mod in ("cpr_tpu_torch", "cpr_tpu_torch.envs", "cpr_tpu_torch.envs.nakamoto"
             "cpr_tpu_torch.kernels", "cpr_tpu_torch.convert",
             "cpr_tpu_torch.random", "cpr_tpu_torch.core.dag",
             "cpr_tpu_torch.envs.bk", "cpr_tpu_torch.envs.ethereum",
+            "cpr_tpu_torch.envs.quorum", "cpr_tpu_torch.envs.tailstorm",
+            "cpr_tpu_torch.envs.stree", "cpr_tpu_torch.envs.tailstorm_june",
             "chip_smoke"):
     importlib.import_module(mod)
 from cpr_tpu_torch import envs, random
@@ -64,7 +66,8 @@ stats = env.make_episode_stats_fn(make_params(alpha=0.35, gamma=0.5,
                                   "sapirshtein-2016-sm1", 20)(
     random.split(random.PRNGKey(0, device="cpu"), 4))
 assert int(stats["n_episodes"].sum()) == 8
-for key in ("bk-2-constant", "ethereum-byzantium"):
+for key in ("bk-2-constant", "ethereum-byzantium",
+            "tailstorm-2-discount-heuristic", "stree-2-constant-optimal"):
     env = envs.get(key, window=32)
     stats = env.make_episode_stats_fn(make_params(alpha=0.35, gamma=0.5,
                                                   max_steps=6),
@@ -117,11 +120,16 @@ def test_entry_points_need_a_device():
     from cpr_tpu_torch import convert
     from cpr_tpu_torch.envs.bk import BkSSZ
     from cpr_tpu_torch.envs.ethereum import EthereumSSZ
+    from cpr_tpu_torch.envs.stree import StreeSSZ
+    from cpr_tpu_torch.envs.tailstorm import TailstormSSZ
     gym = pytest.importorskip("cpr_tpu_torch.gym")
-    for key in ("bk-8-constant", "ethereum-byzantium"):
+    for key in ("bk-8-constant", "ethereum-byzantium",
+                "tailstorm-8-discount-heuristic",
+                "stree-8-constant-heuristic"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             gym.Core(key, max_steps=8, window=128)
-    for env in (BkSSZ(k=2, window=32), EthereumSSZ(window=32)):
+    for env in (BkSSZ(k=2, window=32), EthereumSSZ(window=32),
+                TailstormSSZ(k=2, window=32), StreeSSZ(k=2)):
         params = make_params(alpha=0.35, gamma=0.5, max_steps=8)
         state = env.init_lanes(rnd.split(rnd.PRNGKey(0, device="cpu"), 2),
                                params)[0]
@@ -147,9 +155,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.step_lanes(state, obs, torch.zeros(4, dtype=torch.int32),
                            mask, state, obs, mask, params, True, True)
     from cpr_tpu_torch.core import dag as D
+    from cpr_tpu_torch.envs import quorum as Q
     from cpr_tpu_torch.envs.bk import BkSSZ
     from cpr_tpu_torch.envs.ethereum import EthereumSSZ
-    for denv in (BkSSZ(k=2, window=32), EthereumSSZ(window=32)):
+    from cpr_tpu_torch.envs.stree import StreeSSZ
+    from cpr_tpu_torch.envs.tailstorm import TailstormSSZ
+    for denv in (BkSSZ(k=2, window=32), EthereumSSZ(window=32),
+                 TailstormSSZ(k=2, window=32), StreeSSZ(k=2, window=32)):
         dstate, dobs = denv.init_lanes(keys, params)
         with pytest.raises(ValueError, match="CUDA"):
             kernels.dag_stream(denv, dstate, dobs, keys, 1, 4, params, 0)
@@ -157,11 +169,30 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             kernels.dag_step_lanes(denv, dstate, dobs,
                                    torch.zeros(4, dtype=torch.int32), mask,
                                    dstate, dobs, mask, params)
+        if denv.plane_fields:  # the vote envs: K9's check kernel too
+            with pytest.raises(ValueError, match="CUDA"):
+                kernels.quorum_check(dstate.dag,
+                                     Q.check_inputs(denv, dstate),
+                                     Q.check_cfg(denv))
     ops, args, fargs = D.make_script(0, 4, 3, 3)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.dag_script(D.empty(4, 16, 3, ring=True, anc_masks=True), ops,
                            torch.from_numpy(args), torch.from_numpy(fargs))
     assert kernels.launches == before
+
+
+def test_tailstorm_gym_ids_resolve_to_their_packages():
+    """In one process that imports both packages, the port's id resolves
+    to the port and the reference's to the reference, with the same
+    protocol arguments."""
+    gymnasium = pytest.importorskip("gymnasium")
+    import cpr_tpu.gym  # noqa: F401
+    import cpr_tpu_torch.gym  # noqa: F401
+    t = gymnasium.spec("cpr-tailstorm-torch-v0")
+    j = gymnasium.spec("cpr-tailstorm-v0")
+    assert t.entry_point.__module__.startswith("cpr_tpu_torch.")
+    assert j.entry_point.__module__.startswith("cpr_tpu.")
+    assert t.kwargs == j.kwargs
 
 
 def test_build_is_cached_by_source_hash(tmp_path, monkeypatch):

@@ -341,16 +341,16 @@ def test_parse_key_grammar(key):
 
 def test_registry_surface():
     assert tregistry.keys() == ["bk", "ethereum", "ethereum-byzantium",
-                                "ethereum-whitepaper", "nakamoto"]
+                                "ethereum-whitepaper", "nakamoto", "stree",
+                                "tailstorm", "tailstormjune"]
     env = tregistry.get("nakamoto")
     assert isinstance(env, TEnv) and tregistry.get("nakamoto") is env
     assert tregistry.get_sized("nakamoto", 128) is env
     assert tregistry.describe("nakamoto") == jregistry.describe("nakamoto")
     raw = tregistry.get("nakamoto", unit_observation=False)
     assert raw is not env and raw.unit_observation is False
-    for key in ("spar-3-block", "tailstorm-8-discount-heuristic",
-                "sdag-2-constant-altruistic"):
-        with pytest.raises(KeyError, match="not ported .* item 8b, slice 5"):
+    for key in ("spar-3-block", "sdag-2-constant-altruistic"):
+        with pytest.raises(KeyError, match="not ported .* item 8d, slice 6"):
             tregistry.get(key)
     with pytest.raises(KeyError, match="cannot parse"):
         tregistry.get("nosuch")
