@@ -144,6 +144,52 @@ Phases, one line each; any failure raises and the exit code is not 0:
      K9's check kernel per launch, the plain versions' times and the
      bounds (the threefry work: 9 blocks per mining draw; K9's the bytes
      its check reads, `k9_bytes`).
+ 27. K11-act (the actor-critic inside K2 and K10) through its check
+     kernel against the plain actor: 4096 lanes, hidden 64 and 96, with
+     and without extend_obs, warp mode (as K10) and thread mode (as K2),
+     sampled and greedy draws: logits, value and logp within 1e-5,
+     actions equal wherever the Gumbel margin exceeds NET_MARGIN (the
+     lanes below it counted);
+ 28. the stream kernels with the net in sample mode for each env
+     (Nakamoto and Tailstorm under AssumptionEnv with per-lane alphas),
+     512 lanes x 64 steps: the kernel's actions replayed through the
+     plain `_lane_step` give its observations, rewards, dones, info and
+     final carry; the plain actor gives its logp and value within 1e-5
+     and its draws above the margin; the returned carry key is the
+     plain chain's;
+ 29. K11-gae exact against its twin at [128, 4096]; K11-loss forward
+     and backward against autograd of the plain loss at B = 131072
+     (each scalar within 1e-6 of the mean absolute value of its terms,
+     the gradients within 1e-6 of their largest element); K11-adam
+     against `train/optim.py` over 16 steps (within 1e-6 of the largest
+     parameter);
+ 30. the JAX PPO fixture (tests/fixtures/torch_port_ppo_golden.npz)
+     replayed from JAX's params: one train_step of Nakamoto under
+     AssumptionEnv (per-lane alphas, sparse_relative, KL stop) and of
+     Tailstorm in a 40-slot ring give JAX's actions, rewards and dones,
+     logp and value within 1e-5, its metrics, params within 1e-5;
+ 31. the bench PPO path (BASELINE.json config 4, bench.py:257-309):
+     tailstorm-8-discount-heuristic, window 128, alpha 0.35, gamma 0.5,
+     max_steps 120, PPOConfig(n_envs=4096, n_steps=128) defaults; one
+     warm and 3 timed train_steps with their launch counts (K1, K10-ts,
+     K11 only) and env-steps/s; metrics finite, entropy in (0, ln 8];
+     then 3 steps composed of the same pieces give the rollout/GAE/
+     update split, and the stream with the trained net is held to the
+     plain versions at this shape (4096 lanes x 128 steps) as in 28;
+ 32. the config path: train_from_config on the shipped nakamoto.yaml (3
+     updates; K1, K2, K11) and tailstorm-8-discount.yaml (2 updates,
+     128-slot ring; K1, K10-ts, K11), eval.freq 1 and start_at_iteration
+     0 so that the eval and the checkpoints run; eval rows finite,
+     relative reward in [0, 1]; a policy snapshot exported and reloaded
+     acts as the net; Tailstorm's 128-slot ring (the reference sizes
+     full mode for the episode) under the trained net, hidden 96, 512
+     lanes x 160 steps from a raw reset, held to the plain versions as
+     in 28, its first 64 lanes to full mode as well, and no episode
+     ended by the eviction of a live block;
+ 33. K11's device times (the check kernel; the Tailstorm stream with the
+     net against the heuristic per 128-step launch; GAE; the loss head
+     forward + backward; the Adam step against torch.optim.Adam(fused=
+     True)), the plain versions' times and the bounds.
 Then the kernels line (JSON: launches summed over the main paths, the
 error of the main-shape comparison, the times and the bound) and the
 last line {"ok": true, "device": {...}}.
@@ -175,9 +221,11 @@ action, whose progress differs).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -314,6 +362,26 @@ DAG_PATHS = {
     **{n: (VOTE_LANES, VOTE_STEPS, VOTE_CHUNK, VOTE_MAX_STEPS,
            (VOTE_REVENUE[n] - VOTE_GUARD, VOTE_REVENUE[n] + VOTE_GUARD),
            VOTE_PLAIN_STEPS) for n in ("ts", "stree")}}
+# The PPO slice (K11). The bench path is bench.py:257-309's shape; the
+# fixture tests/test_torch_ppo_golden.py's (16 lanes x 32 steps); the
+# net-policy streams run every env, Nakamoto and Tailstorm under
+# AssumptionEnv (extend_obs) with per-lane alphas, 512 lanes x 64 steps
+# of 24-step episodes; a draw is decided where its Gumbel margin exceeds
+# NET_MARGIN; K11-loss runs the bench path's minibatch (131072 rows).
+PPO_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_ppo_golden.npz"
+PPO_LANES, PPO_STEPS, PPO_MAX_STEPS = 4096, 128, 120
+PPO_FIX_LANES, PPO_FIX_STEPS = 16, 32
+ACT_LANES, NET_LANES, NET_STEPS, NET_MAX_STEPS = 4096, 512, 64, 24
+NET_MARGIN = 1e-5
+NET_ENVS = (("nakamoto", None, True),
+            ("bk-8-constant", DAG_WINDOW, False),
+            ("ethereum-byzantium", DAG_WINDOW, False),
+            ("tailstorm-8-discount-heuristic", DAG_WINDOW, True),
+            ("stree-8-constant-heuristic", DAG_WINDOW, False))
+LOSS_BATCH, ADAM_STEPS = PPO_LANES * PPO_STEPS // 4, 16
+# the Tailstorm config's ring against full mode: steps from a raw reset
+# (a whole 128-step episode on every lane) and lanes replayed in full mode
+CONFIG_RING_STEPS, CONFIG_FULL_LANES = 160, 64
 
 
 def say(phase, **kw):
@@ -1637,8 +1705,9 @@ def ring_peaks(env):
     ring wrapped). Yields a dict that holds, after the run, the episodes
     ended (`episodes`), those of them that wrapped (`wrapped`) and each
     lane's peak `n` over the run, the episode in flight included
-    (`peak`)."""
-    rec = {"episodes": 0, "wrapped": 0, "peak": 0}
+    (`peak`), and the episodes that a live block's eviction ended
+    (`overflowed`)."""
+    rec = {"episodes": 0, "wrapped": 0, "overflowed": 0, "peak": 0}
     step = env.step
 
     def spy(state, action, params):
@@ -1646,6 +1715,8 @@ def ring_peaks(env):
         n, done = out[0].dag.n, out[3]
         rec["episodes"] = rec["episodes"] + done.sum()
         rec["wrapped"] = rec["wrapped"] + (done & (n > env.capacity)).sum()
+        rec["overflowed"] = rec["overflowed"] + (done
+                                                 & out[0].dag.overflow).sum()
         rec["peak"] = torch.maximum(torch.as_tensor(rec["peak"]).to(n), n)
         return out
 
@@ -1661,6 +1732,7 @@ def ring_report(env, rec):
     peak = rec["peak"]
     return dict(episodes_ended=int(rec["episodes"]),
                 episodes_wrapped=int(rec["wrapped"]),
+                episodes_overflowed=int(rec["overflowed"]),
                 lanes_wrapped=int((peak > env.capacity).sum()),
                 ring_peak_max=int(peak.max()),
                 ring_peak_mean=float(peak.float().mean()))
@@ -2199,6 +2271,709 @@ def phase_dag_times(dev, report, names):
     say("dag_times", **{k: json.dumps(v) for k, v in times.items()})
 
 
+# -- the PPO slice (K11) --------------------------------------------------------
+
+def make_net(obs_dim, n_actions, hidden, seed, dev):
+    """An ActorCritic of the port's own init, from a seed."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.train.ppo import ActorCritic
+    return ActorCritic(obs_dim, n_actions, (hidden, hidden),
+                       device=dev).init(rnd.PRNGKey(seed, dev))
+
+
+def gumbel_margin(z):
+    """Per row of `z` [L, A], the gap between its largest and second
+    largest entries (a draw is decided wherever it exceeds NET_MARGIN)."""
+    top = torch.topk(z, 2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def phase_k11_act(dev, report):
+    """K11-act's check kernel against the plain actor on the card: 4096
+    lanes, hidden 64 and 96, with and without extend_obs, warp mode (A =
+    8, Tailstorm's 10 fields) and thread mode (A = 4, Nakamoto's 4), a
+    sampled draw and a greedy one. Logits, value and logp within 1e-5;
+    actions equal wherever the draw's margin exceeds NET_MARGIN."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    rng = np.random.default_rng(11)
+    L = ACT_LANES
+    err, below, lanes = 0.0, 0, 0
+    for hidden in (64, 96):
+        for ext in (False, True):
+            for warp, F, A in ((True, 10, 8), (False, 4, 4)):
+                net = make_net(F + 2 * ext, A, hidden, hidden + ext, dev)
+                obs = torch.from_numpy(rng.random((L, F), dtype=np.float32)
+                                       ).to(dev)
+                alpha = gamma = None
+                x = obs
+                if ext:
+                    alpha = torch.from_numpy(rng.uniform(
+                        0.1, 0.45, L).astype(np.float32)).to(dev)
+                    gamma = torch.from_numpy(rng.uniform(
+                        0.0, 0.9, L).astype(np.float32)).to(dev)
+                    x = torch.cat([obs, alpha[:, None], gamma[:, None]], 1)
+                with torch.no_grad():
+                    pl, pv = net(x)
+                k_act = rnd.fold_in(rnd.PRNGKey(5, dev), hidden + ext)
+                z = pl + rnd.gumbel(k_act, (L, A))
+                for kk, zz in ((k_act, z), (None, pl)):
+                    logits, value, action, logp = kernels.actor_check(
+                        net, obs, alpha, gamma, kk, warp=warp)
+                    want = torch.argmax(zz, -1)
+                    sure = gumbel_margin(zz) > NET_MARGIN
+                    check(torch.equal(action.long()[sure], want[sure]),
+                          f"K11-act (hidden {hidden}, ext {ext}, warp "
+                          f"{warp}): actions differ")
+                    plogp = torch.log_softmax(pl, -1).gather(
+                        1, action.long()[:, None])[:, 0]
+                    e = max(float((logits - pl).abs().max()),
+                            float((value - pv).abs().max()),
+                            float((logp - plogp).abs().max()))
+                    check(e <= 1e-5, f"K11-act (hidden {hidden}, ext {ext}, "
+                          f"warp {warp}) beyond 1e-5: {e}")
+                    err = max(err, e)
+                    below += int((~sure).sum())
+                    lanes += L
+    report["K11-act"]["max_abs_err"] = err
+    say("k11_act", lanes=L, cases=lanes // L, max_abs_err=err,
+        lanes_below_margin=below, of=lanes, ok=True)
+
+
+def compare_step_info(info, want, t, what):
+    """The kernel's info [12, T, L] at step t against a plain step's
+    dict: integer-valued keys exactly, time keys within 1e-5 of the lane's
+    clock (as compare_outputs)."""
+    from cpr_tpu_torch.envs.base import INFO_KEYS
+    clock = want["episode_sim_time"].abs()
+    err = 0.0
+    for i, k in enumerate(INFO_KEYS):
+        g, w = info[i, t], want[k]
+        if "time" in k:
+            d = (g - w).abs()
+            check(bool((d <= 1e-5 * (w.abs() + clock)).all()),
+                  f"{what}: {k} beyond tolerance at step {t}")
+            err = max(err, float(d.max()))
+        else:
+            check(torch.equal(g, w), f"{what}: {k} differs at step {t}")
+    return err
+
+
+def net_env(key, window, ext):
+    from cpr_tpu_torch.envs import registry
+    from cpr_tpu_torch.envs.assumption import AssumptionEnv
+    env = registry.get(key, window=window) if window else registry.get(key)
+    return AssumptionEnv(env) if ext else env
+
+
+def net_params(ext, lanes, max_steps):
+    """Per-lane alphas under extend_obs (the assumption schedule), scalar
+    params otherwise."""
+    from cpr_tpu_torch.params import make_params, stack_params
+    if ext:
+        return stack_params([dict(alpha=float(a), gamma=0.5,
+                                  max_steps=max_steps)
+                             for a in np.linspace(0.15, 0.45, lanes)])
+    return make_params(alpha=0.35, gamma=0.5, max_steps=max_steps)
+
+
+def net_stream_case(env, params, net, keys, T, key0, what, full_env=None,
+                    full_lanes=0):
+    """One stream launch with the net in sample mode (K2 or K10 with
+    K11-act) over the lanes of `keys` from a raw reset, against the plain
+    versions: the kernel's actions replayed through the plain
+    `_lane_step` give the same observations (atol 1e-6), rewards, dones
+    and info (clocks to 1e-5) every step and the same final carry; the
+    plain actor on the same observations gives logp and value within
+    1e-5 and the same draw wherever its margin exceeds NET_MARGIN; the
+    carry key the kernel returns is the plain chain's. With `full_env`
+    (the same DAG env in the reference's full mode) the first
+    `full_lanes` lanes are replayed through it as well, which shows the
+    ring equal to full mode there. Returns (episodes, largest error,
+    draws below the margin, the ring's report or None)."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs.base import _index_params
+    from cpr_tpu_torch.train.ppo import NetPolicy
+    dev, L = keys.device, keys.shape[0]
+    carry = env.reset_lanes(keys, params)
+    state, o = clone_carry(carry)
+    # the plain version combines per-lane params with the lanes' state
+    # on the card
+    lane_params = params.replace(**{
+        f.name: getattr(params, f.name).to(dev)
+        for f in dataclasses.fields(params)})
+    _, _, tr = env._kernel_stream(
+        carry, None, 0, T, params, 0, False, True,
+        net=NetPolicy(net, greedy=False, key=key0))
+    obs, action, reward, done, info, logp, value, key_out = tr
+    dag_env_ = getattr(env, "inner", env)
+    rings = (ring_peaks(dag_env_) if hasattr(dag_env_, "capacity")
+             else contextlib.nullcontext())
+    k, episodes, e, below = key0, 0, 0.0, 0
+    with rings as rec:
+        for t in range(T):
+            pair = rnd.split(k)
+            k, k_act = pair[0], pair[1]
+            d = float((obs[t] - o).abs().max())
+            check(d <= 1e-6, f"{what}: obs beyond 1e-6 at step {t}")
+            with torch.no_grad():
+                pl, pv = net(o)
+            z = pl + rnd.gumbel(k_act, (L, env.n_actions))
+            sure = gumbel_margin(z) > NET_MARGIN
+            check(torch.equal(action[t].long()[sure],
+                              torch.argmax(z, -1)[sure]),
+                  f"{what}: draws differ at step {t}")
+            below += int((~sure).sum())
+            plogp = torch.log_softmax(pl, -1).gather(
+                1, action[t].long()[:, None])[:, 0]
+            e = max(e, d, float((value[t] - pv).abs().max()),
+                    float((logp[t] - plogp).abs().max()))
+            state, o, _, r, dn, inf = env._lane_step(state, action[t],
+                                                     lane_params)
+            check(torch.equal(r, reward[t]) and torch.equal(dn, done[t]),
+                  f"{what}: reward or done differs at step {t}")
+            e = max(e, compare_step_info(info, inf, t, what))
+            episodes += int(dn.sum())
+    check(e <= 1e-5, f"{what}: logp/value beyond 1e-5 ({e})")
+    check(torch.equal(key_out, k), f"{what}: carry key differs")
+    check(float((carry[1] - o).abs().max()) <= 1e-6,
+          f"{what}: final obs differs")
+    if hasattr(state, "dag"):
+        compare_dag_state(carry[0], state, f"{what} carry")
+    else:
+        compare_state(carry[0], state, f"{what} carry")
+    if full_env is not None:
+        m = full_lanes
+        idx = torch.arange(m, device=dev)
+        sub = _index_params(lane_params, idx) if lane_params.alpha.dim() \
+            else lane_params
+        fs, fo = full_env.reset(keys[:m], sub)
+        for t in range(T):
+            check(float((obs[t, :m] - fo).abs().max()) <= 1e-6,
+                  f"{what} full mode: obs beyond 1e-6 at step {t}")
+            fs, fo, _, r, dn, inf = full_env._lane_step(fs, action[t, :m],
+                                                        sub)
+            check(torch.equal(r, reward[t, :m])
+                  and torch.equal(dn, done[t, :m]),
+                  f"{what} full mode: reward or done differs at step {t}")
+            compare_step_info(info[:, :, :m], inf, t, f"{what} full mode")
+        check(float((carry[1][:m] - fo).abs().max()) <= 1e-6,
+              f"{what} full mode: final obs differs")
+    return (episodes, e, below,
+            None if rec is None else ring_report(dag_env_, rec))
+
+
+def phase_net_streams(dev, report):
+    """`net_stream_case` for every env: 512 lanes x 64 steps of 24-step
+    episodes, hidden 64, Nakamoto and Tailstorm under AssumptionEnv
+    (extend_obs) with per-lane alphas."""
+    from cpr_tpu_torch import random as rnd
+    L, T = NET_LANES, NET_STEPS
+    err, below = 0.0, 0
+    for i, (key, window, ext) in enumerate(NET_ENVS):
+        env = net_env(key, window, ext)
+        net = make_net(env.observation_length, env.n_actions, 64, 40 + i,
+                       dev)
+        episodes, e, b, rings = net_stream_case(
+            env, net_params(ext, L, NET_MAX_STEPS), net,
+            rnd.split(rnd.PRNGKey(21 + i, dev), L), T,
+            rnd.PRNGKey(60 + i, dev), f"{key} net stream")
+        check(episodes > 0, f"{key} net stream: no episode ended")
+        err, below = max(err, e), below + b
+        say("net_stream", env=key, extend_obs=ext, lanes=L, steps=T,
+            episodes=episodes, max_abs_err=e, **(rings or {}), ok=True)
+    report["K11-act"]["max_abs_err"] = max(report["K11-act"]["max_abs_err"],
+                                           err)
+    say("net_streams", envs=len(NET_ENVS), lanes_below_margin=below,
+        of=L * T * len(NET_ENVS), ok=True)
+
+
+def loss_inputs(dev, B, A, seed):
+    """A minibatch for K11-loss from a numpy seed: logits, value, action,
+    old_logp (of slightly perturbed logits, so ratios spread around 1
+    and some clip), old_value, adv, target."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa
+    logits = f(rng.normal(0, 1, (B, A)))
+    action = torch.from_numpy(rng.integers(0, A, B).astype(np.int32)).to(dev)
+    old = torch.log_softmax(logits + f(rng.normal(0, 0.2, (B, A))), -1)
+    old_logp = old.gather(1, action.long()[:, None])[:, 0].contiguous()
+    value = f(rng.normal(0, 1, B))
+    old_value = value + f(rng.normal(0, 0.3, B))
+    adv = f(rng.normal(0.1, 1.5, B))
+    target = old_value + adv
+    return logits, value, action, old_logp, old_value, adv, target
+
+
+def loss_scales(logits, value, action, old_logp, old_value, adv, target,
+                cfg):
+    """The mean absolute per-sample term of each loss metric and of the
+    total: the scale a float32 sum of these terms is exact to."""
+    lp = torch.log_softmax(logits, -1)
+    logp = lp.gather(1, action.long()[:, None])[:, 0]
+    ratio = torch.exp(logp - old_logp)
+    an = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    pg = torch.minimum(ratio * an, torch.clamp(
+        ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * an).abs().mean()
+    v = ((value - target) ** 2).mean() + ((old_value - target) ** 2).mean()
+    ent = (torch.exp(lp) * lp).sum(-1).abs().mean()
+    lr = logp - old_logp
+    kl = ((torch.exp(lr) - 1) - lr).abs().mean()
+    total = pg + cfg.vf_coef * v + cfg.entropy_coef * ent
+    return torch.stack([total, pg, v, ent, kl])
+
+
+def phase_k11_update(dev, report):
+    """K11-gae exact against its twin at [128, 4096]; K11-loss forward and
+    backward against autograd of `loss_plain` at B = 131072, A = 8: each
+    scalar within 1e-6 of its terms' mean absolute value (the scale of a
+    float32 sum of them; pg_loss is a mean of terms that cancel), dlogits
+    and dvalue within 1e-6 of their largest element; K11-adam against
+    `optim.step_plain` over 16 steps (every other one clipped), the
+    params within 1e-6 of their largest."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.train import optim, ppo
+    rng = np.random.default_rng(12)
+    T, N = PPO_STEPS, PPO_LANES
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa
+    reward = f(np.where(rng.random((T, N)) < 0.05, rng.random((T, N)), 0))
+    value = f(rng.normal(0, 1, (T, N)))
+    done = torch.from_numpy(rng.random((T, N)) < 0.05).to(dev)
+    last = f(rng.normal(0, 1, N))
+    cfg = ppo.PPOConfig()
+    adv, target = kernels.gae(reward, value, done, last, cfg.gamma,
+                              cfg.gae_lambda)
+    padv, ptarget = ppo.gae_plain(reward, value, done, last, cfg.gamma,
+                                  cfg.gae_lambda)
+    check(torch.equal(adv, padv) and torch.equal(target, ptarget),
+          "K11-gae differs from its twin")
+    report["K11-gae"]["max_abs_err"] = 0.0
+
+    B, A = LOSS_BATCH, 8
+    inp = loss_inputs(dev, B, A, 13)
+    coefs = (cfg.clip_eps, cfg.vf_coef, cfg.entropy_coef)
+    out, stats = kernels.ppo_loss_fwd(*inp, *coefs)
+    one = torch.ones((), device=dev)
+    dl, dv = kernels.ppo_loss_bwd(*inp, stats, one, *coefs)
+    lg = inp[0].clone().requires_grad_()
+    vv = inp[1].clone().requires_grad_()
+    total, m = ppo.loss_plain(lg, vv, *inp[2:], *coefs)
+    total.backward()
+    want = torch.cat([total.detach()[None], m])
+    scale = loss_scales(*inp, cfg)
+    d = (out - want).abs()
+    check(bool((d <= 1e-6 * scale).all()),
+          f"K11-loss forward beyond 1e-6 of its scales: {d.tolist()} vs "
+          f"{scale.tolist()}")
+    e_l = float((dl - lg.grad).abs().max() / lg.grad.abs().max())
+    e_v = float((dv - vv.grad).abs().max() / vv.grad.abs().max())
+    check(e_l <= 1e-6 and e_v <= 1e-6,
+          f"K11-loss backward beyond 1e-6 relative: {e_l}, {e_v}")
+    report["K11-loss"]["max_abs_err"] = max(
+        float(d.max()), float((dl - lg.grad).abs().max()),
+        float((dv - vv.grad).abs().max()))
+
+    n = make_net(10, 8, 64, 7, dev).n_params
+    p0 = f(rng.normal(0, 0.1, n))
+    tx = optim.ClipAdam(cfg.lr, max_grad_norm=cfg.max_grad_norm)
+    pk, pp = p0.clone(), p0.clone()
+    sk, sp = tx.init(pk), tx.init(pp)
+    for i in range(ADAM_STEPS):
+        g = f(rng.normal(0, 1e-2 if i % 2 else 1e-3, n))
+        tx.step(pk, g, sk)  # CUDA: K11-adam
+        s = tx.scalars(sp.count)
+        optim.step_plain(pp, g, sp.mu, sp.nu, **s)
+        sp.count += 1
+    e_a = float((pk - pp).abs().max())
+    check(e_a <= 1e-6 * float(pp.abs().max()),
+          f"K11-adam beyond 1e-6 relative after {ADAM_STEPS} steps: {e_a}")
+    report["K11-adam"]["max_abs_err"] = e_a
+    say("k11_update", gae=f"[{T}, {N}] exact", loss_batch=B,
+        loss_err=report["K11-loss"]["max_abs_err"], grad_rel=max(e_l, e_v),
+        adam_params=n, adam_steps=ADAM_STEPS, adam_err=e_a, ok=True)
+
+
+def ppo_fixture_case(fx, c, dev):
+    """Case `c` of the PPO fixture: (env, params, PPOConfig, transform,
+    seed), built as tests/test_torch_ppo_golden.py builds it."""
+    from cpr_tpu_torch.train import config, driver, ppo
+    s = {k[len(c) + 1:]: fx[k].item() for k in fx
+         if k.startswith(f"{c}_") and fx[k].ndim == 0
+         and not k.startswith(f"{c}_m_")}
+    env = net_env(s["protocol"], s["window"], s["assumption"])
+    L = PPO_FIX_LANES
+    alphas = np.linspace(s["alpha_lo"], s["alpha_hi"], L)
+    from cpr_tpu_torch.params import make_params, stack_params
+    params = (stack_params([dict(alpha=float(a), gamma=s["gamma"],
+                                 max_steps=s["max_steps"]) for a in alphas])
+              if s["per_env"] else
+              make_params(alpha=s["alpha_lo"], gamma=s["gamma"],
+                          max_steps=s["max_steps"]))
+    transform = None
+    if s["transform"]:
+        tc = config.TrainConfig(reward=s["transform"],
+                                episode_len=s["max_steps"])
+        transform = driver.make_reward_transform(tc, alphas, dev)
+    cfg = ppo.PPOConfig(n_envs=L, n_steps=PPO_FIX_STEPS, update_epochs=2,
+                        n_minibatches=2, hidden=(64, 64),
+                        target_kl=s["target_kl"] or None)
+    return env, params, cfg, transform, s
+
+
+def step_trajectory(env, params, carry, n_steps, transform):
+    """The trajectory `train_step(carry)` collects, from a copy of the
+    carry: `ppo.rollout` from its key, then the reward transform."""
+    from cpr_tpu_torch.train import ppo
+    ts, state, obs, key = carry
+    _, traj = ppo.rollout(env, clone_carry((state, obs)), params, ts.net,
+                          key, n_steps)
+    if transform is not None:
+        traj.reward = transform(traj.reward, traj.info, traj.done)
+    return traj
+
+
+def phase_ppo_fixture(dev, pfx):
+    """The JAX fixture's two train_steps (Nakamoto under AssumptionEnv
+    with per-lane alphas, the sparse_relative transform and the KL stop;
+    Tailstorm in a 40-slot ring) replayed from JAX's params through the
+    kernels: the same actions, rewards and dones, logp and value within
+    1e-5, the metrics within 1e-5 relative (1e-6 floor), params within
+    1e-5."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.train import ppo
+    for c in ("nak", "ts"):
+        env, params, cfg, transform, s = ppo_fixture_case(pfx, c, dev)
+        init_fn, train_step = ppo.make_train(
+            env, params, cfg, transform, per_env_params=bool(s["per_env"]),
+            device=dev)
+        carry = init_fn(rnd.PRNGKey(s["seed"], dev),
+                        params=torch.from_numpy(pfx[f"{c}_params0"]))
+        traj = step_trajectory(env, params, carry, cfg.n_steps, transform)
+        carry, metrics = train_step(carry)
+        for k in ("action", "reward", "done"):
+            check(np.array_equal(getattr(traj, k).cpu().numpy(),
+                                 pfx[f"{c}_{k}"]),
+                  f"PPO fixture {c}: {k} differs from JAX")
+        e = max(float(np.abs(getattr(traj, k).cpu().numpy()
+                             - pfx[f"{c}_{k}"]).max())
+                for k in ("logp", "value"))
+        check(e <= 1e-5, f"PPO fixture {c}: logp/value beyond 1e-5 ({e})")
+        for k, v in metrics.items():
+            w = float(pfx[f"{c}_m_{k}"])
+            check(abs(float(v) - w) <= 1e-5 * abs(w) + 1e-6,
+                  f"PPO fixture {c}: metric {k} {float(v)} vs JAX {w}")
+        dp = float(np.abs(carry[0].net.flat.detach().cpu().numpy()
+                          - pfx[f"{c}_params1"]).max())
+        check(dp <= 1e-5, f"PPO fixture {c}: params beyond 1e-5 ({dp})")
+        say("ppo_fixture", case=c, protocol=s["protocol"],
+            episodes=int(traj.done.sum()), logp_value_err=e, params_err=dp,
+            kl_stop=float(metrics.get("kl_stop", 0.0)), ok=True)
+
+
+def phase_bench_ppo(dev, report):
+    """The bench path (bench.py:257-309 measure_tailstorm_ppo): Tailstorm
+    8 discount heuristic in a 128-slot ring, alpha 0.35, gamma 0.5,
+    max_steps 120, PPOConfig(n_envs=4096, n_steps=128) defaults, no
+    reward transform; one warm train_step, then 3 timed ones with the
+    launch counts zeroed before and read after (K1, K10-ts and K11
+    only); every metric finite, entropy in (0, ln 8]. Then, outside the
+    counted run, 3 steps composed of the same pieces (rollout, GAE, the
+    minibatch epochs) with synchronised clocks between them give the
+    split, and `net_stream_case` holds the stream with the trained net
+    to the plain versions at this shape from a fresh reset."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.params import make_params
+    from cpr_tpu_torch.train import ppo
+    env = dag_env("ts")
+    params = make_params(alpha=0.35, gamma=0.5, max_steps=PPO_MAX_STEPS)
+    cfg = ppo.PPOConfig(n_envs=PPO_LANES, n_steps=PPO_STEPS)
+    init_fn, train_step = ppo.make_train(env, params, cfg, device=dev)
+    carry = init_fn(rnd.PRNGKey(0, dev))
+    carry, metrics = train_step(carry)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    step_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        carry, metrics = train_step(carry)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K1", "K10-ts", "K11-act", "K11-gae",
+                           "K11-loss", "K11-adam"), "bench PPO")
+    m = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in m.values()), f"non-finite metrics {m}")
+    check(0.0 < m["entropy"] <= float(np.log(8)) + 1e-6,
+          f"entropy {m['entropy']} outside (0, ln 8]")
+    rate = PPO_LANES * PPO_STEPS / (min(step_ms) / 1e3)
+
+    epochs = ppo.make_minibatch_epochs(cfg)
+    ts, state, obs, key = carry
+    splits = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        key, traj = ppo.rollout(env, (state, obs), params, ts.net, key,
+                                cfg.n_steps)
+        with torch.no_grad():
+            _, last_value = ts.net(obs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        advs, targets = ppo.gae(traj.reward, traj.value, traj.done,
+                                last_value, cfg.gamma, cfg.gae_lambda)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ts, key, _ = epochs(ts, traj, advs, targets, key)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        splits.append({"rollout": (t1 - t0) * 1e3, "gae": (t2 - t1) * 1e3,
+                       "update": (t3 - t2) * 1e3})
+    del traj
+    say("bench_ppo", lanes=PPO_LANES, steps=PPO_STEPS,
+        env_steps_per_s=rate, step_ms=step_ms,
+        split_ms=json.dumps(splits), entropy=m["entropy"],
+        episodes=int(m["n_episodes"]), launches=json.dumps(counts))
+
+    episodes, e, below, rings = net_stream_case(
+        env, params, ts.net, rnd.split(rnd.PRNGKey(70, dev), PPO_LANES),
+        PPO_STEPS, rnd.PRNGKey(71, dev), "bench net stream")
+    report["K11-act"]["max_abs_err"] = max(report["K11-act"]["max_abs_err"],
+                                           e)
+    say("net_stream", env="bench", lanes=PPO_LANES, steps=PPO_STEPS,
+        max_steps=PPO_MAX_STEPS, hidden=cfg.hidden[0], episodes=episodes,
+        max_abs_err=e, lanes_below_margin=below, **rings, ok=True)
+    return counts, carry
+
+
+TRAIN_YAMLS = {
+    # cpr_tpu/train/configs/nakamoto.yaml
+    "nakamoto": dict(protocol="nakamoto", alpha=dict(min=0.15, max=0.45),
+                     gamma=0.5, episode_len=128, reward="sparse_relative",
+                     shape="raw", n_envs=1024, total_updates=500,
+                     ppo=dict(lr=0.0003, n_steps=128, n_minibatches=8,
+                              update_epochs=4, n_layers=2, layer_size=64,
+                              ent_coef=0.01),
+                     eval=dict(freq=20, alpha_step=0.05,
+                               episodes_per_alpha=128)),
+    # cpr_tpu/train/configs/tailstorm-8-discount.yaml
+    "tailstorm": dict(protocol="tailstorm-8-discount-heuristic",
+                      alpha=dict(min=0.15, max=0.45), gamma=0.5,
+                      episode_len=128, reward="sparse_per_progress",
+                      shape="raw", n_envs=512, total_updates=300,
+                      ppo=dict(lr=0.0003, n_steps=64, n_minibatches=4,
+                               layer_size=96),
+                      eval=dict(freq=25, alpha_step=0.05,
+                                episodes_per_alpha=64)),
+}
+
+
+def config_ring_case(cfg, net, env, dev):
+    """The Tailstorm config's env as `build_env` makes it on the card (a
+    128-slot ring; the reference sizes it for the episode) under the
+    trained net at the config's widths (hidden 96, AssumptionEnv, its
+    lane alphas, episode_len 128): `net_stream_case` over its lanes for
+    CONFIG_RING_STEPS steps from a raw reset, so every lane runs a whole
+    episode, with the first CONFIG_FULL_LANES lanes replayed through the
+    full-mode env too; no episode may end by evicting a live block."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.train import driver
+    params = driver._stack_params(cfg.lane_alphas(cfg.n_envs), cfg.gamma,
+                                  cfg.episode_len)
+    full = driver.build_env(cfg, "cpu")
+    episodes, e, below, rings = net_stream_case(
+        env, params, net, rnd.split(rnd.PRNGKey(80, dev), cfg.n_envs),
+        CONFIG_RING_STEPS, rnd.PRNGKey(81, dev), "tailstorm config ring",
+        full_env=full, full_lanes=CONFIG_FULL_LANES)
+    check(rings["episodes_overflowed"] == 0,
+          f"tailstorm config: {rings['episodes_overflowed']} episodes "
+          f"overflowed the {env.inner.capacity}-slot ring")
+    check(episodes >= cfg.n_envs, "tailstorm config: an episode unfinished")
+    say("config_ring", config="tailstorm", lanes=cfg.n_envs,
+        steps=CONFIG_RING_STEPS, hidden=net.hidden[0],
+        window=env.inner.capacity, full_capacity=full.inner.capacity,
+        full_mode_lanes=CONFIG_FULL_LANES, episodes=episodes,
+        max_abs_err=e, lanes_below_margin=below, **rings, ok=True)
+
+
+def phase_config_path(dev, report, tmp):
+    """The config path: `train_from_config(TrainConfig.from_dict(...))`
+    on the shipped nakamoto.yaml for 3 updates and tailstorm-8-
+    discount.yaml (hidden 96, 512 lanes x 64 steps; 128-slot ring) for 2,
+    each with eval.freq 1 and start_at_iteration 0 so that the eval and
+    the checkpoints run; launch counts per config; eval rows finite,
+    relative reward in [0, 1]; then a policy snapshot exported and
+    reloaded gives the same greedy actions; for Tailstorm
+    `config_ring_case` with the trained net."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.train import config, driver
+    counts_all = []
+    for name, ran, n_updates in (("nakamoto", ("K1", "K2"), 3),
+                                 ("tailstorm", ("K1", "K10-ts"), 2)):
+        d = dict(TRAIN_YAMLS[name])
+        d["eval"] = dict(d["eval"], freq=1, start_at_iteration=0)
+        cfg = config.TrainConfig.from_dict(d)
+        out_dir = str(Path(tmp) / name)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        net, history, rows = driver.train_from_config(
+            cfg, out_dir=out_dir, n_updates=n_updates, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        path_launches(counts, ran + ("K11-act", "K11-gae", "K11-loss",
+                                     "K11-adam"), f"{name} config")
+        counts_all.append(counts)
+        check(len(rows) == n_updates * len(cfg.eval_alphas()),
+              f"{name}: {len(rows)} eval rows")
+        for r in rows:
+            check(all(np.isfinite(v) for v in r.values()),
+                  f"{name}: non-finite eval row {r}")
+            check(0.0 <= r["relative_reward"] <= 1.0,
+                  f"{name}: relative reward {r['relative_reward']}")
+        for f in ("last-model.msgpack", "best-model.msgpack"):
+            check((Path(out_dir) / f).exists(), f"{name}: no {f}")
+        # the snapshot round trip
+        env = driver.build_env(cfg, dev)
+        snap = str(Path(out_dir) / "snapshot-policy.msgpack")
+        driver.export_policy_snapshot(
+            snap, net, protocol=cfg.protocol, n_actions=env.n_actions,
+            observation_length=env.observation_length,
+            hidden=driver.ppo_config(cfg).hidden)
+        policy, meta = driver.load_policy_snapshot(snap, dev)
+        obs = torch.rand((1024, env.observation_length), device=dev)
+        with torch.no_grad():
+            a0 = torch.argmax(net(obs)[0], -1)
+            a1 = torch.argmax(policy.net(obs)[0], -1)
+        check(torch.equal(a0, a1) and torch.equal(net.flat, policy.net.flat),
+              f"{name}: the reloaded snapshot acts otherwise")
+        if name == "tailstorm":
+            config_ring_case(cfg, net, env, dev)
+        last = history[-1]
+        say("config_path", config=name, eval_freq=1, start_at_iteration=0,
+            updates=n_updates, seconds=secs,
+            steps_per_sec=last.get("steps_per_sec"),
+            entropy=last["entropy"],
+            eval_rel=json.dumps([round(r["relative_reward"], 4)
+                                 for r in rows[-len(cfg.eval_alphas()):]]),
+            snapshot=meta["integrity"], launches=json.dumps(counts))
+    return counts_all
+
+
+def phase_k11_times(dev, report, bench_carry):
+    """K11's device times with the L2 cache scrubbed, plain versions'
+    and library yardsticks' times, and the bounds: K11-act's check
+    kernel (4096 lanes, hidden 64, warp mode, Tailstorm's widths) and
+    the Tailstorm stream with the net against the heuristic per 128-step
+    launch; K11-gae at [128, 4096]; K11-loss forward and backward at
+    B = 131072, A = 8; K11-adam on the bench net's parameters (library:
+    torch.optim.Adam(fused=True).step() on the same flat vector)."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.params import make_params
+    from cpr_tpu_torch.train import optim, ppo
+    rng = np.random.default_rng(14)
+    L, F, A, H = ACT_LANES, 10, 8, 64
+    net = bench_carry[0].net
+    obs = torch.from_numpy(rng.random((L, F), dtype=np.float32)).to(dev)
+    k_act = rnd.PRNGKey(8, dev)
+    act = report["K11-act"]
+    act["ms"] = device_ms(lambda: kernels.actor_check(
+        net, obs, None, None, k_act, warp=True), 50,
+        ("actor_check_kernel", "true"))
+    # obs and the weights in; logits, value, action and logp out. Per
+    # lane the net's FMAs (one operation each at OPS_PER_S, the float32
+    # FMA rate) and the A gumbel draws' threefry blocks
+    fmas = 2 * (F * H + H * H) + H * (A + 1)
+    act["bound_ms"], act["bound_by"] = bound_ms(
+        L * (F * 4 + A * 4 + 4 + 4 + 4) + net.n_params * 4,
+        L * (fmas + A * THREEFRY_OPS))
+
+    def plain_act():
+        with torch.no_grad():
+            pl, pv = net(obs)
+        z = pl + rnd.gumbel(k_act, (L, A))
+        return torch.argmax(z, -1), pv
+    act["plain_ms"] = cuda_ms(plain_act, 20)
+    act["library_ms"] = None
+
+    env = dag_env("ts")
+    params = make_params(alpha=0.35, gamma=0.5, max_steps=PPO_MAX_STEPS)
+    carry = env.reset_lanes(rnd.split(rnd.PRNGKey(30, dev), L), params)
+    pid = env.scripted_policy_id(DAG_ENVS["ts"][1])
+    key = rnd.PRNGKey(31, dev)
+    net_pol = ppo.NetPolicy(net, greedy=False, key=key)
+    stream_net = device_ms(lambda: env._kernel_stream(
+        clone_carry(carry), None, 0, PPO_STEPS, params, 0, False, True,
+        net=net_pol), 3, ("dag_stream_kernel", "true, true"))
+    stream_plain = device_ms(lambda: env._kernel_stream(
+        clone_carry(carry), None, 0, PPO_STEPS, params, pid, False, True),
+        3, ("dag_stream_kernel", "true, false"))
+
+    T, N = PPO_STEPS, PPO_LANES
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa
+    reward = f(rng.random((T, N)))
+    value = f(rng.normal(0, 1, (T, N)))
+    done = torch.from_numpy(rng.random((T, N)) < 0.05).to(dev)
+    last = f(rng.normal(0, 1, N))
+    cfg = ppo.PPOConfig()
+    g = report["K11-gae"]
+    g["ms"] = device_ms(lambda: kernels.gae(reward, value, done, last,
+                                            cfg.gamma, cfg.gae_lambda),
+                        50, "gae_kernel")
+    g["plain_ms"] = cuda_ms(lambda: ppo.gae_plain(
+        reward, value, done, last, cfg.gamma, cfg.gae_lambda), 5)
+    g["bound_ms"], g["bound_by"] = bound_ms(T * N * (4 + 4 + 1 + 8) + N * 4,
+                                            0)
+    g["library_ms"] = None
+
+    B = LOSS_BATCH
+    inp = loss_inputs(dev, B, A, 15)
+    coefs = (cfg.clip_eps, cfg.vf_coef, cfg.entropy_coef)
+    out, stats = kernels.ppo_loss_fwd(*inp, *coefs)
+    one = torch.ones((), device=dev)
+    fwd = device_ms(lambda: kernels.ppo_loss_fwd(*inp, *coefs), 50,
+                    "loss_fwd_kernel")
+    bwd = device_ms(lambda: kernels.ppo_loss_bwd(*inp, stats, one, *coefs),
+                    50, "loss_bwd_kernel")
+
+    def plain_loss():
+        lg = inp[0].detach().requires_grad_()
+        vv = inp[1].detach().requires_grad_()
+        total, _ = ppo.loss_plain(lg, vv, *inp[2:], *coefs)
+        total.backward()
+    lo = report["K11-loss"]
+    lo["ms"] = fwd + bwd
+    lo["plain_ms"] = cuda_ms(plain_loss, 20)
+    in_bytes = B * (A * 4 + 4 * 6)
+    lo["bound_ms"], lo["bound_by"] = bound_ms(
+        in_bytes + 5 * 4 + in_bytes + B * (A + 1) * 4, 0)
+    lo["library_ms"] = None
+
+    n = net.n_params
+    p = f(rng.normal(0, 0.1, n))
+    grad = f(rng.normal(0, 1e-2, n))
+    tx = optim.ClipAdam(cfg.lr, max_grad_norm=cfg.max_grad_norm)
+    st = tx.init(p)
+    ad = report["K11-adam"]
+    ad["ms"] = device_ms(lambda: kernels.adam(p, grad, st.mu, st.nu,
+                                              **tx.scalars(0)), 50,
+                         "adam_kernel")
+    ad["plain_ms"] = cuda_ms(lambda: optim.step_plain(
+        p, grad, st.mu, st.nu, **tx.scalars(0)), 50)
+    ad["bound_ms"], ad["bound_by"] = bound_ms(n * 4 * 4 + n * 4 * 3, 0)
+    lib_p = torch.nn.Parameter(p.clone())
+    lib_p.grad = grad.clone()
+    lib_opt = torch.optim.Adam([lib_p], lr=cfg.lr, eps=1e-5, fused=True)
+    ad["library_ms"] = event_ms(lib_opt.step, 50)
+    say("k11_times", **{k: json.dumps(
+        {f: report[k][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")})
+        for k in ("K11-act", "K11-gae", "K11-loss", "K11-adam")},
+        loss_fwd_ms=fwd, loss_bwd_ms=bwd, ts_stream_net_ms=stream_net,
+        ts_stream_heuristic_ms=stream_plain,
+        net_in_stream_ms=stream_net - stream_plain)
+
+
 def parametric_capstone():
     """The capstone's structure, compiled once at the probe point with
     its exponent columns; returns (ParamMDP, host seconds)."""
@@ -2253,6 +3028,8 @@ def main() -> int:
         dfx = {k: f[k] for k in f.files}
     with np.load(QUORUM_FIXTURE) as f:
         qfx = {k: f[k] for k in f.files}
+    with np.load(PPO_FIXTURE) as f:
+        pfx = {k: f[k] for k in f.files}
     csrc = "cpr_tpu_torch/csrc"
     report = {
         "K1": dict(name="K1 threefry2x32", route="cuda",
@@ -2310,6 +3087,25 @@ def main() -> int:
                           source=f"{csrc}/stree_stream.cu",
                           replaces="cpr_tpu/envs/stree.py:283",
                           max_abs_err=0.0),
+        # device functions that K2/K10 run inside their launches with
+        # the net: its launches are theirs, its ms, plain and bound its
+        # check kernel's (4096 lanes, warp mode)
+        "K11-act": dict(name="K11-act actor-critic in the stream kernels "
+                        "(device functions inside K2/K10, launches "
+                        "theirs; ms, plain_ms and bound_ms are its check "
+                        "kernel actor_check_kernel's)", route="cuda",
+                        source=f"{csrc}/actor.cuh",
+                        replaces="cpr_tpu/train/ppo.py:86"),
+        "K11-gae": dict(name="K11-gae advantage scan", route="cuda",
+                        source=f"{csrc}/gae.cu",
+                        replaces="cpr_tpu/train/ppo.py:154"),
+        "K11-loss": dict(name="K11-loss PPO loss head forward and "
+                         "backward (ms: one of each)", route="cuda",
+                         source=f"{csrc}/ppo_loss.cu",
+                         replaces="cpr_tpu/train/ppo.py:166"),
+        "K11-adam": dict(name="K11-adam clipped Adam step", route="cuda",
+                         source=f"{csrc}/adam.cu",
+                         replaces="cpr_tpu/train/ppo.py:323"),
     }
     phase_k1(dev, fx, report)
     phase_k3(dev, fx)
@@ -2338,12 +3134,20 @@ def main() -> int:
     k9_carries = phase_k9(dev, qfx, report)
     ts_counts, ts_gym = phase_dag_path(dev, report, "ts")
     stree_counts, stree_gym = phase_dag_path(dev, report, "stree")
+    phase_k11_act(dev, report)
+    phase_net_streams(dev, report)
+    phase_k11_update(dev, report)
+    phase_ppo_fixture(dev, pfx)
+    ppo_counts, bench_carry = phase_bench_ppo(dev, report)
+    with tempfile.TemporaryDirectory(dir=kernels.build_dir()) as tmp:
+        config_counts = phase_config_path(dev, report, tmp)
     for k, r in report.items():
         r["launches"] = sum(c[k] for c in (stream_counts, gym_counts,
                                            mdp_counts, grid_counts,
                                            rtdp_counts, bk_counts, bk_gym,
                                            eth_counts, eth_gym, ts_counts,
-                                           ts_gym, stree_counts, stree_gym))
+                                           ts_gym, stree_counts, stree_gym,
+                                           ppo_counts, *config_counts))
     report["K8"]["launches"] = sum(report[k]["launches"] for k in (
         "K10-bk", "K10-eth", "K10-ts", "K10-stree"))
     report["K9"]["launches"] = (report["K10-ts"]["launches"]
@@ -2354,6 +3158,7 @@ def main() -> int:
     phase_dag_times(dev, report, ("bk", "eth"))
     phase_dag_times(dev, report, vote)
     phase_k9_times(dev, report, k9_carries)
+    phase_k11_times(dev, report, bench_carry)
     for k, v in report.items():
         check(v["ms"] >= v["bound_ms"],
               f"{k} measured {v['ms']} ms, below its bound of "

@@ -1,6 +1,6 @@
 """Carrying state between the JAX package and the port.
 
-The system has no weights: what crosses over is the parameter record,
+What crosses over is the parameter record, the policy net's weights,
 PRNG keys, the per-lane env states (Nakamoto's scalars; bk's,
 Ethereum's, Tailstorm's and Stree's `Dag` plus scalars, and the latter
 two's `stale` plane) and compiled MDP tables.
@@ -13,6 +13,8 @@ here.
     state_to_numpy(state) -> {field: np.ndarray}
     dag_state_from_numpy(env, {"dag": {f: ...}, f: ...}, device)
     dag_state_to_numpy(state) -> {"dag": {f: ...}, f: ...}
+    actor_critic_from_flax(flax_params, device) -> flat parameter vector
+    actor_critic_to_flax(flat, obs_dim, n_actions, hidden) -> flax tree
     tensor_mdp(tm.n_states, tm.n_actions, *(np.asarray(getattr(tm, f))
                for f in ("start", "src", "act", "dst", "prob", "reward",
                          "progress")), device=device)
@@ -144,3 +146,49 @@ def dag_state_to_numpy(state) -> dict:
         else:
             out[f.name] = np_(v)
     return out
+
+
+def _dense_names(p: dict) -> list:
+    out = []
+    for prefix in ("pi", "vf"):
+        i = 0
+        while f"{prefix}_{i}" in p:
+            out.append(f"{prefix}_{i}")
+            i += 1
+        out.append(f"{prefix}_head")
+    return out
+
+
+def actor_critic_from_flax(tree: dict, device=None) -> torch.Tensor:
+    """The flat parameter vector of `train.ppo.ActorCritic` from flax's
+    params tree of the reference's ActorCritic (`{"params": {"pi_0":
+    {"kernel": [in, out], "bias": [out]}, ..., "pi_head", "vf_0", ...,
+    "vf_head"}}`, numpy leaves): each kernel row-major, then its bias,
+    layer by layer. Lossless: the floats are copied."""
+    p = tree["params"] if "params" in tree else tree
+    parts = []
+    for name in _dense_names(p):
+        parts.append(np.asarray(p[name]["kernel"], np.float32).ravel())
+        parts.append(np.asarray(p[name]["bias"], np.float32).ravel())
+    flat = np.concatenate(parts)
+    return torch.from_numpy(flat).to(_device.resolve(device))
+
+
+def actor_critic_to_flax(flat: torch.Tensor, obs_dim: int, n_actions: int,
+                         hidden) -> dict:
+    """flax's params tree (numpy leaves) of a flat parameter vector, its
+    keys in sorted order, as every tree that went through jax.tree.map
+    has them (the trained params the reference checkpoints)."""
+    from cpr_tpu_torch.train.ppo import layer_shapes
+    a = flat.detach().cpu().numpy().astype(np.float32)
+    layers, off = {}, 0
+    for name, i, o in layer_shapes(obs_dim, n_actions, hidden):
+        kernel = a[off:off + i * o].reshape(i, o).copy()
+        off += i * o
+        layers[name] = {"bias": a[off:off + o].copy(), "kernel": kernel}
+        off += o
+    if off != a.size:
+        raise ValueError(f"flat vector of {a.size} floats, the net "
+                         f"({obs_dim}, {n_actions}, {tuple(hidden)}) has "
+                         f"{off}")
+    return {"params": dict(sorted(layers.items()))}

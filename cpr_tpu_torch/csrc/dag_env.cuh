@@ -23,6 +23,13 @@
 //   obs_ints(g, s, c, v)       the observation's natural-scale fields
 //   encode(v, c, f)            obs.encode of those fields
 //   policy(id, v, c)           a scripted policy on the integer fields
+//
+// Each lane loads its own EnvParams at kernel start (csrc/lane_params.cuh).
+// With `net` the stream runs the actor-critic of K11-act (csrc/actor.cuh)
+// on the encoded observation, the warp sharing the hidden units, instead
+// of a scripted policy; `extend_obs` appends the lane's (alpha, gamma) to
+// every observation written and to the net's input
+// (cpr_tpu/envs/assumption.py).
 
 #pragma once
 
@@ -30,7 +37,9 @@
 
 #include <cstdint>
 
+#include "actor.cuh"
 #include "dag.cuh"
+#include "lane_params.cuh"
 #include "threefry.cuh"
 
 namespace cpr {
@@ -88,7 +97,8 @@ struct DagTrajPtrs {
 
 constexpr int kInfo = 12;    // INFO_KEYS, in order
 constexpr int kEpisode = 7;  // info[5..11]: the episode_* keys
-constexpr int kMaxObs = 10;
+constexpr int kMaxObs = 10;  // encoded fields
+constexpr int kMaxRow = kMaxObs + 2;  // + (alpha, gamma) under extend_obs
 constexpr int kWarpsPerBlock = 4;
 
 struct Scal {
@@ -239,20 +249,54 @@ __device__ __forceinline__ float enc_discrete(int32_t x, int n, bool unit) {
 __device__ __forceinline__ void put_row(float* out, const float* v, int n) {
   const int t = threadIdx.x & 31;
 #pragma unroll
-  for (int f = 0; f < kMaxObs; ++f)
+  for (int f = 0; f < kMaxRow; ++f)
     if (f < n && f == t) out[f] = v[f];
 }
 
-template <class Env, bool STORE_TRAJ>
+// The lane's params, loaded once by the warp into shared memory: the
+// env step reads them there rather than holding six more registers in a
+// kernel already at its register limit.
+__device__ __forceinline__ const EnvParams& warp_params(const ParamPtrs& pp,
+                                                       int64_t lane) {
+  __shared__ EnvParams lane_params[kWarpsPerBlock];
+  EnvParams& p = lane_params[(threadIdx.x >> 5) % kWarpsPerBlock];
+  if ((threadIdx.x & 31) == 0) p = load_params<EnvParams>(pp, lane);
+  __syncwarp();
+  return p;
+}
+
+// The encoded observation of width F: f[kObs] then, under extend_obs,
+// the lane's (alpha, gamma).
+template <class Env>
+__device__ __forceinline__ void encode_ext(const int32_t* v,
+                                           const EnvConfig& c,
+                                           const EnvParams& p, bool ext,
+                                           float* f) {
+  Env::encode(v, c, f);
+  if (ext) {
+    f[Env::kObs] = p.alpha;
+    f[Env::kObs + 1] = p.gamma;
+  }
+}
+
+template <class Env, bool STORE_TRAJ, bool NET>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 dag_stream_kernel(const __grid_constant__ DagPtrs dp,
                   const __grid_constant__ EnvPtrs ep, float* __restrict__ obs,
                   const uint2* __restrict__ keys, int init_mode,
-                  int64_t n_lanes, int length, EnvParams p, EnvConfig c,
-                  int policy_id, float* __restrict__ sums,
-                  int32_t* __restrict__ n_done, DagTrajPtrs traj) {
+                  int64_t n_lanes, int length, ParamPtrs pp, EnvConfig c,
+                  int policy_id, bool ext, float* __restrict__ sums,
+                  int32_t* __restrict__ n_done, DagTrajPtrs traj,
+                  NetArgs net) {
+  const float* w = NET ? net_to_shared(net) : nullptr;
   const int64_t lane = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
   if (lane >= n_lanes) return;  // whole warps
+  // the net's launches all take the STORE_TRAJ instantiation, with or
+  // without a trajectory (one fewer copy of the env step to compile)
+  const bool keep_traj = STORE_TRAJ && traj.action != nullptr;
+  const EnvParams& p = warp_params(pp, lane);
+  const int F = Env::kObs + (ext ? 2 : 0);
+  NetKeys nk(net);
   LaneDag g;
   g.bind(dp, lane);
   bool* x = ep.stale;
@@ -265,7 +309,7 @@ dag_stream_kernel(const __grid_constant__ DagPtrs dp,
     Env::reset(g, s, init_mode == 1 ? split_key(k, 1u) : k, p, c, x);
   }
   int32_t v[kMaxObs];
-  float f[kMaxObs];
+  float f[NET ? kNetMaxIn : kMaxRow];
   Env::obs_ints(g, s, c, v);
   float acc[kEpisode];
 #pragma unroll
@@ -273,16 +317,23 @@ dag_stream_kernel(const __grid_constant__ DagPtrs dp,
   int32_t nd = 0;
   const int t = threadIdx.x & 31;
   for (int step = 0; step < length; ++step) {
-    const int action = Env::policy(policy_id, v, c);
     const int64_t ti = step * n_lanes + lane;
-    if (STORE_TRAJ) {
-      Env::encode(v, c, f);
-      put_row(traj.obs + ti * Env::kObs, f, Env::kObs);
+    int action;
+    if (NET || keep_traj) encode_ext<Env>(v, c, p, ext, f);
+    if (NET) {
+      const uint2 k_act =
+          net.mode == kNetSample ? nk.next() : make_uint2(0u, 0u);
+      action = net_act_warp<kNetMaxActions>(net, w, f, k_act, lane, ti);
+    } else {
+      action = Env::policy(policy_id, v, c);
+    }
+    if (keep_traj) {
+      put_row(traj.obs + ti * F, f, F);
       if (t == 0) traj.action[ti] = action;
     }
     StepOut o;
     Env::step(g, s, action, p, c, x, o);
-    if (STORE_TRAJ && t == 0) {
+    if (keep_traj && t == 0) {
       traj.reward[ti] = o.reward;
       traj.done[ti] = o.done;
 #pragma unroll
@@ -299,8 +350,10 @@ dag_stream_kernel(const __grid_constant__ DagPtrs dp,
   }
   store_scal(ep, lane, s);
   g.store_scalars();
-  Env::encode(v, c, f);
-  put_row(obs + lane * Env::kObs, f, Env::kObs);
+  encode_ext<Env>(v, c, p, ext, f);
+  put_row(obs + lane * F, f, F);
+  if (NET && lane == 0 && t == 0 && net.key_out != nullptr)
+    *net.key_out = nk.carry;
   if (sums != nullptr && t == 0) {
 #pragma unroll
     for (int k = 0; k < kEpisode; ++k) sums[k * n_lanes + lane] = acc[k];
@@ -322,13 +375,15 @@ dag_step_lanes_kernel(const __grid_constant__ DagPtrs dp,
                       const __grid_constant__ EnvPtrs fep,
                       const float* __restrict__ fresh_obs,
                       const bool* __restrict__ step_mask, int64_t n_lanes,
-                      EnvParams p, EnvConfig c, float* __restrict__ out_obs,
+                      ParamPtrs pp, EnvConfig c, bool ext,
+                      float* __restrict__ out_obs,
                       float* __restrict__ reward, bool* __restrict__ done,
                       float* __restrict__ info) {
   const int64_t lane = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
   if (lane >= n_lanes) return;
+  const EnvParams& p = warp_params(pp, lane);
   const int t = threadIdx.x & 31;
-  const int F = Env::kObs;
+  const int F = Env::kObs + (ext ? 2 : 0);
   LaneDag g;
   g.bind(dp, lane);
   bool* x = ep.stale;
@@ -348,18 +403,18 @@ dag_step_lanes_kernel(const __grid_constant__ DagPtrs dp,
     s = load_scal(ep, lane);
   }
   int32_t v[kMaxObs];
-  float f[kMaxObs];
+  float f[kMaxRow];
   if (step_mask[lane]) {
     StepOut o;
     Env::step(g, s, actions[lane], p, c, x, o);
     Env::obs_ints(g, s, c, v);
-    Env::encode(v, c, f);
+    encode_ext<Env>(v, c, p, ext, f);
     put_row(out_obs + lane * F, f, F);
     if (o.done) Env::reset(g, s, s.key, p, c, x);
     store_scal(ep, lane, s);
     g.store_scalars();
     Env::obs_ints(g, s, c, v);
-    Env::encode(v, c, f);
+    encode_ext<Env>(v, c, p, ext, f);
     put_row(obs + lane * F, f, F);
     if (t == 0) {
       reward[lane] = o.reward;
@@ -388,32 +443,57 @@ inline unsigned dag_blocks_for(int64_t n_lanes) {
   return (unsigned)((n_lanes + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
+template <class Env, bool STORE_TRAJ, bool NET>
+cudaError_t launch_dag_stream_as(const DagPtrs* dp, const EnvPtrs* ep,
+                                 void* obs, const void* keys, int init_mode,
+                                 int64_t n_lanes, int length,
+                                 const ParamPtrs* p, const EnvConfig* c,
+                                 int policy_id, int extend_obs, void* sums,
+                                 void* n_done, const DagTrajPtrs* traj,
+                                 const NetArgs* net, cudaStream_t st) {
+  auto kernel = dag_stream_kernel<Env, STORE_TRAJ, NET>;
+  const size_t smem = net_smem_bytes(NET ? net : nullptr);
+  if (smem > 0) {  // static + dynamic may pass 48 KB
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<dag_blocks_for(n_lanes), 32 * kWarpsPerBlock, smem, st>>>(
+      *dp, *ep, static_cast<float*>(obs), static_cast<const uint2*>(keys),
+      init_mode, n_lanes, length, *p, *c, policy_id, extend_obs != 0,
+      static_cast<float*>(sums), static_cast<int32_t*>(n_done),
+      traj != nullptr ? *traj : DagTrajPtrs{},
+      NET ? *net : NetArgs{});
+  return cudaGetLastError();
+}
+
 // The host side of every K10 env's two entry points: launch on `stream`,
-// return the launch's error.
+// return the launch's error. `net` is null (the scripted `policy_id`) or
+// the actor-critic's arguments.
 template <class Env>
 cudaError_t launch_dag_stream(const DagPtrs* dp, const EnvPtrs* ep, void* obs,
                               const void* keys, int init_mode,
-                              int64_t n_lanes, int length, const EnvParams* p,
-                              const EnvConfig* c, int policy_id, void* sums,
-                              void* n_done, const DagTrajPtrs* traj,
+                              int64_t n_lanes, int length, const ParamPtrs* p,
+                              const EnvConfig* c, int policy_id,
+                              int extend_obs, void* sums, void* n_done,
+                              const DagTrajPtrs* traj, const NetArgs* net,
                               void* stream) {
   if (n_lanes <= 0) return cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
-  const unsigned blocks = dag_blocks_for(n_lanes);
-  const unsigned threads = 32 * kWarpsPerBlock;
-  if (traj != nullptr) {
-    dag_stream_kernel<Env, true><<<blocks, threads, 0, st>>>(
-        *dp, *ep, static_cast<float*>(obs), static_cast<const uint2*>(keys),
-        init_mode, n_lanes, length, *p, *c, policy_id,
-        static_cast<float*>(sums), static_cast<int32_t*>(n_done), *traj);
-  } else {
-    dag_stream_kernel<Env, false><<<blocks, threads, 0, st>>>(
-        *dp, *ep, static_cast<float*>(obs), static_cast<const uint2*>(keys),
-        init_mode, n_lanes, length, *p, *c, policy_id,
-        static_cast<float*>(sums), static_cast<int32_t*>(n_done),
-        DagTrajPtrs{});
-  }
-  return cudaGetLastError();
+  const bool with_net = net != nullptr && net->mode != kNetOff;
+  if (traj != nullptr)
+    return with_net ? launch_dag_stream_as<Env, true, true>(
+                          dp, ep, obs, keys, init_mode, n_lanes, length, p, c,
+                          policy_id, extend_obs, sums, n_done, traj, net, st)
+                    : launch_dag_stream_as<Env, true, false>(
+                          dp, ep, obs, keys, init_mode, n_lanes, length, p, c,
+                          policy_id, extend_obs, sums, n_done, traj, net, st);
+  return with_net ? launch_dag_stream_as<Env, true, true>(
+                        dp, ep, obs, keys, init_mode, n_lanes, length, p, c,
+                        policy_id, extend_obs, sums, n_done, traj, net, st)
+                  : launch_dag_stream_as<Env, false, false>(
+                        dp, ep, obs, keys, init_mode, n_lanes, length, p, c,
+                        policy_id, extend_obs, sums, n_done, traj, net, st);
 }
 
 template <class Env>
@@ -421,8 +501,8 @@ cudaError_t launch_dag_step_lanes(
     const DagPtrs* dp, const EnvPtrs* ep, void* obs, const void* actions,
     const void* admit, const DagPtrs* fdp, const EnvPtrs* fep,
     const void* fresh_obs, const void* step_mask, int64_t n_lanes,
-    const EnvParams* p, const EnvConfig* c, void* out_obs, void* reward,
-    void* done, void* info, void* stream) {
+    const ParamPtrs* p, const EnvConfig* c, int extend_obs, void* out_obs,
+    void* reward, void* done, void* info, void* stream) {
   if (n_lanes <= 0) return cudaSuccess;
   dag_step_lanes_kernel<Env>
       <<<dag_blocks_for(n_lanes), 32 * kWarpsPerBlock, 0,
@@ -432,7 +512,8 @@ cudaError_t launch_dag_step_lanes(
           static_cast<const bool*>(admit), *fdp, *fep,
           static_cast<const float*>(fresh_obs),
           static_cast<const bool*>(step_mask), n_lanes, *p, *c,
-          static_cast<float*>(out_obs), static_cast<float*>(reward),
+          extend_obs != 0, static_cast<float*>(out_obs),
+          static_cast<float*>(reward),
           static_cast<bool*>(done), static_cast<float*>(info));
   return cudaGetLastError();
 }

@@ -20,6 +20,14 @@
 // where an episode ended (the reference computes the reset every step and
 // selects it; branching gives the same bits with half the threefry work).
 //
+// Per-lane params: each lane loads its own EnvParams at kernel start
+// (csrc/lane_params.cuh); scalar params arrive broadcast to [L]. The
+// policy is a scripted one or, with `net`, the actor-critic of K11-act
+// (csrc/actor.cuh) run by the lane's thread, which in sample mode also
+// stores logp and value beside the trajectory and returns the carry key.
+// `extend_obs` appends the lane's (alpha, gamma) to every observation
+// written and to the net's input (cpr_tpu/envs/assumption.py).
+//
 // Parity with the JAX package: integer state, keys, actions, done and
 // the integer-valued float32 rewards are bit-identical. The time update
 // is written with __fmul_rn/__fadd_rn so nvcc cannot contract it into an
@@ -34,6 +42,8 @@
 
 #include <cstdint>
 
+#include "actor.cuh"
+#include "lane_params.cuh"
 #include "threefry.cuh"
 
 // The argument structs of the extern "C" entry points (laid out like the
@@ -72,10 +82,10 @@ struct Params {
   int32_t max_steps;
 };
 
-// Per-step trajectory, time-major: obs/action/reward/done [T, L],
-// info [12, T, L].
+// Per-step trajectory, time-major: obs [T, L, F] (F = 4, or 6 under
+// extend_obs), action/reward/done [T, L], info [12, T, L].
 struct TrajPtrs {
-  float4* obs;
+  float* obs;
   int32_t* action;
   float* reward;
   bool* done;
@@ -84,6 +94,8 @@ struct TrajPtrs {
 
 }  // namespace cpr
 
+using cpr::NetArgs;
+using cpr::ParamPtrs;
 using cpr::Params;
 using cpr::StatePtrs;
 using cpr::TrajPtrs;
@@ -276,6 +288,21 @@ __device__ __forceinline__ float4 observe(const Lane& s, bool unit) {
                      0.5f + atanf(d) / pi, e);
 }
 
+// One observation row of width 4 (+2 under extend_obs).
+__device__ __forceinline__ void put_obs(float* row, float4 o, bool ext,
+                                        const Params& p) {
+  if (!ext) {
+    *reinterpret_cast<float4*>(row) = o;
+    return;
+  }
+  row[0] = o.x;
+  row[1] = o.y;
+  row[2] = o.z;
+  row[3] = o.w;
+  row[4] = p.alpha;
+  row[5] = p.gamma;
+}
+
 // nakamoto.py:247-289, on the integer fork state.
 __device__ __forceinline__ int policy(int id, int32_t a, int32_t h) {
   switch (id) {
@@ -298,20 +325,27 @@ __device__ __forceinline__ int policy(int id, int32_t a, int32_t h) {
   }
 }
 
-// K2: `length` auto-resetting steps per lane under a scripted policy,
-// accumulating the episode_* info and the done count where done is set.
-// init_mode 0 continues the carry in `st`; 1 starts each lane from
-// keys[i] with the stream prologue (split, then reset: `init_lanes`);
-// 2 resets from keys[i] directly (`reset_lanes`).
-template <bool STORE_TRAJ>
+// K2: `length` auto-resetting steps per lane under a scripted policy
+// or (NET) the actor-critic, accumulating the episode_* info and the
+// done count where done is set. init_mode 0 continues the carry in `st`;
+// 1 starts each lane from keys[i] with the stream prologue (split, then
+// reset: `init_lanes`); 2 resets from keys[i] directly (`reset_lanes`).
+template <bool STORE_TRAJ, bool NET>
 __global__ void __launch_bounds__(kThreads)
-stream_kernel(StatePtrs st, float4* __restrict__ obs,
+stream_kernel(StatePtrs st, float* __restrict__ obs,
               const uint2* __restrict__ keys, int init_mode, int64_t n_lanes,
-              int length, Params p, int policy_id, bool strict, bool unit,
-              float* __restrict__ sums, int32_t* __restrict__ n_done,
-              TrajPtrs traj) {
+              int length, ParamPtrs pp, int policy_id, bool strict, bool unit,
+              bool ext, float* __restrict__ sums,
+              int32_t* __restrict__ n_done, TrajPtrs traj, NetArgs net) {
+  const float* w = NET ? cpr::net_to_shared(net) : nullptr;
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (i >= n_lanes) return;
+  // the net's launches all take the STORE_TRAJ instantiation, with or
+  // without a trajectory
+  const bool keep_traj = STORE_TRAJ && traj.action != nullptr;
+  const int F = ext ? 6 : 4;
+  const Params p = cpr::load_params<Params>(pp, i);
+  cpr::NetKeys nk(net);
   Lane s;
   if (init_mode == 0) {
     s = load(st, i);
@@ -324,15 +358,25 @@ stream_kernel(StatePtrs st, float4* __restrict__ obs,
   for (int k = 0; k < kEpisode; ++k) acc[k] = 0.f;
   int32_t nd = 0;
   for (int t = 0; t < length; ++t) {
-    const int action = policy(policy_id, s.a, s.h);
     const int64_t ti = t * n_lanes + i;
-    if (STORE_TRAJ) {
-      traj.obs[ti] = observe(s, unit);
+    int action;
+    if (NET) {
+      const float4 o = observe(s, unit);
+      const float x[cpr::kNetMaxIn] = {o.x, o.y, o.z, o.w, p.alpha,
+                                       p.gamma};
+      const uint2 k_act =
+          net.mode == cpr::kNetSample ? nk.next() : make_uint2(0u, 0u);
+      action = cpr::net_act_thread<4>(net, w, x, k_act, i, ti);
+    } else {
+      action = policy(policy_id, s.a, s.h);
+    }
+    if (keep_traj) {
+      put_obs(traj.obs + ti * F, observe(s, unit), ext, p);
       traj.action[ti] = action;
     }
     StepOut o;
     step(s, action, p, strict, o);
-    if (STORE_TRAJ) {
+    if (keep_traj) {
       traj.reward[ti] = o.reward;
       traj.done[ti] = o.done;
 #pragma unroll
@@ -347,7 +391,8 @@ stream_kernel(StatePtrs st, float4* __restrict__ obs,
     }
   }
   store(st, i, s);
-  obs[i] = observe(s, unit);
+  put_obs(obs + i * F, observe(s, unit), ext, p);
+  if (NET && i == 0 && net.key_out != nullptr) *net.key_out = nk.carry;
   if (sums != nullptr) {
 #pragma unroll
     for (int k = 0; k < kEpisode; ++k) sums[k * n_lanes + i] = acc[k];
@@ -360,25 +405,27 @@ stream_kernel(StatePtrs st, float4* __restrict__ obs,
 // is the raw post-step observation for stepped lanes and the held
 // observation elsewhere.
 __global__ void __launch_bounds__(kThreads)
-step_lanes_kernel(StatePtrs st, float4* __restrict__ obs,
+step_lanes_kernel(StatePtrs st, float* __restrict__ obs,
                   const int32_t* __restrict__ actions,
                   const bool* __restrict__ admit, StatePtrs fresh,
-                  const float4* __restrict__ fresh_obs,
+                  const float* __restrict__ fresh_obs,
                   const bool* __restrict__ step_mask, int64_t n_lanes,
-                  Params p, bool strict, bool unit,
-                  float4* __restrict__ out_obs, float* __restrict__ reward,
+                  ParamPtrs pp, bool strict, bool unit, bool ext,
+                  float* __restrict__ out_obs, float* __restrict__ reward,
                   bool* __restrict__ done, float* __restrict__ info) {
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (i >= n_lanes) return;
+  const int F = ext ? 6 : 4;
+  const Params p = cpr::load_params<Params>(pp, i);
   const bool admitted = admit[i];
   if (step_mask[i]) {
     Lane s = admitted ? load(fresh, i) : load(st, i);
     StepOut o;
     step(s, actions[i], p, strict, o);
-    out_obs[i] = observe(s, unit);
+    put_obs(out_obs + i * F, observe(s, unit), ext, p);
     if (o.done) reset(s, s.key, p);
     store(st, i, s);
-    obs[i] = observe(s, unit);
+    put_obs(obs + i * F, observe(s, unit), ext, p);
     reward[i] = o.reward;
     done[i] = o.done;
 #pragma unroll
@@ -387,9 +434,9 @@ step_lanes_kernel(StatePtrs st, float4* __restrict__ obs,
   }
   if (admitted) {
     store(st, i, load(fresh, i));
-    obs[i] = fresh_obs[i];
+    for (int f = 0; f < F; ++f) obs[i * F + f] = fresh_obs[i * F + f];
   }
-  out_obs[i] = obs[i];
+  for (int f = 0; f < F; ++f) out_obs[i * F + f] = obs[i * F + f];
   reward[i] = 0.f;
   done[i] = false;
 #pragma unroll
@@ -400,36 +447,66 @@ unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
+template <bool STORE_TRAJ, bool NET>
+cudaError_t launch_stream(const StatePtrs* st, void* obs, const void* keys,
+                          int init_mode, int64_t n_lanes, int length,
+                          const ParamPtrs* p, int policy_id, int strict_match,
+                          int unit_obs, int extend_obs, void* sums,
+                          void* n_done, const TrajPtrs* traj,
+                          const NetArgs* net, cudaStream_t s) {
+  auto kernel = stream_kernel<STORE_TRAJ, NET>;
+  const size_t smem = cpr::net_smem_bytes(net);
+  if (smem > 0) {  // static + dynamic may pass 48 KB
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<blocks_for(n_lanes), kThreads, smem, s>>>(
+      *st, static_cast<float*>(obs), static_cast<const uint2*>(keys),
+      init_mode, n_lanes, length, *p, policy_id, strict_match != 0,
+      unit_obs != 0, extend_obs != 0, static_cast<float*>(sums),
+      static_cast<int32_t*>(n_done), traj != nullptr ? *traj : TrajPtrs{},
+      net != nullptr ? *net : NetArgs{});
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // K2 launch. `st` holds the carry (read when init_mode == 0, written
-// always); `obs` [L, 4] receives the continuation observation; `keys`
-// [L, 2] is read when init_mode != 0; `sums` [7, L] and `n_done` [L]
-// receive this launch's done-masked episode sums (both may be null for
-// a zero-length launch); `traj` is null or the trajectory buffers.
+// always); `obs` [L, F] receives the continuation observation; `keys`
+// [L, 2] is read when init_mode != 0; `p` the per-lane params; `sums`
+// [7, L] and `n_done` [L] receive this launch's done-masked episode sums
+// (both may be null for a zero-length launch); `traj` is null or the
+// trajectory buffers; `net` is null (the scripted `policy_id`) or the
+// actor-critic's arguments.
 cudaError_t cpr_k2_stream(const StatePtrs* st, void* obs, const void* keys,
                           int init_mode, int64_t n_lanes, int length,
-                          const Params* p, int policy_id, int strict_match,
-                          int unit_obs, void* sums, void* n_done,
-                          const TrajPtrs* traj, void* stream) {
+                          const ParamPtrs* p, int policy_id, int strict_match,
+                          int unit_obs, int extend_obs, void* sums,
+                          void* n_done, const TrajPtrs* traj,
+                          const NetArgs* net, void* stream) {
   if (n_lanes <= 0) return cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (traj != nullptr) {
-    stream_kernel<true><<<blocks_for(n_lanes), kThreads, 0, s>>>(
-        *st, static_cast<float4*>(obs), static_cast<const uint2*>(keys),
-        init_mode, n_lanes, length, *p, policy_id, strict_match != 0,
-        unit_obs != 0, static_cast<float*>(sums),
-        static_cast<int32_t*>(n_done), *traj);
-  } else {
-    stream_kernel<false><<<blocks_for(n_lanes), kThreads, 0, s>>>(
-        *st, static_cast<float4*>(obs), static_cast<const uint2*>(keys),
-        init_mode, n_lanes, length, *p, policy_id, strict_match != 0,
-        unit_obs != 0, static_cast<float*>(sums),
-        static_cast<int32_t*>(n_done), TrajPtrs{});
-  }
-  return cudaGetLastError();
+  const bool with_net = net != nullptr && net->mode != cpr::kNetOff;
+  if (traj != nullptr)
+    return with_net ? launch_stream<true, true>(
+                          st, obs, keys, init_mode, n_lanes, length, p,
+                          policy_id, strict_match, unit_obs, extend_obs, sums,
+                          n_done, traj, net, s)
+                    : launch_stream<true, false>(
+                          st, obs, keys, init_mode, n_lanes, length, p,
+                          policy_id, strict_match, unit_obs, extend_obs, sums,
+                          n_done, traj, nullptr, s);
+  return with_net ? launch_stream<true, true>(
+                        st, obs, keys, init_mode, n_lanes, length, p,
+                        policy_id, strict_match, unit_obs, extend_obs, sums,
+                        n_done, nullptr, net, s)
+                  : launch_stream<false, false>(
+                        st, obs, keys, init_mode, n_lanes, length, p,
+                        policy_id, strict_match, unit_obs, extend_obs, sums,
+                        n_done, nullptr, nullptr, s);
 }
 
 // K3 launch; the carry (`st`, `obs`) is updated in place.
@@ -437,17 +514,18 @@ cudaError_t cpr_k3_step_lanes(const StatePtrs* st, void* obs,
                               const void* actions, const void* admit,
                               const StatePtrs* fresh, const void* fresh_obs,
                               const void* step_mask, int64_t n_lanes,
-                              const Params* p, int strict_match, int unit_obs,
-                              void* out_obs, void* reward, void* done,
-                              void* info, void* stream) {
+                              const ParamPtrs* p, int strict_match,
+                              int unit_obs, int extend_obs, void* out_obs,
+                              void* reward, void* done, void* info,
+                              void* stream) {
   if (n_lanes <= 0) return cudaSuccess;
   step_lanes_kernel<<<blocks_for(n_lanes), kThreads, 0,
                       (cudaStream_t)stream>>>(
-      *st, static_cast<float4*>(obs), static_cast<const int32_t*>(actions),
+      *st, static_cast<float*>(obs), static_cast<const int32_t*>(actions),
       static_cast<const bool*>(admit), *fresh,
-      static_cast<const float4*>(fresh_obs),
+      static_cast<const float*>(fresh_obs),
       static_cast<const bool*>(step_mask), n_lanes, *p, strict_match != 0,
-      unit_obs != 0, static_cast<float4*>(out_obs),
+      unit_obs != 0, extend_obs != 0, static_cast<float*>(out_obs),
       static_cast<float*>(reward), static_cast<bool*>(done),
       static_cast<float*>(info));
   return cudaGetLastError();

@@ -304,17 +304,15 @@ struct StreeEnv {
 extern "C" {
 
 // K10-stree stream launch: as cpr_k10_bk_stream (csrc/bk_stream.cu);
-// `obs` [L, 10].
-cudaError_t cpr_k10_stree_stream(const cpr::DagPtrs* dp,
-                                 const cpr::EnvPtrs* ep, void* obs,
-                                 const void* keys, int init_mode,
-                                 int64_t n_lanes, int length,
-                                 const EnvParams* p, const EnvConfig* c,
-                                 int policy_id, void* sums, void* n_done,
-                                 const cpr::DagTrajPtrs* traj, void* stream) {
-  return cpr::launch_dag_stream<StreeEnv>(dp, ep, obs, keys, init_mode,
-                                          n_lanes, length, p, c, policy_id,
-                                          sums, n_done, traj, stream);
+// `obs` [L, 10] (+2 under extend_obs).
+cudaError_t cpr_k10_stree_stream(const cpr::DagPtrs* dp, const cpr::EnvPtrs* ep,
+    void* obs, const void* keys, int init_mode, int64_t n_lanes, int length,
+    const cpr::ParamPtrs* p, const EnvConfig* c, int policy_id,
+    int extend_obs, void* sums, void* n_done, const cpr::DagTrajPtrs* traj,
+    const cpr::NetArgs* net, void* stream) {
+  return cpr::launch_dag_stream<StreeEnv>(dp, ep, obs, keys, init_mode, n_lanes,
+                                     length, p, c, policy_id, extend_obs,
+                                     sums, n_done, traj, net, stream);
 }
 
 // K10-stree step_lanes launch; the carry is updated in place.
@@ -322,11 +320,12 @@ cudaError_t cpr_k10_stree_step_lanes(
     const cpr::DagPtrs* dp, const cpr::EnvPtrs* ep, void* obs,
     const void* actions, const void* admit, const cpr::DagPtrs* fdp,
     const cpr::EnvPtrs* fep, const void* fresh_obs, const void* step_mask,
-    int64_t n_lanes, const EnvParams* p, const EnvConfig* c, void* out_obs,
-    void* reward, void* done, void* info, void* stream) {
+    int64_t n_lanes, const cpr::ParamPtrs* p, const EnvConfig* c,
+    int extend_obs, void* out_obs, void* reward, void* done, void* info,
+    void* stream) {
   return cpr::launch_dag_step_lanes<StreeEnv>(
       dp, ep, obs, actions, admit, fdp, fep, fresh_obs, step_mask, n_lanes, p,
-      c, out_obs, reward, done, info, stream);
+      c, extend_obs, out_obs, reward, done, info, stream);
 }
 
 const char* cpr_k10_stree_error_string(int err) {

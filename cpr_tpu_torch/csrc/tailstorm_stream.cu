@@ -381,17 +381,15 @@ struct TailstormEnv {
 extern "C" {
 
 // K10-ts stream launch: as cpr_k10_bk_stream (csrc/bk_stream.cu); `obs`
-// [L, 10].
+// [L, 10] (+2 under extend_obs).
 cudaError_t cpr_k10_ts_stream(const cpr::DagPtrs* dp, const cpr::EnvPtrs* ep,
-                              void* obs, const void* keys, int init_mode,
-                              int64_t n_lanes, int length,
-                              const EnvParams* p, const EnvConfig* c,
-                              int policy_id, void* sums, void* n_done,
-                              const cpr::DagTrajPtrs* traj, void* stream) {
-  return cpr::launch_dag_stream<TailstormEnv>(dp, ep, obs, keys, init_mode,
-                                              n_lanes, length, p, c,
-                                              policy_id, sums, n_done, traj,
-                                              stream);
+    void* obs, const void* keys, int init_mode, int64_t n_lanes, int length,
+    const cpr::ParamPtrs* p, const EnvConfig* c, int policy_id,
+    int extend_obs, void* sums, void* n_done, const cpr::DagTrajPtrs* traj,
+    const cpr::NetArgs* net, void* stream) {
+  return cpr::launch_dag_stream<TailstormEnv>(dp, ep, obs, keys, init_mode, n_lanes,
+                                     length, p, c, policy_id, extend_obs,
+                                     sums, n_done, traj, net, stream);
 }
 
 // K10-ts step_lanes launch; the carry is updated in place.
@@ -399,11 +397,12 @@ cudaError_t cpr_k10_ts_step_lanes(
     const cpr::DagPtrs* dp, const cpr::EnvPtrs* ep, void* obs,
     const void* actions, const void* admit, const cpr::DagPtrs* fdp,
     const cpr::EnvPtrs* fep, const void* fresh_obs, const void* step_mask,
-    int64_t n_lanes, const EnvParams* p, const EnvConfig* c, void* out_obs,
-    void* reward, void* done, void* info, void* stream) {
+    int64_t n_lanes, const cpr::ParamPtrs* p, const EnvConfig* c,
+    int extend_obs, void* out_obs, void* reward, void* done, void* info,
+    void* stream) {
   return cpr::launch_dag_step_lanes<TailstormEnv>(
       dp, ep, obs, actions, admit, fdp, fep, fresh_obs, step_mask, n_lanes, p,
-      c, out_obs, reward, done, info, stream);
+      c, extend_obs, out_obs, reward, done, info, stream);
 }
 
 const char* cpr_k10_ts_error_string(int err) {

@@ -257,12 +257,16 @@ class TorchEnv:
     def _policy_fn(self, policy):
         """obs/state -> actions for the plain drivers: the integer form
         for a scripted policy (as the kernels compute it), else the
-        callable itself."""
+        callable itself (a `train.ppo.NetPolicy` among them), which gets
+        `(state, obs)` where it has `takes_state = True` (the lane-batched
+        state: the reference's base.py:218-226) and `obs` otherwise."""
         pid = self.scripted_policy_id(policy)
         if pid is not None:
             return lambda state, obs: self.policy_from_ints(pid, state)
         if not callable(policy):
             raise ValueError(f"unknown policy {policy!r}")
+        if getattr(policy, "takes_state", False):
+            return policy
         return lambda state, obs: policy(obs)
 
     def scripted_policy_id(self, policy):
@@ -351,11 +355,12 @@ class TorchEnv:
         raise _no_kernel(type(self).__name__, self.kernel_item)
 
     def _kernel_stream(self, carry, keys, init_mode, length, params,
-                       policy_id, with_sums, store_traj):
+                       policy_id, with_sums, store_traj, net=None,
+                       extend_obs=False):
         raise _no_kernel(type(self).__name__, self.kernel_item)
 
     def _kernel_step_lanes(self, carry, actions, admit_mask, fresh_states,
-                           step_mask, params):
+                           step_mask, params, extend_obs=False):
         raise _no_kernel(type(self).__name__, self.kernel_item)
 
     # -- drivers (kernel on CUDA, plain twin on CPU) ------------------------
@@ -370,20 +375,23 @@ class TorchEnv:
             pid = None
             if length > 0:
                 pid = self.scripted_policy_id(policy)
-                if pid is None:
+                if pid is None and not getattr(policy, "is_net_policy",
+                                               False):
                     raise NotImplementedError(
-                        "on CUDA the stream kernel runs the env's scripted "
-                        f"policies ({', '.join(self.scripted_policies)}); "
-                        "a policy in the loop comes with K11 (ROADMAP "
-                        "item 10)")
+                        "on CUDA the stream kernels run the env's scripted "
+                        f"policies ({', '.join(self.scripted_policies)}) "
+                        "and the actor-critic net of a train.ppo.NetPolicy "
+                        "(K11-act); an arbitrary Python callable runs on "
+                        "the CPU only")
             if carry is None:
                 keys = keys.contiguous()
                 carry = self._empty_carry(keys.shape[0], keys.device)
+            net = policy if getattr(policy, "is_net_policy", False) else None
             sums, n_done, traj = self._kernel_stream(
                 carry, keys, init_mode, length, params, pid or 0,
-                with_sums, store_traj)
+                with_sums, store_traj, net=net)
             if traj is not None:
-                obs, action, reward, done, info = traj
+                obs, action, reward, done, info = traj[:5]
                 traj = (obs.transpose(0, 1), action.t(), reward.t(),
                         done.t(), {k: info[i].t()
                                    for i, k in enumerate(INFO_KEYS)})
@@ -468,8 +476,13 @@ class TorchEnv:
         return traj
 
     def episode_stats(self, keys, params, policy, n_steps: int):
-        """Final-info aggregation over completed episodes, per lane."""
-        return self.make_episode_stats_fn(params, policy, n_steps)(keys)
+        """Final-info aggregation over completed episodes, per lane; a
+        single key `[2]` gives 0-dim stats, as the reference's
+        (base.py:330-340) does."""
+        single = keys.dim() == 1
+        stats = self.make_episode_stats_fn(params, policy, n_steps)(
+            keys[None] if single else keys)
+        return {k: v[0] for k, v in stats.items()} if single else stats
 
     def make_episode_stats_fn(self, params, policy, n_steps: int,
                               chunk: int | None = None,
@@ -571,21 +584,23 @@ class DagEnv(TorchEnv):
                                   dtype=torch.float32, device=device)
 
     def _kernel_stream(self, carry, keys, init_mode, length, params,
-                       policy_id, with_sums, store_traj):
+                       policy_id, with_sums, store_traj, net=None,
+                       extend_obs=False):
         from cpr_tpu_torch import kernels
         state, obs = carry
         return kernels.dag_stream(self, state, obs, keys, init_mode, length,
                                   params, policy_id, with_sums=with_sums,
-                                  store_traj=store_traj)
+                                  store_traj=store_traj, net=net,
+                                  extend_obs=extend_obs)
 
     def _kernel_step_lanes(self, carry, actions, admit_mask, fresh_states,
-                           step_mask, params):
+                           step_mask, params, extend_obs=False):
         from cpr_tpu_torch import kernels
         state, obs = carry
         fstate, fobs = fresh_states
         out_obs, reward, done, info = kernels.dag_step_lanes(
             self, state, obs, actions, admit_mask, fstate, fobs, step_mask,
-            params)
+            params, extend_obs=extend_obs)
         return out_obs, reward, done, {k: info[i]
                                        for i, k in enumerate(INFO_KEYS)}
 

@@ -295,22 +295,24 @@ class NakamotoSSZ(TorchEnv):
         return state, torch.empty((n, 4), **f32)
 
     def _kernel_stream(self, carry, keys, init_mode, length, params,
-                       policy_id, with_sums, store_traj):
+                       policy_id, with_sums, store_traj, net=None,
+                       extend_obs=False):
         from cpr_tpu_torch import kernels
         state, obs = carry
         return kernels.stream(state, obs, keys, init_mode, length, params,
                               policy_id, self.strict_match,
                               self.unit_observation, with_sums=with_sums,
-                              store_traj=store_traj)
+                              store_traj=store_traj, net=net,
+                              extend_obs=extend_obs)
 
     def _kernel_step_lanes(self, carry, actions, admit_mask, fresh_states,
-                           step_mask, params):
+                           step_mask, params, extend_obs=False):
         from cpr_tpu_torch import kernels
         from cpr_tpu_torch.envs.base import INFO_KEYS
         state, obs = carry
         fstate, fobs = fresh_states
         out_obs, reward, done, info = kernels.step_lanes(
             state, obs, actions, admit_mask, fstate, fobs, step_mask, params,
-            self.strict_match, self.unit_observation)
+            self.strict_match, self.unit_observation, extend_obs=extend_obs)
         return out_obs, reward, done, {k: info[i]
                                        for i, k in enumerate(INFO_KEYS)}

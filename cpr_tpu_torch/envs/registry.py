@@ -32,8 +32,8 @@ _INFO = {
 
 # families the JAX package has and this package does not yet, with the
 # ROADMAP item that brings them
-_NOT_PORTED = {"spar": "8d, slice 6: the Spar env",
-               "sdag": "8d, slice 6: the Sdag env over the altruistic K9"}
+_NOT_PORTED = {"spar": "8d: the Spar env",
+               "sdag": "8d: the Sdag env over the altruistic K9"}
 
 
 def register(key: str, factory: Callable):

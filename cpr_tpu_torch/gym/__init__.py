@@ -8,7 +8,7 @@ and `cpr-tailstorm-torch-v0`. The ids differ from the JAX package's
 keeps the first registration of an id, so in a process that imports both
 packages a shared id would silently resolve to whichever registered
 first. The FC16 and generic ids (`FC16SSZwPT-v0`, `cpr-generic-v0`) wait
-for `gym/generic_env.py` in slice 6 (ROADMAP item 8d).
+for `gym/generic_env.py` (ROADMAP item 7c).
 """
 
 from __future__ import annotations

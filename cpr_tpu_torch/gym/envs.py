@@ -117,7 +117,11 @@ class Core(gymnasium.Env):
             raise ValueError(
                 f"{name} is not a valid policy; choose from "
                 + ", ".join(self.policies()))
-        return int(fn(torch.as_tensor(np.asarray(obs), dtype=torch.float32)))
+        obs = torch.as_tensor(np.asarray(obs), dtype=torch.float32)
+        if getattr(fn, "takes_state", False):
+            # the width-1 lane block's state, as the reference's _state0
+            return int(fn(self._carry[0], obs[None])[0])
+        return int(fn(obs))
 
 
 class BatchedCore(gymnasium.Env):

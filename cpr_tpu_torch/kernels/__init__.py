@@ -33,17 +33,22 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu", "rtdp.cu",
            "dag_script.cu", "bk_stream.cu", "ethereum_stream.cu",
-           "quorum_check.cu", "tailstorm_stream.cu", "stree_stream.cu")
+           "quorum_check.cu", "tailstorm_stream.cu", "stree_stream.cu",
+           "actor_check.cu", "gae.cu", "ppo_loss.cu", "adam.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel since the last reset_launches(). K8 and K9 are sets
 # of device functions (csrc/dag.cuh, csrc/quorum.cuh) that K10 runs inside
 # its own launches; their counts are those of their check kernels
-# (csrc/dag_script.cu, csrc/quorum_check.cu).
+# (csrc/dag_script.cu, csrc/quorum_check.cu). K11-act (csrc/actor.cuh) runs
+# inside K2 and K10 too: a stream launch with the net adds one to it as
+# well as to its own kernel, and so does its check kernel
+# (csrc/actor_check.cu). K11-loss counts its forward and backward launches.
 launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K8": 0, "K9": 0, "K10-bk": 0, "K10-eth": 0, "K10-ts": 0,
-            "K10-stree": 0}
+            "K10-stree": 0, "K11-act": 0, "K11-gae": 0, "K11-loss": 0,
+            "K11-adam": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -130,11 +135,18 @@ class _StatePtrs(ctypes.Structure):
         "last_chain_time", "last_sim_time", "key")]
 
 
-class _Params(ctypes.Structure):
-    _fields_ = [("alpha", ctypes.c_float), ("gamma", ctypes.c_float),
-                ("activation_delay", ctypes.c_float),
-                ("max_progress", ctypes.c_float),
-                ("max_time", ctypes.c_float), ("max_steps", ctypes.c_int32)]
+_PARAM_FIELDS = ("alpha", "gamma", "activation_delay", "max_progress",
+                 "max_time", "max_steps")
+
+
+class _ParamPtrs(ctypes.Structure):  # csrc/lane_params.cuh
+    _fields_ = [(f, _p) for f in _PARAM_FIELDS]
+
+
+class _NetArgs(ctypes.Structure):  # csrc/actor.cuh
+    _fields_ = [(f, _p) for f in ("w", "logp", "value", "key_in",
+                                  "key_out")] + [
+        (f, ctypes.c_int32) for f in ("in_", "hidden", "n_actions", "mode")]
 
 
 class _TrajPtrs(ctypes.Structure):
@@ -225,13 +237,15 @@ def _load() -> dict[str, ctypes.CDLL]:
         rnd.cpr_k1_error_string.argtypes = [_int]
         rnd.cpr_k1_error_string.restype = ctypes.c_char_p
         nak = ctypes.CDLL(str(paths["nakamoto_stream.cu"]))
-        sp, pp = ctypes.POINTER(_StatePtrs), ctypes.POINTER(_Params)
+        sp, pp = ctypes.POINTER(_StatePtrs), ctypes.POINTER(_ParamPtrs)
+        npp = ctypes.POINTER(_NetArgs)
         nak.cpr_k2_stream.argtypes = [sp, _p, _p, _int, _i64, _int, pp, _int,
-                                      _int, _int, _p, _p,
-                                      ctypes.POINTER(_TrajPtrs), _p]
+                                      _int, _int, _int, _p, _p,
+                                      ctypes.POINTER(_TrajPtrs), npp, _p]
         nak.cpr_k2_stream.restype = _int
         nak.cpr_k3_step_lanes.argtypes = [sp, _p, _p, _p, sp, _p, _p, _i64,
-                                          pp, _int, _int, _p, _p, _p, _p, _p]
+                                          pp, _int, _int, _int, _p, _p, _p,
+                                          _p, _p]
         nak.cpr_k3_step_lanes.restype = _int
         nak.cpr_k23_error_string.argtypes = [_int]
         nak.cpr_k23_error_string.restype = ctypes.c_char_p
@@ -279,16 +293,42 @@ def _load() -> dict[str, ctypes.CDLL]:
             lib = ctypes.CDLL(str(paths[src]))
             stream_fn = getattr(lib, f"cpr_k10_{name}_stream")
             stream_fn.argtypes = [dp, ep, _p, _p, _int, _i64, _int, pp, cfg,
-                                  _int, _p, _p, _p, _p]
+                                  _int, _int, _p, _p, _p, npp, _p]
             stream_fn.restype = _int
             lanes_fn = getattr(lib, f"cpr_k10_{name}_step_lanes")
             lanes_fn.argtypes = [dp, ep, _p, _p, _p, dp, ep, _p, _p, _i64, pp,
-                                 cfg, _p, _p, _p, _p, _p]
+                                 cfg, _int, _p, _p, _p, _p, _p]
             lanes_fn.restype = _int
             err = f"cpr_k10_{name}_error_string"
             getattr(lib, err).argtypes = [_int]
             getattr(lib, err).restype = ctypes.c_char_p
             _libs[f"k10_{name}"] = lib
+        act = ctypes.CDLL(str(paths["actor_check.cu"]))
+        act.cpr_k11_actor_check.argtypes = [npp, _p, _int, _p, _p, _i64,
+                                            _int, _p, _p]
+        gae_lib = ctypes.CDLL(str(paths["gae.cu"]))
+        gae_lib.cpr_k11_gae.argtypes = [_p, _p, _p, _p, _int, _i64,
+                                        ctypes.c_float, ctypes.c_float, _p,
+                                        _p, _p]
+        loss = ctypes.CDLL(str(paths["ppo_loss.cu"]))
+        f3 = [ctypes.c_float] * 3
+        loss.cpr_k11_loss_fwd.argtypes = [_p, _i64, _int, *f3, _p, _p, _p]
+        loss.cpr_k11_loss_bwd.argtypes = [_p, _i64, _int, *f3, _p, _p, _p,
+                                          _p, _p]
+        adam_lib = ctypes.CDLL(str(paths["adam.cu"]))
+        adam_lib.cpr_k11_adam.argtypes = [_p, _p, _p, _p, _i64,
+                                          *[ctypes.c_float] * 9, _p, _p]
+        for lib, fns, err in (
+                (act, ("cpr_k11_actor_check",), "cpr_k11_act_error_string"),
+                (gae_lib, ("cpr_k11_gae",), "cpr_k11_gae_error_string"),
+                (loss, ("cpr_k11_loss_fwd", "cpr_k11_loss_bwd"),
+                 "cpr_k11_loss_error_string"),
+                (adam_lib, ("cpr_k11_adam",), "cpr_k11_adam_error_string")):
+            for fn in fns:
+                getattr(lib, fn).restype = _int
+            getattr(lib, err).argtypes = [_int]
+            getattr(lib, err).restype = ctypes.c_char_p
+        _libs.update(actor=act, gae=gae_lib, loss=loss, adam=adam_lib)
         return _libs
 
 
@@ -358,38 +398,89 @@ def _state_ptrs(state, n, dev, name) -> _StatePtrs:
     return ptrs
 
 
-def _params(params) -> _Params:
-    for f in ("alpha", "gamma", "activation_delay", "max_progress",
-              "max_time", "max_steps"):
-        if getattr(params, f).dim() != 0:
-            raise NotImplementedError(
-                "per-lane stacked params in the CUDA stream kernels are "
-                "not ported yet (ROADMAP item 5, left out of slice 1); "
-                "pass scalar EnvParams")
-    return _Params(float(params.alpha), float(params.gamma),
-                   float(params.activation_delay),
-                   float(params.max_progress), float(params.max_time),
-                   int(params.max_steps))
+def _params(params, n: int, dev):
+    """The per-lane params arrays of `n` lanes on `dev`: a scalar field
+    broadcast to [n] on the device (a host scalar is filled in, with no
+    copy from the host), a stacked one taken as it is ([n]). Returns the
+    struct of their pointers and the arrays, which the caller keeps
+    alive until the launch is queued."""
+    arrays = []
+    for f in _PARAM_FIELDS:
+        t = getattr(params, f)
+        if t.dim() not in (0, 1) or (t.dim() == 1 and t.shape[0] != n):
+            raise ValueError(f"params.{f}: shape {tuple(t.shape)}, "
+                             f"expected () or ({n},)")
+        dt = torch.int32 if f == "max_steps" else torch.float32
+        if t.dim() == 0 and t.device.type == "cpu":
+            arrays.append(torch.full((n,), t.to(dt).item(), dtype=dt,
+                                     device=dev))
+        else:
+            arrays.append(torch.broadcast_to(t.to(dev, dt), (n,))
+                          .contiguous())
+    return _ParamPtrs(*(a.data_ptr() for a in arrays)), arrays
+
+
+def _net_args(net, n: int, length: int, width: int, dev, max_actions: int,
+              store: bool):
+    """The K11-act arguments of a stream launch with the `train.ppo.
+    NetPolicy` `net` over `n` lanes of input `width`: (struct, logp,
+    value, key_out); logp/value [length, n] where `store`, key_out [2]
+    in sample mode."""
+    ac = net.net
+    flat = ac.flat.detach()
+    _want(flat, "net.flat", torch.float32, (ac.n_params,), dev, align=16)
+    hidden = ac.hidden
+    if (len(hidden) != 2 or hidden[0] != hidden[1]
+            or not 0 < hidden[0] <= 96 or ac.obs_dim != width
+            or not 0 < width <= 16 or not 0 < ac.n_actions <= max_actions):
+        raise NotImplementedError(
+            f"K11-act runs two equal hidden layers of at most 96 units on "
+            f"inputs of at most 16 and at most {max_actions} actions; this "
+            f"net has hidden {hidden}, input {ac.obs_dim} (the env gives "
+            f"{width}) and {ac.n_actions} actions")
+    sample = not net.greedy
+    logp = value = key_out = key_in = None
+    if store:
+        f32 = dict(dtype=torch.float32, device=dev)
+        logp = torch.empty((length, n), **f32)
+        value = torch.empty((length, n), **f32)
+    if sample:
+        key_in = net.key.reshape(2).contiguous()
+        _want(key_in, "net.key", torch.int32, (2,), dev, align=8)
+        key_out = torch.empty((2,), dtype=torch.int32, device=dev)
+    args = _NetArgs(flat.data_ptr(),
+                    None if logp is None else logp.data_ptr(),
+                    None if value is None else value.data_ptr(),
+                    None if key_in is None else key_in.data_ptr(),
+                    None if key_out is None else key_out.data_ptr(),
+                    width, hidden[0], ac.n_actions, 2 if sample else 1)
+    return args, logp, value, key_out, (flat, key_in)
 
 
 def stream(state, obs, keys, init_mode: int, length: int, params,
            policy_id: int, strict_match: bool, unit_obs: bool,
-           with_sums: bool = True, store_traj: bool = False):
+           with_sums: bool = True, store_traj: bool = False, net=None,
+           extend_obs: bool = False):
     """K2: run `length` auto-resetting steps of every lane under the
-    scripted policy `policy_id`, updating the carry (`state`, `obs`
-    [L, 4]) IN PLACE. init_mode 1/2 first (re)initialises each lane from
-    `keys` [L, 2] (stream prologue / raw reset); 0 continues the carry.
+    scripted policy `policy_id` or, given `net` (a `train.ppo.NetPolicy`),
+    under the actor-critic (K11-act), updating the carry (`state`, `obs`
+    [L, F]) IN PLACE; F = 4, or 6 with `extend_obs` (each lane's alpha
+    and gamma appended). `params` scalar or per lane [L]. init_mode 1/2
+    first (re)initialises each lane from `keys` [L, 2] (stream prologue /
+    raw reset); 0 continues the carry.
 
     Returns (sums [7, L] float32, n_done [L] int32, traj) — sums/n_done
     None unless `with_sums`, traj None unless `store_traj`, else
-    (obs [T, L, 4], action [T, L], reward [T, L], done [T, L],
-    info [12, T, L])."""
+    (obs [T, L, F], action [T, L], reward [T, L], done [T, L],
+    info [12, T, L]), followed with a net by logp [T, L], value [T, L]
+    and the carry key after the launch (None when greedy)."""
     dev = obs.device
     if dev.type != "cuda":
         raise ValueError("K2 takes CUDA tensors")
     n = obs.shape[0]
+    F = 6 if extend_obs else 4
     sp = _state_ptrs(state, n, dev, "state")
-    _want(obs, "obs", torch.float32, (n, 4), dev, align=16)
+    _want(obs, "obs", torch.float32, (n, F), dev, align=16)
     kp = None
     if init_mode != 0:
         _want(keys, "keys", torch.int32, (n, 2), dev, align=8)
@@ -401,53 +492,65 @@ def stream(state, obs, keys, init_mode: int, length: int, params,
     tp = None
     if store_traj:
         f32 = dict(dtype=torch.float32, device=dev)
-        traj = (torch.empty((length, n, 4), **f32),
+        traj = (torch.empty((length, n, F), **f32),
                 torch.empty((length, n), dtype=torch.int32, device=dev),
                 torch.empty((length, n), **f32),
                 torch.empty((length, n), dtype=torch.bool, device=dev),
                 torch.empty((12, length, n), **f32))
         tp = ctypes.byref(_TrajPtrs(*(t.data_ptr() for t in traj)))
-    p = _params(params)
+    na = None
+    if net is not None:
+        na, logp, value, key_out, _keep = _net_args(
+            net, n, length, F, dev, 4, store_traj)
+    p, _p_keep = _params(params, n, dev)
     lib = _load()["nakamoto"]
     with torch.cuda.device(dev):
         rc = lib.cpr_k2_stream(
             ctypes.byref(sp), obs.data_ptr(), kp, init_mode, n, length,
             ctypes.byref(p), policy_id, int(strict_match), int(unit_obs),
-            None if sums is None else sums.data_ptr(),
-            None if n_done is None else n_done.data_ptr(), tp, _stream(dev))
+            int(extend_obs), None if sums is None else sums.data_ptr(),
+            None if n_done is None else n_done.data_ptr(), tp,
+            None if na is None else ctypes.byref(na), _stream(dev))
     _check(rc, lib, "cpr_k23_error_string", "K2 stream")
     launches["K2"] += 1
+    if net is not None:
+        launches["K11-act"] += 1
+        if traj is not None:
+            traj = traj + (logp, value, key_out)
     return sums, n_done, traj
 
 
 def step_lanes(state, obs, actions, admit_mask, fresh_state, fresh_obs,
-               step_mask, params, strict_match: bool, unit_obs: bool):
+               step_mask, params, strict_match: bool, unit_obs: bool,
+               extend_obs: bool = False):
     """K3: one tick of the resident lane block; the carry (`state`,
-    `obs`) is updated IN PLACE. Returns (out_obs [L, 4], reward [L],
-    done [L] bool, info [12, L])."""
+    `obs`) is updated IN PLACE. Returns (out_obs [L, F], reward [L],
+    done [L] bool, info [12, L]), F = 4 (6 with `extend_obs`)."""
     dev = obs.device
     if dev.type != "cuda":
         raise ValueError("K3 takes CUDA tensors")
     n = obs.shape[0]
+    F = 6 if extend_obs else 4
     sp = _state_ptrs(state, n, dev, "state")
     fp = _state_ptrs(fresh_state, n, dev, "fresh_state")
-    _want(obs, "obs", torch.float32, (n, 4), dev, align=16)
-    _want(fresh_obs, "fresh_obs", torch.float32, (n, 4), dev, align=16)
+    _want(obs, "obs", torch.float32, (n, F), dev, align=16)
+    _want(fresh_obs, "fresh_obs", torch.float32, (n, F), dev, align=16)
     _want(actions, "actions", torch.int32, (n,), dev)
     _want(admit_mask, "admit_mask", torch.bool, (n,), dev, align=1)
     _want(step_mask, "step_mask", torch.bool, (n,), dev, align=1)
-    out_obs = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    out_obs = torch.empty((n, F), dtype=torch.float32, device=dev)
     reward = torch.empty((n,), dtype=torch.float32, device=dev)
     done = torch.empty((n,), dtype=torch.bool, device=dev)
     info = torch.empty((12, n), dtype=torch.float32, device=dev)
-    p = _params(params)
+    p, _p_keep = _params(params, n, dev)
     lib = _load()["nakamoto"]
     with torch.cuda.device(dev):
         rc = lib.cpr_k3_step_lanes(
             ctypes.byref(sp), obs.data_ptr(), actions.data_ptr(),
             admit_mask.data_ptr(), ctypes.byref(fp), fresh_obs.data_ptr(),
             step_mask.data_ptr(), n, ctypes.byref(p), int(strict_match),
-            int(unit_obs), out_obs.data_ptr(), reward.data_ptr(),
+            int(unit_obs), int(extend_obs), out_obs.data_ptr(),
+            reward.data_ptr(),
             done.data_ptr(), info.data_ptr(), _stream(dev))
     _check(rc, lib, "cpr_k23_error_string", "K3 step_lanes")
     launches["K3"] += 1
@@ -738,16 +841,19 @@ def _k10(env, entry: str):
 
 def dag_stream(env, state, obs, keys, init_mode: int, length: int, params,
                policy_id: int, with_sums: bool = True,
-               store_traj: bool = False):
+               store_traj: bool = False, net=None, extend_obs: bool = False):
     """K10 (the library `env.kernel_lib`): `length` auto-resetting
-    steps of every lane under the scripted policy `policy_id`, updating
-    the carry (`state`, a DAG env's state on the card, and `obs`
-    [L, F]) IN PLACE; init_mode as in `stream`. Returns (sums [7, L],
-    n_done [L], traj) as `stream` does, traj obs [T, L, F]."""
+    steps of every lane under the scripted policy `policy_id` or the
+    `net` (K11-act, as in `stream`), updating the carry (`state`, a DAG
+    env's state on the card, and `obs` [L, F]) IN PLACE; F the env's
+    observation length, + 2 with `extend_obs`; init_mode as in `stream`.
+    Returns (sums [7, L], n_done [L], traj) as `stream` does, traj obs
+    [T, L, F]."""
     dev = obs.device
     if dev.type != "cuda":
         raise ValueError(f"{env.kernel_name} takes CUDA tensors")
-    n, F = obs.shape[0], env.observation_length
+    n = obs.shape[0]
+    F = env.observation_length + (2 if extend_obs else 0)
     dp = _dag_ptrs(state.dag, dev, "state.dag")
     ep = _env_ptrs(env, state, n, dev, "state")
     _want(obs, "obs", torch.float32, (n, F), dev)
@@ -768,29 +874,39 @@ def dag_stream(env, state, obs, keys, init_mode: int, length: int, params,
                 torch.empty((length, n), dtype=torch.bool, device=dev),
                 torch.empty((12, length, n), **f32))
         tp = ctypes.byref(_TrajPtrs(*(t.data_ptr() for t in traj)))
-    p, c = _params(params), _env_config(env)
+    na = None
+    if net is not None:
+        na, logp, value, key_out, _keep = _net_args(
+            net, n, length, F, dev, 24, store_traj)
+    (p, _p_keep), c = _params(params, n, dev), _env_config(env)
     lib, fn = _k10(env, "stream")
     with torch.cuda.device(dev):
         rc = fn(ctypes.byref(dp), ctypes.byref(ep), obs.data_ptr(), kp,
                 init_mode, n, length, ctypes.byref(p), ctypes.byref(c),
-                policy_id, None if sums is None else sums.data_ptr(),
+                policy_id, int(extend_obs),
+                None if sums is None else sums.data_ptr(),
                 None if n_done is None else n_done.data_ptr(), tp,
-                _stream(dev))
+                None if na is None else ctypes.byref(na), _stream(dev))
     _check(rc, lib, f"cpr_k10_{env.kernel_lib}_error_string",
            f"{env.kernel_name} stream")
     launches[env.kernel_name] += 1
+    if net is not None:
+        launches["K11-act"] += 1
+        if traj is not None:
+            traj = traj + (logp, value, key_out)
     return sums, n_done, traj
 
 
 def dag_step_lanes(env, state, obs, actions, admit_mask, fresh_state,
-                   fresh_obs, step_mask, params):
+                   fresh_obs, step_mask, params, extend_obs: bool = False):
     """K10 one tick of the resident lane block; the carry
     (`state`, `obs`) is updated in place. Returns (out_obs [L, F],
-    reward [L], done [L] bool, info [12, L])."""
+    reward [L], done [L] bool, info [12, L]); F as in `dag_stream`."""
     dev = obs.device
     if dev.type != "cuda":
         raise ValueError(f"{env.kernel_name} takes CUDA tensors")
-    n, F = obs.shape[0], env.observation_length
+    n = obs.shape[0]
+    F = env.observation_length + (2 if extend_obs else 0)
     dp = _dag_ptrs(state.dag, dev, "state.dag")
     ep = _env_ptrs(env, state, n, dev, "state")
     fdp = _dag_ptrs(fresh_state.dag, dev, "fresh_state.dag")
@@ -807,13 +923,14 @@ def dag_step_lanes(env, state, obs, actions, admit_mask, fresh_state,
     reward = torch.empty((n,), dtype=torch.float32, device=dev)
     done = torch.empty((n,), dtype=torch.bool, device=dev)
     info = torch.empty((12, n), dtype=torch.float32, device=dev)
-    p, c = _params(params), _env_config(env)
+    (p, _p_keep), c = _params(params, n, dev), _env_config(env)
     lib, fn = _k10(env, "step_lanes")
     with torch.cuda.device(dev):
         rc = fn(ctypes.byref(dp), ctypes.byref(ep), obs.data_ptr(),
                 actions.data_ptr(), admit_mask.data_ptr(), ctypes.byref(fdp),
                 ctypes.byref(fep), fresh_obs.data_ptr(), step_mask.data_ptr(),
-                n, ctypes.byref(p), ctypes.byref(c), out_obs.data_ptr(),
+                n, ctypes.byref(p), ctypes.byref(c), int(extend_obs),
+                out_obs.data_ptr(),
                 reward.data_ptr(), done.data_ptr(), info.data_ptr(),
                 _stream(dev))
     _check(rc, lib, f"cpr_k10_{env.kernel_lib}_error_string",
@@ -900,3 +1017,158 @@ def dag_script(dag, ops, args, fargs):
     _check(rc, lib, "cpr_k8_error_string", "K8 dag_script")
     launches["K8"] += 1
     return regs, out
+
+
+# -- K11 ----------------------------------------------------------------------
+
+def actor_check(net, obs, alpha=None, gamma=None, k_act=None, *,
+                warp: bool):
+    """K11-act's check kernel: the actor-critic `net` (a `train.ppo.
+    ActorCritic` on the card) on `obs` [L, F] (CUDA), with each lane's
+    `alpha`, `gamma` [L] appended when given (extend_obs), in warp mode
+    (as K10 runs it) or thread mode (as K2 does); the draw greedy, or
+    sampled with `k_act` [2], the step's key. Returns (logits [L, A],
+    value [L], action [L] int32, logp [L])."""
+    dev = obs.device
+    if dev.type != "cuda":
+        raise ValueError("K11-act takes CUDA tensors")
+    n, F = obs.shape
+    _want(obs, "obs", torch.float32, (n, F), dev)
+    width = F + (2 if alpha is not None else 0)
+    if alpha is not None:
+        _want(alpha, "alpha", torch.float32, (n,), dev)
+        _want(gamma, "gamma", torch.float32, (n,), dev)
+    from cpr_tpu_torch.train.ppo import NetPolicy
+    pol = NetPolicy(net, greedy=k_act is None, key=k_act)
+    na, _, _, _, _keep = _net_args(pol, n, 0, width, dev, 24, False)
+    A = net.n_actions
+    f32 = dict(dtype=torch.float32, device=dev)
+    logits = torch.empty((n, A), **f32)
+    value = torch.empty((n,), **f32)
+    action = torch.empty((n,), dtype=torch.int32, device=dev)
+    logp = torch.empty((n,), **f32)
+    out = (_p * 4)(logits.data_ptr(), value.data_ptr(), action.data_ptr(),
+                   logp.data_ptr())
+    lib = _load()["actor"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k11_actor_check(
+            ctypes.byref(na), obs.data_ptr(), F,
+            None if alpha is None else alpha.data_ptr(),
+            None if gamma is None else gamma.data_ptr(), n, int(warp), out,
+            _stream(dev))
+    _check(rc, lib, "cpr_k11_act_error_string", "K11-act check")
+    launches["K11-act"] += 1
+    return logits, value, action, logp
+
+
+def gae(reward, value, done, last_value, gamma: float, lam: float):
+    """K11-gae: the reverse GAE scan over reward/value [T, N] float32,
+    done [T, N] bool, last_value [N]. Returns (adv, target) [T, N]."""
+    dev = reward.device
+    if dev.type != "cuda":
+        raise ValueError("K11-gae takes CUDA tensors")
+    T, N = reward.shape
+    for name, t, dt in (("reward", reward, torch.float32),
+                        ("value", value, torch.float32),
+                        ("done", done, torch.bool)):
+        _want(t, name, dt, (T, N), dev, align=1 if dt == torch.bool else 4)
+    _want(last_value, "last_value", torch.float32, (N,), dev)
+    adv = torch.empty((T, N), dtype=torch.float32, device=dev)
+    target = torch.empty((T, N), dtype=torch.float32, device=dev)
+    lib = _load()["gae"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k11_gae(reward.data_ptr(), value.data_ptr(),
+                             done.data_ptr(), last_value.data_ptr(), T, N,
+                             float(torch.tensor(gamma, dtype=torch.float32)),
+                             float(torch.tensor(gamma * lam,
+                                                dtype=torch.float32)),
+                             adv.data_ptr(), target.data_ptr(), _stream(dev))
+    _check(rc, lib, "cpr_k11_gae_error_string", "K11-gae")
+    launches["K11-gae"] += 1
+    return adv, target
+
+
+def _loss_inputs(logits, value, action, old_logp, old_value, adv, target):
+    dev = logits.device
+    if dev.type != "cuda":
+        raise ValueError("K11-loss takes CUDA tensors")
+    B, A = logits.shape
+    if not 0 < A <= 24:
+        raise NotImplementedError(f"K11-loss takes at most 24 actions, "
+                                  f"got {A}")
+    _want(logits, "logits", torch.float32, (B, A), dev)
+    _want(action, "action", torch.int32, (B,), dev)
+    for name, t in (("value", value), ("old_logp", old_logp),
+                    ("old_value", old_value), ("adv", adv),
+                    ("target", target)):
+        _want(t, name, torch.float32, (B,), dev)
+    ptrs = (_p * 7)(*(t.data_ptr() for t in (
+        logits, value, action, old_logp, old_value, adv, target)))
+    return dev, B, A, ptrs
+
+
+def ppo_loss_fwd(logits, value, action, old_logp, old_value, adv, target,
+                 clip_eps: float, vf_coef: float, ent_coef: float):
+    """K11-loss forward over a minibatch (CUDA, contiguous): logits
+    [B, A], value, old_logp, old_value, adv, target [B] float32, action
+    [B] int32. Returns (out [5]: total, pg_loss, v_loss, entropy,
+    approx_kl; stats [2]: the advantages' mean and std + 1e-8)."""
+    dev, B, A, ptrs = _loss_inputs(logits, value, action, old_logp,
+                                   old_value, adv, target)
+    out = torch.empty((5,), dtype=torch.float32, device=dev)
+    stats = torch.empty((2,), dtype=torch.float32, device=dev)
+    lib = _load()["loss"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k11_loss_fwd(ptrs, B, A, clip_eps, vf_coef, ent_coef,
+                                  out.data_ptr(), stats.data_ptr(),
+                                  _stream(dev))
+    _check(rc, lib, "cpr_k11_loss_error_string", "K11-loss forward")
+    launches["K11-loss"] += 1
+    return out, stats
+
+
+def ppo_loss_bwd(logits, value, action, old_logp, old_value, adv, target,
+                 stats, g_total, clip_eps: float, vf_coef: float,
+                 ent_coef: float):
+    """K11-loss backward: the forward's inputs and `stats`, the total's
+    incoming gradient `g_total` (a 0-dim or [1] CUDA tensor). Returns
+    (dlogits [B, A], dvalue [B])."""
+    dev, B, A, ptrs = _loss_inputs(logits, value, action, old_logp,
+                                   old_value, adv, target)
+    _want(stats, "stats", torch.float32, (2,), dev)
+    g = g_total.reshape(1).to(torch.float32).contiguous()
+    dlogits = torch.empty((B, A), dtype=torch.float32, device=dev)
+    dvalue = torch.empty((B,), dtype=torch.float32, device=dev)
+    lib = _load()["loss"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k11_loss_bwd(ptrs, B, A, clip_eps, vf_coef, ent_coef,
+                                  stats.data_ptr(), g.data_ptr(),
+                                  dlogits.data_ptr(), dvalue.data_ptr(),
+                                  _stream(dev))
+    _check(rc, lib, "cpr_k11_loss_error_string", "K11-loss backward")
+    launches["K11-loss"] += 1
+    return dlogits, dvalue
+
+
+def adam(flat, grad, mu, nu, *, neg_lr, bc1, bc2, b1, b2, omb1, omb2, eps,
+         max_norm):
+    """K11-adam: one clipped Adam step over the flat vector (CUDA
+    float32 [n]); `flat`, `mu` and `nu` are updated in place. The
+    scalars are `optim.ClipAdam.scalars`'. Returns the gradient's global
+    norm [1]."""
+    dev = flat.device
+    if dev.type != "cuda":
+        raise ValueError("K11-adam takes CUDA tensors")
+    n = flat.shape[0]
+    for name, t in (("flat", flat), ("grad", grad), ("mu", mu), ("nu", nu)):
+        _want(t, name, torch.float32, (n,), dev)
+    norm = torch.empty((1,), dtype=torch.float32, device=dev)
+    lib = _load()["adam"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k11_adam(flat.data_ptr(), grad.data_ptr(),
+                              mu.data_ptr(), nu.data_ptr(), n, neg_lr, bc1,
+                              bc2, b1, b2, omb1, omb2, eps, max_norm,
+                              norm.data_ptr(), _stream(dev))
+    _check(rc, lib, "cpr_k11_adam_error_string", "K11-adam")
+    launches["K11-adam"] += 1
+    return norm

@@ -14,6 +14,7 @@ reference runs with:
     exponential(k)   = -log1p(-uniform(k))
     gumbel(k)        = -log(-log(uniform(k, tiny, 1)))   (mode "low")
     categorical(k, logits) = argmax(gumbel(k, noise shape) + logits)
+    permutation(k, n) = rounds of a stable sort of arange(n) by bits
 
 A key is a tensor `[..., 2]` of 32-bit words, stored as int32 bit
 patterns because torch's uint32 has few operations; a leading batch of
@@ -197,6 +198,25 @@ def categorical(key: torch.Tensor, logits: torch.Tensor, axis: int = -1,
     shape = tuple(shape)
     noise = gumbel(key, (*shape, logits.shape[0]))
     return torch.argmax(noise + logits, dim=-1)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.permutation(key, n)` for an int `n`: jax 0.9.0's
+    `_shuffle` (jax/_src/random.py:697-728), rounds of a stable sort of
+    `arange(n)` keyed by fresh 32-bit bits, `ceil(3 ln n / ln(2**32 - 1))`
+    rounds; each round splits the key and draws the bits from the second
+    half. The sort is `torch.sort(stable=True)` on the bits as unsigned
+    values; the bits are K1's on a CUDA key. Returns int64 indices."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(M32)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        pair = split(key)
+        key, sub = pair[0], pair[1]
+        sort_keys = bits(sub, (n,)).to(torch.int64) & M32
+        order = torch.sort(sort_keys, stable=True).indices
+        x = x[order]
+    return x
 
 
 def exponential(key: torch.Tensor, shape=()) -> torch.Tensor:

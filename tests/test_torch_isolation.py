@@ -1,8 +1,10 @@
 """The port stands alone: no module of `cpr_tpu_torch`, and not
-`chip_smoke.py`, imports jax, flax or cpr_tpu; gymnasium is imported only
-under `cpr_tpu_torch/gym/`; the package imports with those modules
-blocked; entry points refuse to run without a device; the kernel
-wrappers refuse CPU tensors."""
+`chip_smoke.py`, imports jax, flax, optax, pydantic, msgpack or cpr_tpu;
+yaml only inside `train.config.TrainConfig.from_yaml`; gymnasium only
+under `cpr_tpu_torch/gym/`; the package imports and trains with those
+modules blocked; `cpr_tpu.train` and `cpr_tpu_torch.train` resolve to
+their own packages; entry points refuse to run without a device; the
+kernel wrappers refuse CPU tensors."""
 
 import ast
 import os
@@ -22,13 +24,14 @@ from cpr_tpu_torch.params import make_params
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "cpr_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "cpr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pydantic", "msgpack",
+             "cpr_tpu")
 PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-def imported_roots(path: Path):
+def imported_roots(path: Path, top_level_only: bool = False):
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
+    for node in (tree.body if top_level_only else ast.walk(tree)):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield alias.name.split(".")[0]
@@ -47,7 +50,8 @@ def test_no_forbidden_imports(path):
 
 BLOCKED_IMPORT = """
 import sys
-for name in ("jax", "jaxlib", "flax", "gymnasium", "cpr_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "pydantic", "yaml", "msgpack",
+             "gymnasium", "cpr_tpu"):
     sys.modules[name] = None  # any import of them now raises ImportError
 import importlib
 for mod in ("cpr_tpu_torch", "cpr_tpu_torch.envs", "cpr_tpu_torch.envs.nakamoto",
@@ -56,8 +60,20 @@ for mod in ("cpr_tpu_torch", "cpr_tpu_torch.envs", "cpr_tpu_torch.envs.nakamoto"
             "cpr_tpu_torch.envs.bk", "cpr_tpu_torch.envs.ethereum",
             "cpr_tpu_torch.envs.quorum", "cpr_tpu_torch.envs.tailstorm",
             "cpr_tpu_torch.envs.stree", "cpr_tpu_torch.envs.tailstorm_june",
-            "chip_smoke"):
+            "cpr_tpu_torch.envs.assumption", "cpr_tpu_torch.learn.buffer",
+            "cpr_tpu_torch.train.ppo", "cpr_tpu_torch.train.optim",
+            "cpr_tpu_torch.train.config", "cpr_tpu_torch.train.driver",
+            "cpr_tpu_torch.train.serialization", "chip_smoke"):
     importlib.import_module(mod)
+from cpr_tpu_torch.train import config, driver
+cfg = config.TrainConfig.from_dict(dict(
+    protocol="nakamoto", alpha=dict(min=0.2, max=0.4), episode_len=8,
+    n_envs=8, ppo=dict(n_steps=8, n_minibatches=2, update_epochs=1,
+                       layer_size=8),
+    eval=dict(freq=1, start_at_iteration=0, episodes_per_alpha=2)))
+net, history, rows = driver.train_from_config(cfg, n_updates=1,
+                                              device="cpu")
+assert len(history) == 1 and rows
 from cpr_tpu_torch import envs, random
 from cpr_tpu_torch.params import make_params
 env = envs.get("nakamoto")
@@ -358,4 +374,64 @@ def test_grid_and_rtdp_kernel_wrappers_refuse_cpu_tensors():
                              E.start_cdf(tm), graph=True, max_steps=1,
                              batch=1, cap=1, eps=0.5, restart_p=0.5,
                              discount=1.0, stop_delta=0.0, decay=0.5)
+    assert kernels.launches == before
+
+
+TRAIN_FILES = sorted((PKG / "train").glob("*.py")) + sorted(
+    (PKG / "learn").glob("*.py")) + [PKG / "envs" / "assumption.py"]
+
+
+@pytest.mark.parametrize("path", TRAIN_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in TRAIN_FILES])
+def test_train_modules_import_no_yaml_at_import_time(path):
+    """yaml may be imported where `from_yaml` runs, never when a module
+    is imported (the card's machine has none)."""
+    assert "yaml" not in set(imported_roots(path, top_level_only=True))
+    nested = set(imported_roots(path)) - set(
+        imported_roots(path, top_level_only=True))
+    assert "yaml" not in nested or path.name == "config.py", path
+
+
+def test_train_packages_resolve_to_their_own():
+    """In one process that imports both, each package's train modules
+    are its own: the reference's ActorCritic is flax's, the port's
+    torch's, and neither reaches into the other."""
+    import inspect
+
+    import cpr_tpu.train.ppo as jppo
+    import cpr_tpu_torch.train.ppo as tppo
+    import cpr_tpu_torch.train.driver as tdriver
+    def where(cls):
+        return Path(inspect.getfile(cls)).resolve()
+
+    assert where(tppo.ActorCritic).is_relative_to(PKG)
+    assert not where(jppo.ActorCritic).is_relative_to(PKG)
+    assert issubclass(tppo.ActorCritic, torch.nn.Module)
+    assert not issubclass(jppo.ActorCritic, torch.nn.Module)
+    assert tdriver.ActorCritic is tppo.ActorCritic
+    for mod in (tppo, tdriver):
+        for name, obj in vars(mod).items():
+            origin = getattr(obj, "__module__", None) or ""
+            assert not origin.startswith("cpr_tpu.") and origin != "cpr_tpu", \
+                (mod.__name__, name, origin)
+
+
+def test_k11_wrappers_refuse_cpu_tensors():
+    from cpr_tpu_torch.train.ppo import ActorCritic
+    net = ActorCritic(4, 4, (8, 8), device="cpu")
+    before = dict(kernels.launches)
+    x = torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.actor_check(net, torch.zeros((4, 4)), warp=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.gae(x[None], x[None], x[None].bool(), x, 0.99, 0.95)
+    loss_in = (torch.zeros((4, 2)), x, x.int(), x, x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.ppo_loss_fwd(*loss_in, 0.2, 0.5, 0.01)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.ppo_loss_bwd(*loss_in, torch.zeros(2), torch.ones(()), 0.2,
+                             0.5, 0.01)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.adam(x, x, x, x, neg_lr=-1e-3, bc1=0.1, bc2=0.001, b1=0.9,
+                     b2=0.999, omb1=0.1, omb2=0.001, eps=1e-5, max_norm=0.5)
     assert kernels.launches == before

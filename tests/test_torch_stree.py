@@ -174,7 +174,7 @@ def test_registry_keys():
     for key in ("stree-8-constant-heuristic", "tailstormjune-8-block"):
         assert tregistry.describe(key) == jregistry.describe(key)
     for key in ("spar-8-constant", "sdag-8-constant-heuristic"):
-        with pytest.raises(KeyError, match="slice 6"):
+        with pytest.raises(KeyError, match="item 8d: "):
             tregistry.get(key)
 
 
