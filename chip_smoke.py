@@ -190,9 +190,59 @@ Phases, one line each; any failure raises and the exit code is not 0:
      net against the heuristic per 128-step launch; GAE; the loss head
      forward + backward; the Adam step against torch.optim.Adam(fused=
      True)), the plain versions' times and the bounds.
+ 34. K1's float64 modes (the netsim's clocks: uniform and exponential
+     from the 64-bit bits) against the plain version on the card and the
+     committed JAX fixture (tests/fixtures/torch_port_netsim_golden.npz);
+ 35. K12-scan against its plain version at the netsim path's shape (96
+     lanes x 10000 activations on the bench clique), and at 96 x 2000 on
+     a 5-node clique with exponential link delays (lookback 32 and 40),
+     and against the fixture's scan cases; the plain runs' smallest
+     decision margins printed;
+ 36. the netsim path (bench.py:312-350 `measure_netsim`, the netsim_sweep
+     config): the 10-node clique, activation delay 30, propagation 1.0,
+     96 lanes x 10000 activations through `netsim.Engine.run`, one warm
+     and 3 timed calls with its own launch counts (K12-scan only: the
+     lane keys are made from the seeds on the host, K1's float64 draws
+     run inside the kernel as device functions), the mean orphan rate
+     inside NET_ORPHAN_GUARD and no capacity drop; then the sweep shape,
+     8190 lanes (the JAX package's honest-network delays 30-600 x 1638
+     seeds), its launches counted with the path's, its orphan rate
+     falling with the delay, and every lane held to the plain version;
+ 37. K12-event against its plain version at the event path's shape (the
+     bench clique, 96 lanes x 10000, the path's capacities), and with
+     flooding on random_regular(13, 4) with exponential delays, 16 lanes
+     x 60, and the fixture's event cases; then the event engine at the
+     netsim path's shape (`mode="event"`, K12-event only), its orphan
+     rate within NET_EVENT_GAP of the scan path's, no drop;
+ 38. K13 against its plain version at the attack path's shape (clique-4,
+     64 lanes x 1500, its alphas, policies and ATK_QUEUE_CAP queue), and
+     every scripted policy at alpha 0.3 and 0.45, 16 lanes x 300 at the
+     default queue, and the fixture's attack cases;
+ 39. the attack path (bench.py:477-541 `measure_attack_sweep`): clique-4,
+     activation delay 30, propagation 1.0, 64 lanes x 1500 activations
+     over alpha (0.15, 0.25, 0.33, 0.45) x {honest, SM1}, one warm and 3
+     timed calls through `AttackEngine.run` (K13 only), the honest
+     attacker's relative revenue at alpha 0.33 inside ATK_GUARD, no drop
+     at a queue of ATK_QUEUE_CAP entries (the JAX package's default of
+     256 overflows at alpha 0.45 under SM1, in both packages: the drops
+     at that size are printed); then 4096 lanes x 2000, its launches
+     counted with the path's, every lane held to the plain version;
+ 40. K12-scan, K12-event and K13 device times at the paths' bench
+     shapes, the shapes of the plain replays in 35, 37 and 38 whose times
+     are the rows' plain times, with the L2 scrubbed (by CUDA events
+     around each wrapper call, its small host-to-device copies
+     included); the bounds (the threefry work this run's draws need and
+     the lanes' inputs and outputs).
 Then the kernels line (JSON: launches summed over the main paths, the
 error of the main-shape comparison, the times and the bound) and the
 last line {"ok": true, "device": {...}}.
+
+Netsim tolerances (phases 34-40): integer outputs equal; float64 times
+within NET_TIME_RTOL relative of the JAX fixture (the mint times are a
+running sum that XLA:CPU adds in another order, and log1p may differ by
+an ULP) and equal to the plain versions'. The plain event and attack
+versions replay their steps as CUDA graphs of 64 steps on the card
+(`EventLedger.run`).
 
 Tolerances: integer state, keys, actions, done and integer-valued
 rewards (the DAG envs' dyadic rewards too) bit-identical; time fields rtol 1e-5 (log1pf differs from the
@@ -382,6 +432,32 @@ LOSS_BATCH, ADAM_STEPS = PPO_LANES * PPO_STEPS // 4, 16
 # the Tailstorm config's ring against full mode: steps from a raw reset
 # (a whole 128-step episode on every lane) and lanes replayed in full mode
 CONFIG_RING_STEPS, CONFIG_FULL_LANES = 160, 64
+# The netsim slice (K12-scan, K12-event, K13): bench.py's netsim_sweep
+# (bench.py:312-350) and attack_sweep (:477-541) shapes and guards, the
+# sweep widths and the fixture. The netsim sweep runs the activation
+# delays of the JAX package's honest-network sweep
+# (cpr_tpu/experiments/honest_net.py:43, DEFAULT_ACTIVATION_DELAYS),
+# 1638 seeds each (8190 lanes). Every kernel is held to its plain version
+# at its paths' shapes; the cases the paths do not run (random link
+# delays, a lookback over 32, flooding, every scripted policy) are held
+# at the shorter NET_EXTRA_ACTS, NET_FLOOD_* and ATK_EXTRA_*.
+NETSIM_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_netsim_golden.npz"
+NET_NODES, NET_ACT_DELAY, NET_PROP = 10, 30.0, 1.0
+NET_LANES, NET_ACTS, NET_ORPHAN_GUARD = 96, 10000, (0.01, 0.06)
+NET_SWEEP_DELAYS = (30.0, 60.0, 120.0, 300.0, 600.0)
+NET_SWEEP_SEEDS = 1638
+NET_EXTRA_ACTS, NET_FLOOD_LANES, NET_FLOOD_ACTS = 2000, 16, 60
+NET_EVENT_GAP, NET_TIME_RTOL = 0.02, 1e-9
+ATK_NODES, ATK_LANES, ATK_ACTS, ATK_GUARD = 4, 64, 1500, (0.28, 0.39)
+ATK_ALPHAS = (0.15, 0.25, 0.33, 0.45)
+ATK_POLICIES = ("honest", "sapirshtein-2016-sm1")
+ATK_SWEEP_LANES, ATK_SWEEP_ACTS = 4096, 2000
+# a release puts 3 entries a withheld block into clique-4's queue; at
+# alpha 0.45 SM1 withholds chains of over 100 blocks (351 entries at once
+# in the JAX package's run of seed 7, 1500 activations), beyond its
+# default max(256, 32 N) = 256
+ATK_QUEUE_CAP = 2048
+ATK_EXTRA_ACTS, ATK_EXTRA_LANES = 300, 16
 
 
 def say(phase, **kw):
@@ -2974,6 +3050,478 @@ def phase_k11_times(dev, report, bench_carry):
         net_in_stream_ms=stream_net - stream_plain)
 
 
+# -- the netsim slice: K1's float64 modes, K12-scan, K12-event, K13 ---------
+
+def netsim_fixture_net(nfx, name):
+    """A fixture case's compiled topology (its planes as stored)."""
+    from cpr_tpu_torch.netsim.compile import CompiledNet
+    g = lambda f: nfx[f"{name}_net_{f}"]  # noqa: E731
+    return CompiledNet(n=int(g("n")), compute=g("compute"), kind=g("kind"),
+                       p0=g("p0"), p1=g("p1"),
+                       activation_delay=float(g("activation_delay")),
+                       flooding=bool(g("flooding")))
+
+
+def netsim_fixture_cases(nfx, mode):
+    return sorted(k[:-len("_mode")] for k in nfx
+                  if k.endswith("_mode") and str(nfx[k]) == mode)
+
+
+def netsim_fixture_run(nfx, name, dev):
+    """A fixture case through the kernels (Engine/AttackEngine.lanes)."""
+    from cpr_tpu_torch import netsim
+    from cpr_tpu_torch.netsim import engine as E
+    cn = netsim_fixture_net(nfx, name)
+    A = int(nfx[f"{name}_A"])
+    keys = E.lane_keys(nfx[f"{name}_seeds"].tolist(), dev)
+    dl = torch.as_tensor(nfx[f"{name}_delays"], dtype=torch.float64,
+                         device=dev)
+    mode = str(nfx[f"{name}_mode"])
+    if mode == "attack":
+        eng = netsim.AttackEngine(
+            cn, activations=A, device=dev,
+            policies=tuple(str(p) for p in nfx["attack_policies"]))
+        out = eng.lanes(keys, dl, torch.as_tensor(nfx[f"{name}_alphas"],
+                                                  device=dev),
+                        torch.as_tensor(nfx[f"{name}_pids"], device=dev))
+    else:
+        out = netsim.Engine(cn, activations=A, mode=mode,
+                            device=dev).lanes(keys, dl)
+    return E.finish(out)
+
+
+def compare_netsim(got: dict, want: dict, what, rtol=0.0):
+    """Every key of `want` but the margin: integers equal, float64 times
+    within rtol (0: equal). Returns the largest absolute time error."""
+    err = 0.0
+    for k, w in want.items():
+        if k == "margin":
+            continue
+        g = got[k]
+        g = g.cpu().numpy() if isinstance(g, torch.Tensor) else g
+        w = w.cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        check(g.shape == w.shape, f"{what}: {k} shape {g.shape} vs {w.shape}")
+        if w.dtype == np.float64:
+            check(np.allclose(g, w, rtol=rtol, atol=0),
+                  f"{what}: {k} differs beyond rtol {rtol}")
+            err = max(err, float(np.abs(g - w).max()))
+        else:
+            check(np.array_equal(g, w.astype(g.dtype)), f"{what}: {k} differs")
+    return err
+
+
+def check_fixture_cases(nfx, mode, dev):
+    for name in netsim_fixture_cases(nfx, mode):
+        got = netsim_fixture_run(nfx, name, dev)
+        want = {k[len(name) + 1:]: nfx[k] for k in nfx
+                if k.startswith(name + "_") and not k.startswith(
+                    (name + "_net_", name + "_seeds", name + "_delays",
+                     name + "_alphas", name + "_pids", name + "_A",
+                     name + "_mode"))}
+        compare_netsim(got, want, f"{name} vs the JAX fixture",
+                       NET_TIME_RTOL)
+        say("netsim_fixture", case=name, lanes=len(nfx[f"{name}_seeds"]),
+            ok=True)
+
+
+def bench_clique(n, prop):
+    from cpr_tpu_torch import netsim, network
+    return netsim.compile_network(network.symmetric_clique(
+        n, activation_delay=NET_ACT_DELAY, propagation_delay=prop))
+
+
+def lane_inputs(seeds, delays, dev):
+    from cpr_tpu_torch.netsim import engine as E
+    return (E.lane_keys(list(seeds), dev),
+            torch.as_tensor(list(delays), dtype=torch.float64, device=dev))
+
+
+def phase_k1_f64(dev, nfx, report):
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.netsim.compile import clamp_uniform
+    key = rnd.PRNGKey(5, dev, x64=True)
+    n = 1 << 20
+    u = rnd.uniform(key, (n,), dtype=torch.float64)
+    check(torch.equal(u, rnd.threefry_plain(key, n, 0, rnd.MODE_UNIFORM64)),
+          "K1 float64 uniform differs from plain")
+    e = rnd.exponential(key, (n,), dtype=torch.float64)
+    e_plain = rnd.threefry_plain(key, n, 0, rnd.MODE_EXPONENTIAL64)
+    rel = float(((e - e_plain).abs() / e_plain.abs().clamp(min=1e-300)).max())
+    check(rel <= 1e-15, f"K1 float64 exponential {rel} from plain")
+    for i, s in enumerate(nfx["k1_seeds"].tolist()):
+        k = rnd.PRNGKey(s, dev, x64=True)
+        u = rnd.uniform(k, (nfx["k1_uniform"].shape[1],), dtype=torch.float64)
+        check(np.array_equal(u.cpu().numpy(), nfx["k1_uniform"][i]),
+              f"K1 float64 uniform of seed {s} differs from jax")
+        check(np.array_equal(clamp_uniform(u).cpu().numpy(),
+                             nfx["k1_clamped"][i]),
+              f"K1 clamped uniform of seed {s} differs from jax")
+        e = rnd.exponential(k, (u.shape[0],), dtype=torch.float64)
+        check(np.allclose(e.cpu().numpy(), nfx["k1_exponential"][i],
+                          rtol=1e-13, atol=0),
+              f"K1 float64 exponential of seed {s} differs from jax")
+    say("k1_f64", draws=n, exp_rel_vs_plain=rel,
+        fixture_keys=len(nfx["k1_seeds"]), ok=True)
+
+
+def plain_timed(fn):
+    """fn() (a plain replay) and its seconds to a sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def lane_slice(out: dict, n: int) -> dict:
+    """The first n lanes of every output."""
+    return {k: v[:n] for k, v in out.items()}
+
+
+def phase_k12_scan(dev, nfx, report):
+    """K12-scan at the netsim path's shape (the bench clique, NET_LANES x
+    NET_ACTS: the row's plain time and error) and on a 5-node clique with
+    exponential link delays at lookback 32 and 40 (branches the path does
+    not run; NET_EXTRA_ACTS), each against its plain version; then the
+    JAX fixture's scan cases."""
+    from cpr_tpu_torch import distributions as D
+    from cpr_tpu_torch import kernels, netsim, network
+    from cpr_tpu_torch.netsim import engine as E
+    exp_net = network.symmetric_clique(5, activation_delay=25.0,
+                                       propagation_delay=1.0)
+    for nd in exp_net.nodes:
+        for ln in nd.links:
+            ln.delay = D.exponential(2.0)
+    exp_cn = netsim.compile_network(exp_net)
+    margins, secs = {}, {}
+    for what, cn, L, acts in (
+            ("clique10", bench_clique(NET_NODES, NET_PROP), 32, NET_ACTS),
+            ("exp5", exp_cn, 32, NET_EXTRA_ACTS),
+            ("exp5_lookback40", exp_cn, 40, NET_EXTRA_ACTS)):
+        keys, dl = lane_inputs(range(NET_LANES), [NET_ACT_DELAY] * NET_LANES,
+                               dev)
+        got = kernels.netsim_scan(cn, acts, L, keys, dl)
+        want, secs[what] = plain_timed(
+            lambda: E.scan_plain(cn, acts, L, keys, dl))
+        margins[what] = float(want["margin"].min())
+        err = compare_netsim(got, want, f"K12-scan {what} vs plain")
+        if what == "clique10":
+            report["K12-scan"]["plain_ms"] = secs[what] * 1e3
+            report["K12-scan"]["max_abs_err"] = err
+    check_fixture_cases(nfx, "scan", dev)
+    say("k12_scan", lanes=NET_LANES, activations=NET_ACTS,
+        max_abs_err=report["K12-scan"]["max_abs_err"],
+        margin=json.dumps(margins), plain_s=json.dumps(secs), ok=True)
+
+
+def orphan_rate(out, acts):
+    return float(np.mean(1.0 - out["progress"] / float(acts)))
+
+
+def drops(out):
+    return int(sum(int(np.sum(out[k])) for k in ("drop_q", "drop_p",
+                                                  "drop_b", "win_miss")))
+
+
+def phase_netsim_path(dev, report):
+    """The netsim path at bench.py's shape through Engine.run, its own
+    launch counts; then the sweep shape, held to the plain version on all
+    its lanes."""
+    from cpr_tpu_torch import kernels, netsim, network
+    from cpr_tpu_torch.netsim import engine as E
+    net = network.symmetric_clique(NET_NODES, activation_delay=NET_ACT_DELAY,
+                                   propagation_delay=NET_PROP)
+    eng = netsim.Engine(net, protocol="nakamoto", activations=NET_ACTS)
+    check(eng.mode == "scan", "the bench clique runs the scan path")
+    seeds, delays = list(range(NET_LANES)), [NET_ACT_DELAY] * NET_LANES
+    kernels.reset_launches()
+    out = eng.run(seeds, delays)
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = eng.run(seeds, delays)
+        secs.append(time.perf_counter() - t0)
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K12-scan",), "netsim")
+    orphan = orphan_rate(out, NET_ACTS)
+    check(NET_ORPHAN_GUARD[0] < orphan < NET_ORPHAN_GUARD[1],
+          f"netsim orphan rate {orphan} outside {NET_ORPHAN_GUARD}")
+    check(drops(out) == 0 and not out["exhausted"].any(),
+          "netsim path dropped or exhausted")
+    check(np.all(out["node_act"].sum(1) == NET_ACTS), "activations lost")
+    check(np.allclose(out["reward"].sum(1), out["progress"]),
+          "rewards do not sum to the chain")
+    check(np.all(np.isfinite(out["sim_time"])), "non-finite sim_time")
+    say("netsim", lanes=NET_LANES, activations=NET_ACTS, orphan=orphan,
+        activations_per_s=NET_LANES * NET_ACTS / min(secs), call_s=secs,
+        launches=json.dumps(counts))
+
+    ss, dd = netsim.grid(range(NET_SWEEP_SEEDS), NET_SWEEP_DELAYS)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sweep = eng.run(ss, dd)
+    sweep_s = time.perf_counter() - t0
+    path_launches(dict(kernels.launches), ("K12-scan",), "netsim sweep")
+    counts["K12-scan"] += kernels.launches["K12-scan"]
+    check(drops(sweep) == 0 and not sweep["exhausted"].any(),
+          "netsim sweep dropped or exhausted")
+    by_delay = (1.0 - sweep["progress"] / NET_ACTS).reshape(
+        len(NET_SWEEP_DELAYS), NET_SWEEP_SEEDS).mean(1)
+    check(np.all(np.diff(by_delay) < 0),
+          f"sweep orphan rates not falling with the delay: {by_delay}")
+    keys, dl = lane_inputs(ss, dd, dev)
+    want, plain_s = plain_timed(
+        lambda: E.scan_plain(eng.net, NET_ACTS, eng.lookback, keys, dl))
+    err = compare_netsim(sweep, want, "the netsim sweep vs plain")
+    margin = float(want["margin"].min())
+    del want
+    say("netsim_sweep", lanes=len(ss), activations=NET_ACTS,
+        delays=json.dumps(NET_SWEEP_DELAYS), call_s=sweep_s,
+        activations_per_s=len(ss) * NET_ACTS / sweep_s,
+        orphan_by_delay=json.dumps([round(float(x), 6) for x in by_delay]),
+        plain_s=plain_s, max_abs_err=err, margin=margin, ok=True)
+    return counts, orphan
+
+
+def phase_k12_event(dev, nfx, report):
+    """K12-event against its plain version at the event path's shape
+    (the bench clique, NET_LANES x NET_ACTS, the path's sizing: the row's
+    plain time and error) and with flooding on random_regular(13, 4)
+    with exponential delays (the path runs no flooding; NET_FLOOD_LANES x
+    NET_FLOOD_ACTS); then the JAX fixture's event cases."""
+    from cpr_tpu_torch import distributions as D
+    from cpr_tpu_torch import kernels, netsim, network
+    from cpr_tpu_torch.netsim import engine as E
+    flood = netsim.compile_network(network.random_regular(
+        13, 4, activation_delay=NET_ACT_DELAY, delay=D.exponential(2.0),
+        seed=1))
+    margins, secs = {}, {}
+    for what, cn, lanes, acts in (
+            ("clique10", bench_clique(NET_NODES, NET_PROP), NET_LANES,
+             NET_ACTS),
+            ("flood13", flood, NET_FLOOD_LANES, NET_FLOOD_ACTS)):
+        eng = netsim.Engine(cn, activations=acts, mode="event")
+        keys, dl = lane_inputs(range(lanes), [NET_ACT_DELAY] * lanes, dev)
+        got = kernels.netsim_event(cn, acts, eng.B, eng.M, eng.F, eng.S,
+                                   keys, dl)
+        want, secs[what] = plain_timed(lambda: E.event_plain(
+            cn, acts, eng.B, eng.M, eng.F, eng.S, keys, dl))
+        margins[what] = float(want["margin"].min())
+        err = compare_netsim(got, want, f"K12-event {what} vs plain")
+        if what == "clique10":
+            report["K12-event"]["plain_ms"] = secs[what] * 1e3
+            report["K12-event"]["max_abs_err"] = err
+    check_fixture_cases(nfx, "event", dev)
+    say("k12_event", lanes=NET_LANES, activations=NET_ACTS,
+        max_abs_err=report["K12-event"]["max_abs_err"],
+        margin=json.dumps(margins), plain_s=json.dumps(secs), ok=True)
+
+
+def phase_k12_event_path(dev, report, scan_orphan):
+    """The event engine at the netsim path's shape, its own launch
+    counts, its orphan rate against the scan path's."""
+    from cpr_tpu_torch import kernels, netsim
+    eng = netsim.Engine(bench_clique(NET_NODES, NET_PROP),
+                        activations=NET_ACTS, mode="event")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.run(range(NET_LANES), [NET_ACT_DELAY] * NET_LANES)
+    call_s = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K12-event",), "netsim event")
+    orphan = orphan_rate(out, NET_ACTS)
+    check(abs(orphan - scan_orphan) < NET_EVENT_GAP,
+          f"event orphan rate {orphan} vs scan {scan_orphan}")
+    check(drops(out) == 0 and not out["exhausted"].any(),
+          "netsim event path dropped or exhausted")
+    check(np.all(out["node_act"].sum(1) == NET_ACTS), "activations lost")
+    say("netsim_event", lanes=NET_LANES, activations=NET_ACTS, orphan=orphan,
+        scan_orphan=scan_orphan, call_s=call_s,
+        steps_max=int(out["steps"].max()), launches=json.dumps(counts))
+    return counts, int(out["steps"].sum())
+
+
+def attack_lanes(n):
+    """bench.py's lane grid: alpha-major over ATK_ALPHAS x policies,
+    cycled to n lanes."""
+    grid = [(a, p) for a in ATK_ALPHAS for p in range(len(ATK_POLICIES))]
+    lanes = [grid[i % len(grid)] for i in range(n)]
+    return ([a for a, _ in lanes], [p for _, p in lanes], lanes)
+
+
+def relative_revenue(out):
+    atk = np.asarray(out["reward_attacker"], np.float64)
+    dfn = np.asarray(out["reward_defender"], np.float64)
+    return atk / np.maximum(atk + dfn, 1e-9)
+
+
+def attack_engine(acts, policies=ATK_POLICIES, queue_cap=ATK_QUEUE_CAP):
+    """An AttackEngine on the bench's clique-4 (bench.py:477-541)."""
+    from cpr_tpu_torch import netsim
+    return netsim.AttackEngine(bench_clique(ATK_NODES, NET_PROP),
+                               activations=acts, policies=policies,
+                               topology="clique-4", queue_cap=queue_cap)
+
+
+def attack_inputs(eng, n, alphas, pids, dev):
+    keys, dl = lane_inputs(range(n), [NET_ACT_DELAY] * n, dev)
+    return (keys, dl, torch.tensor(alphas, dtype=torch.float32, device=dev),
+            torch.tensor(pids, dtype=torch.int32, device=dev))
+
+
+def attack_plain_run(eng, keys, dl, al, pi):
+    """The plain version of K13 on an engine's sizing and policies."""
+    from cpr_tpu_torch.netsim import attack as AT
+    return AT.attack_plain(eng.net, eng.activations, eng.B, eng.M, eng.F,
+                           eng.S, eng.WA, keys, dl, al, eng._branches(), pi,
+                           eng.strict_match)
+
+
+def phase_k13(dev, nfx, report):
+    """K13 against its plain version at the attack path's shape (clique-4,
+    ATK_LANES x ATK_ACTS, its alphas, policies and queue: the row's plain
+    time and error) and for every scripted policy at alpha 0.3 and 0.45
+    (ATK_EXTRA_LANES x ATK_EXTRA_ACTS, the default queue); then the JAX
+    fixture's attack cases."""
+    from cpr_tpu_torch.netsim import attack as AT
+    al, pi, _ = attack_lanes(ATK_LANES)
+    n = ATK_EXTRA_LANES
+    margins, secs = {}, {}
+    for what, eng, lanes, alphas, pids in (
+            ("path", attack_engine(ATK_ACTS), ATK_LANES, al, pi),
+            ("policies", attack_engine(ATK_EXTRA_ACTS, AT.SCRIPTED_POLICIES,
+                                       None), n,
+             [0.3 if i % 2 else 0.45 for i in range(n)],
+             [i // 2 % 4 for i in range(n)])):
+        args = attack_inputs(eng, lanes, alphas, pids, dev)
+        got = eng.lanes(*args)
+        want, secs[what] = plain_timed(lambda: attack_plain_run(eng, *args))
+        margins[what] = float(want["margin"].min())
+        err = compare_netsim(got, want, f"K13 {what} vs plain")
+        if what == "path":
+            report["K13"]["plain_ms"] = secs[what] * 1e3
+            report["K13"]["max_abs_err"] = err
+    check_fixture_cases(nfx, "attack", dev)
+    say("k13", lanes=ATK_LANES, activations=ATK_ACTS, queue=ATK_QUEUE_CAP,
+        max_abs_err=report["K13"]["max_abs_err"],
+        margin=json.dumps(margins), plain_s=json.dumps(secs), ok=True)
+
+
+def phase_attack_path(dev, report):
+    """The attack path at bench.py's shape through AttackEngine.run, its
+    own launch counts; the default queue's drops; then ATK_SWEEP_LANES x
+    ATK_SWEEP_ACTS, held to the plain version on all its lanes."""
+    from cpr_tpu_torch import kernels
+    al, pi, lanes = attack_lanes(ATK_LANES)
+    seeds, delays = list(range(ATK_LANES)), [NET_ACT_DELAY] * ATK_LANES
+    d_out = attack_engine(ATK_ACTS, queue_cap=None).run(seeds, delays, al, pi)
+    eng = attack_engine(ATK_ACTS)
+    kernels.reset_launches()
+    out = eng.run(seeds, delays, al, pi)
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = eng.run(seeds, delays, al, pi)
+        secs.append(time.perf_counter() - t0)
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K13",), "attack")
+    rel = relative_revenue(out)
+    hon = float(np.mean([rel[i] for i, ln in enumerate(lanes)
+                         if ln == (0.33, 0)]))
+    check(ATK_GUARD[0] < hon < ATK_GUARD[1],
+          f"honest relative revenue at 0.33 {hon} outside {ATK_GUARD}")
+    check(drops(out) == 0 and not out["exhausted"].any(),
+          "attack path dropped or exhausted")
+    check(np.all(out["node_act"].sum(1) == ATK_ACTS), "activations lost")
+    check(np.allclose(out["reward_attacker"] + out["reward_defender"],
+                      out["head_height"]), "rewards do not sum to the chain")
+    sm1 = float(np.mean([rel[i] for i, ln in enumerate(lanes)
+                         if ln == (0.45, 1)]))
+    say("attack", lanes=ATK_LANES, activations=ATK_ACTS, rel_honest_033=hon,
+        rel_sm1_045=sm1, lanes_per_s=ATK_LANES / min(secs), call_s=secs,
+        queue=ATK_QUEUE_CAP, drops_at_default_queue=json.dumps(
+            {k: int(np.sum(d_out[k])) for k in ("drop_q", "drop_p",
+                                                "win_miss")}),
+        launches=json.dumps(counts))
+
+    al, pi, lanes = attack_lanes(ATK_SWEEP_LANES)
+    big = attack_engine(ATK_SWEEP_ACTS)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sweep = big.run(range(ATK_SWEEP_LANES), [NET_ACT_DELAY] * ATK_SWEEP_LANES,
+                    al, pi)
+    sweep_s = time.perf_counter() - t0
+    path_launches(dict(kernels.launches), ("K13",), "attack sweep")
+    counts["K13"] += kernels.launches["K13"]
+    check(drops(sweep) == 0 and not sweep["exhausted"].any(),
+          "attack sweep dropped or exhausted")
+    want, plain_s = plain_timed(lambda: attack_plain_run(
+        big, *attack_inputs(big, ATK_SWEEP_LANES, al, pi, dev)))
+    err = compare_netsim(sweep, want, "the attack sweep vs plain")
+    margin = float(want["margin"].min())
+    del want
+    rel = relative_revenue(sweep)
+    cells = {f"{a}/{ATK_POLICIES[p]}": round(float(np.mean(
+        [rel[i] for i, ln in enumerate(lanes) if ln == (a, p)])), 5)
+        for a in ATK_ALPHAS for p in range(len(ATK_POLICIES))}
+    say("attack_sweep", lanes=ATK_SWEEP_LANES, activations=ATK_SWEEP_ACTS,
+        call_s=sweep_s, lanes_per_s=ATK_SWEEP_LANES / sweep_s,
+        rel_by_cell=json.dumps(cells), plain_s=plain_s, max_abs_err=err,
+        margin=margin, ok=True)
+    return counts, int(out["steps"].sum())
+
+
+def phase_netsim_times(dev, report, event_steps, attack_steps):
+    """K12-scan, K12-event and K13 device times at the paths' bench
+    shapes, the shapes of the plain replays that gave the rows' plain
+    times, L2 scrubbed, by CUDA events around each wrapper call
+    (`event_ms`: the window holds the wrapper's few small host-to-device
+    copies of the topology planes and its output allocations beside a
+    launch of 10-45 ms; the profiler's trace dropped one of three K12-scan
+    launch records in three traces running); bounds from the draws each
+    run needs (threefry blocks: K12-scan the gaps, the Gumbel rows and the
+    key splits; K12-event and K13 a 5- or 4-way split a step, N + 1
+    blocks an activation, 2 at init) and the lanes' inputs and outputs."""
+    from cpr_tpu_torch import kernels, netsim
+    N, L, A = NET_NODES, NET_LANES, NET_ACTS
+    cn = bench_clique(N, NET_PROP)
+    keys, dl = lane_inputs(range(L), [NET_ACT_DELAY] * L, dev)
+    # per lane: key and delay in; nine int32 counters, the exhausted flag,
+    # sim_time and node_act/reward [N] out
+    io_bytes = lambda lanes, n: lanes * (16 + 9 * 4 + 1 + 8 + n * 8)  # noqa
+    sc = report["K12-scan"]
+    sc["ms"] = event_ms(lambda: kernels.netsim_scan(cn, A, 32, keys, dl), 5)
+    sc["bound_ms"], sc["bound_by"] = bound_ms(
+        io_bytes(L, N), L * THREEFRY_OPS * (5 + (A + 1) + A * N))
+    sc["library_ms"] = None
+
+    ev = report["K12-event"]
+    eng = netsim.Engine(cn, activations=A, mode="event")
+    ev["ms"] = event_ms(lambda: kernels.netsim_event(
+        cn, A, eng.B, eng.M, eng.F, eng.S, keys, dl), 5)
+    ev["bound_ms"], ev["bound_by"] = bound_ms(
+        io_bytes(L, N), THREEFRY_OPS * (5 * event_steps + L * A * (N + 1)
+                                        + 2 * L))
+    ev["library_ms"] = None
+
+    at = report["K13"]
+    eng = attack_engine(ATK_ACTS)
+    al, pi, _ = attack_lanes(ATK_LANES)
+    akeys, adl, alt, pit = attack_inputs(eng, ATK_LANES, al, pi, dev)
+    kpid = eng.kernel_policy_ids(pit)
+    at["ms"] = event_ms(lambda: kernels.netsim_attack(
+        eng.net, ATK_ACTS, eng.B, eng.M, eng.F, eng.S, eng.WA, akeys, adl,
+        alt, kpid, True), 5)
+    at["bound_ms"], at["bound_by"] = bound_ms(
+        io_bytes(ATK_LANES, ATK_NODES) + ATK_LANES * 8,
+        THREEFRY_OPS * (4 * attack_steps + ATK_LANES * ATK_ACTS
+                        * (ATK_NODES + 1) + 2 * ATK_LANES))
+    at["library_ms"] = None
+    say("netsim_times", **{k: json.dumps(
+        {f: report[k][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")})
+        for k in ("K12-scan", "K12-event", "K13")})
+
+
 def parametric_capstone():
     """The capstone's structure, compiled once at the probe point with
     its exponent columns; returns (ParamMDP, host seconds)."""
@@ -3030,6 +3578,8 @@ def main() -> int:
         qfx = {k: f[k] for k in f.files}
     with np.load(PPO_FIXTURE) as f:
         pfx = {k: f[k] for k in f.files}
+    with np.load(NETSIM_FIXTURE) as f:
+        nfx = {k: f[k] for k in f.files}
     csrc = "cpr_tpu_torch/csrc"
     report = {
         "K1": dict(name="K1 threefry2x32", route="cuda",
@@ -3106,7 +3656,23 @@ def main() -> int:
         "K11-adam": dict(name="K11-adam clipped Adam step", route="cuda",
                          source=f"{csrc}/adam.cu",
                          replaces="cpr_tpu/train/ppo.py:323"),
+        "K12-scan": dict(name="K12-scan netsim scan path (nakamoto, simple "
+                         f"dissemination; {NET_LANES} lanes x {NET_ACTS} "
+                         "activations)", route="cuda",
+                         source=f"{csrc}/netsim_scan.cu",
+                         replaces="cpr_tpu/netsim/engine.py:716"),
+        "K12-event": dict(name="K12-event netsim event engine (nakamoto; "
+                          f"{NET_LANES} lanes x {NET_ACTS} activations)",
+                          route="cuda",
+                          source=f"{csrc}/netsim_event.cu",
+                          replaces="cpr_tpu/netsim/engine.py:92"),
+        "K13": dict(name=f"K13 attacker in the network ({ATK_LANES} lanes "
+                    f"x {ATK_ACTS} activations, queue {ATK_QUEUE_CAP})",
+                    route="cuda",
+                    source=f"{csrc}/netsim_attack.cu",
+                    replaces="cpr_tpu/netsim/attack.py:81"),
     }
+    netsim_rows = ("K12-scan", "K12-event", "K13")
     phase_k1(dev, fx, report)
     phase_k3(dev, fx)
     phase_k2(dev, fx)
@@ -3142,6 +3708,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=kernels.build_dir()) as tmp:
         config_counts = phase_config_path(dev, report, tmp)
     for k, r in report.items():
+        if k in netsim_rows:
+            continue
         r["launches"] = sum(c[k] for c in (stream_counts, gym_counts,
                                            mdp_counts, grid_counts,
                                            rtdp_counts, bk_counts, bk_gym,
@@ -3159,6 +3727,18 @@ def main() -> int:
     phase_dag_times(dev, report, vote)
     phase_k9_times(dev, report, k9_carries)
     phase_k11_times(dev, report, bench_carry)
+    phase_k1_f64(dev, nfx, report)
+    phase_k12_scan(dev, nfx, report)
+    net_counts, scan_orphan = phase_netsim_path(dev, report)
+    phase_k12_event(dev, nfx, report)
+    event_counts, event_steps = phase_k12_event_path(dev, report,
+                                                     scan_orphan)
+    phase_k13(dev, nfx, report)
+    attack_counts, attack_steps = phase_attack_path(dev, report)
+    for k in netsim_rows:
+        report[k]["launches"] = sum(c[k] for c in (net_counts, event_counts,
+                                                   attack_counts))
+    phase_netsim_times(dev, report, event_steps, attack_steps)
     for k, v in report.items():
         check(v["ms"] >= v["bound_ms"],
               f"{k} measured {v['ms']} ms, below its bound of "
@@ -3167,6 +3747,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    print(card, flush=True)  # again, beside the numbers at the end
     for k in ("K1", "K2", "K3"):
         report[k]["library_ms"] = None  # no PyTorch call computes these
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -3,7 +3,8 @@
 What crosses over is the parameter record, the policy net's weights,
 PRNG keys, the per-lane env states (Nakamoto's scalars; bk's,
 Ethereum's, Tailstorm's and Stree's `Dag` plus scalars, and the latter
-two's `stale` plane) and compiled MDP tables.
+two's `stale` plane), compiled MDP tables and compiled netsim
+topologies.
 Everything passes through numpy with the reference's field names; keys
 are uint32 word pairs there (jax's key data) and int32 bit patterns
 here.
@@ -18,6 +19,7 @@ here.
     tensor_mdp(tm.n_states, tm.n_actions, *(np.asarray(getattr(tm, f))
                for f in ("start", "src", "act", "dst", "prob", "reward",
                          "progress")), device=device)
+    compiled_net(jax_compiled_net) -> netsim.CompiledNet
 """
 
 from __future__ import annotations
@@ -192,3 +194,16 @@ def actor_critic_to_flax(flat: torch.Tensor, obs_dim: int, n_actions: int,
                          f"({obs_dim}, {n_actions}, {tuple(hidden)}) has "
                          f"{off}")
     return {"params": dict(sorted(layers.items()))}
+
+
+def compiled_net(cn):
+    """The port's `netsim.CompiledNet` from the JAX package's (or any
+    object with its fields): the same numpy planes, so both engines run
+    one topology."""
+    from cpr_tpu_torch.netsim.compile import CompiledNet
+    return CompiledNet(
+        n=int(cn.n), compute=np.asarray(cn.compute, np.float32),
+        kind=np.asarray(cn.kind, np.int32), p0=np.asarray(cn.p0, np.float64),
+        p1=np.asarray(cn.p1, np.float64),
+        activation_delay=float(cn.activation_delay),
+        flooding=bool(cn.flooding))

@@ -44,6 +44,7 @@
 
 #include "actor.cuh"
 #include "lane_params.cuh"
+#include "nakamoto_policy.cuh"
 #include "threefry.cuh"
 
 // The argument structs of the extern "C" entry points (laid out like the
@@ -102,8 +103,12 @@ using cpr::TrajPtrs;
 
 namespace {
 
-constexpr int kAdopt = 0, kOverride = 1, kMatch = 2, kWait = 3;
-constexpr int kEvPow = 0, kEvNetwork = 1;
+using cpr::kAdopt;
+using cpr::kEvNetwork;
+using cpr::kEvPow;
+using cpr::kMatch;
+using cpr::kOverride;
+using cpr::policy;
 constexpr int kInfo = 12;     // INFO_KEYS, in order
 constexpr int kEpisode = 7;   // info[5..11]: the episode_* keys
 constexpr int kThreads = 128;
@@ -301,28 +306,6 @@ __device__ __forceinline__ void put_obs(float* row, float4 o, bool ext,
   row[3] = o.w;
   row[4] = p.alpha;
   row[5] = p.gamma;
-}
-
-// nakamoto.py:247-289, on the integer fork state.
-__device__ __forceinline__ int policy(int id, int32_t a, int32_t h) {
-  switch (id) {
-    case 0:  // honest
-      return a > h ? kOverride : (a < h ? kAdopt : kWait);
-    case 1:  // simple
-      return h > 0 ? (a < h ? kAdopt : kOverride) : kWait;
-    case 2:  // eyal-sirer-2014
-      if (a < h) return kAdopt;
-      if (h == 0 && a == 1) return kWait;
-      if (h == 1 && a == 1) return kMatch;
-      if (h == 1 && a == 2) return kOverride;
-      if (h > 0) return a - h == 1 ? kOverride : kMatch;
-      return kWait;
-    default:  // sapirshtein-2016-sm1
-      if (h > a) return kAdopt;
-      if (h == 1 && a == 1) return kMatch;
-      if (h == a - 1 && h >= 1) return kOverride;
-      return kWait;
-  }
 }
 
 // K2: `length` auto-resetting steps per lane under a scripted policy

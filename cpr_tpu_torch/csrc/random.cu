@@ -1,5 +1,7 @@
 // Kernel K1: batched threefry2x32 — key split/fold_in and uniform,
-// exponential or raw bits, the `jax.random` stream bit for bit.
+// exponential or raw bits, the `jax.random` stream bit for bit; float64
+// uniform and exponential draws from the 64-bit bits, as the JAX package
+// draws them in 64-bit mode (the netsim's clocks).
 //
 // Replaces: jax.random.split / fold_in / bits / uniform / exponential as
 // XLA lowers them for cpr_tpu (bench.py:138 `split(PRNGKey(0), n)`,
@@ -20,7 +22,10 @@
 
 namespace {
 
-enum Mode { kKeys = 0, kBits = 1, kUniform = 2, kExponential = 3 };
+enum Mode {
+  kKeys = 0, kBits = 1, kUniform = 2, kExponential = 3, kUniform64 = 4,
+  kExponential64 = 5
+};
 
 __global__ void threefry_kernel(const uint2* __restrict__ keys,
                                 int64_t total, int64_t n, uint32_t offset,
@@ -41,8 +46,14 @@ __global__ void threefry_kernel(const uint2* __restrict__ keys,
       case kUniform:
         static_cast<float*>(out)[t] = cpr::uniform_of_bits(x.x ^ x.y);
         break;
-      default:
+      case kExponential:
         static_cast<float*>(out)[t] = cpr::exponential_of_bits(x.x ^ x.y);
+        break;
+      case kUniform64:
+        static_cast<double*>(out)[t] = cpr::uniform64_of_words(x);
+        break;
+      default:
+        static_cast<double*>(out)[t] = cpr::exponential64_of_words(x);
         break;
     }
   }
@@ -53,7 +64,7 @@ __global__ void threefry_kernel(const uint2* __restrict__ keys,
 extern "C" {
 
 // keys: [n_keys, 2] uint32 words; out: [n_keys, n, 2] uint32 (mode 0) or
-// [n_keys, n] uint32/float32. Output j of key b uses counter
+// [n_keys, n] uint32/float32 (modes 1-3) or float64 (modes 4, 5). Output j of key b uses counter
 // (0, offset + j). Launches on `stream`; returns the launch status.
 cudaError_t cpr_k1_threefry(const void* keys, int64_t n_keys, int64_t n,
                             uint32_t offset, int mode, void* out,

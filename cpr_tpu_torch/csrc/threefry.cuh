@@ -79,4 +79,18 @@ __device__ __forceinline__ float gumbel_of_bits(uint32_t bits) {
   return -logf(-logf(u));
 }
 
+// jax.random.uniform's float64 on [0, 1) in 64-bit mode: the 64-bit bits
+// are (x0 << 32) | x1 of one block; their top 52 bits are the mantissa.
+__device__ __forceinline__ double uniform64_of_words(uint2 x) {
+  const uint64_t bits = ((uint64_t)x.x << 32) | x.y;
+  return __longlong_as_double((long long)((bits >> 12) |
+                                          0x3FF0000000000000ULL)) - 1.0;
+}
+
+// jax.random.exponential in float64: -log1p(-u); log1p may differ from
+// XLA's by an ULP.
+__device__ __forceinline__ double exponential64_of_words(uint2 x) {
+  return -log1p(-uniform64_of_words(x));
+}
+
 }  // namespace cpr

@@ -34,7 +34,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu", "rtdp.cu",
            "dag_script.cu", "bk_stream.cu", "ethereum_stream.cu",
            "quorum_check.cu", "tailstorm_stream.cu", "stree_stream.cu",
-           "actor_check.cu", "gae.cu", "ppo_loss.cu", "adam.cu")
+           "actor_check.cu", "gae.cu", "ppo_loss.cu", "adam.cu",
+           "netsim_scan.cu", "netsim_event.cu", "netsim_attack.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,7 +49,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K8": 0, "K9": 0, "K10-bk": 0, "K10-eth": 0, "K10-ts": 0,
             "K10-stree": 0, "K11-act": 0, "K11-gae": 0, "K11-loss": 0,
-            "K11-adam": 0}
+            "K11-adam": 0, "K12-scan": 0, "K12-event": 0, "K13": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -225,6 +226,31 @@ class _CheckOut(ctypes.Structure):
                                   "head", "stale")]
 
 
+class _NetPlanes(ctypes.Structure):  # csrc/netsim.cuh Planes
+    _fields_ = [(f, _p) for f in ("kind", "p0", "p1", "logw")] + [
+        ("n", ctypes.c_int32)]
+
+
+_NET_OUT = ("head", "head_height", "sim_time", "n_blocks", "n_act",
+            "node_act", "reward", "steps", "drop_q", "drop_p", "drop_b",
+            "win_miss", "exhausted")
+
+
+class _NetOut(ctypes.Structure):  # csrc/netsim.cuh Out
+    _fields_ = [(f, _p) for f in _NET_OUT]
+
+
+class _Ledger(ctypes.Structure):  # csrc/netsim_event.cuh Ledger
+    _fields_ = [(f, _p) for f in ("parent", "height", "miner", "vis",
+                                  "known", "wq")] + [
+        (f, ctypes.c_int32) for f in ("B", "M", "F", "S", "A", "WA")]
+
+
+class _LaneIn(ctypes.Structure):  # csrc/netsim_event.cuh LaneIn
+    _fields_ = [(f, _p) for f in ("keys", "delays", "policy")] + [
+        ("n_lanes", _i64), ("strict_match", ctypes.c_int32)]
+
+
 def _load() -> dict[str, ctypes.CDLL]:
     with _lock:
         if _libs:
@@ -329,6 +355,25 @@ def _load() -> dict[str, ctypes.CDLL]:
             getattr(lib, err).argtypes = [_int]
             getattr(lib, err).restype = ctypes.c_char_p
         _libs.update(actor=act, gae=gae_lib, loss=loss, adam=adam_lib)
+        plp, outp = ctypes.POINTER(_NetPlanes), ctypes.POINTER(_NetOut)
+        scan = ctypes.CDLL(str(paths["netsim_scan.cu"]))
+        scan.cpr_k12_scan.argtypes = [_p, _p, _p, _p, _i64, _int, _int, _int,
+                                      ctypes.c_double, plp, outp, _p]
+        ev_args = [ctypes.POINTER(_LaneIn), ctypes.POINTER(_Ledger), plp,
+                   _int, outp, _p]
+        event = ctypes.CDLL(str(paths["netsim_event.cu"]))
+        event.cpr_k12_event.argtypes = ev_args
+        attack = ctypes.CDLL(str(paths["netsim_attack.cu"]))
+        attack.cpr_k13_attack.argtypes = ev_args
+        for lib, fn, err in ((scan, "cpr_k12_scan", "cpr_k12_scan_error_string"),
+                             (event, "cpr_k12_event",
+                              "cpr_k12_event_error_string"),
+                             (attack, "cpr_k13_attack", "cpr_k13_error_string")):
+            getattr(lib, fn).restype = _int
+            getattr(lib, err).argtypes = [_int]
+            getattr(lib, err).restype = ctypes.c_char_p
+        _libs.update(netsim_scan=scan, netsim_event=event,
+                     netsim_attack=attack)
         return _libs
 
 
@@ -364,13 +409,14 @@ def threefry(keys: torch.Tensor, n: int, offset: int, mode: int):
     """K1: for each key in `keys` [B, 2] (int32 words, CUDA) and j < n,
     threefry2x32(key, (0, offset + j)); mode 0 returns keys [B, n, 2]
     int32, mode 1 bits [B, n] int32, modes 2/3 uniform/exponential
-    [B, n] float32."""
+    [B, n] float32, modes 4/5 uniform/exponential [B, n] float64."""
     if not keys.is_cuda:
         raise ValueError("K1 takes CUDA tensors")
     dev = keys.device
     _want(keys, "keys", torch.int32, (keys.shape[0], 2), dev, align=8)
     shape = (keys.shape[0], n, 2) if mode == 0 else (keys.shape[0], n)
-    dtype = torch.int32 if mode in (0, 1) else torch.float32
+    dtype = (torch.int32 if mode in (0, 1) else
+             torch.float64 if mode in (4, 5) else torch.float32)
     out = torch.empty(shape, dtype=dtype, device=dev)
     lib = _load()["random"]
     with torch.cuda.device(dev):
@@ -1172,3 +1218,135 @@ def adam(flat, grad, mu, nu, *, neg_lr, bc1, bc2, b1, b2, omb1, omb2, eps,
     _check(rc, lib, "cpr_k11_adam_error_string", "K11-adam")
     launches["K11-adam"] += 1
     return norm
+
+
+# -- K12 / K13 ----------------------------------------------------------------
+
+SCAN_MAX_LOOKBACK = 256      # csrc/netsim_scan.cu: 8 ring slots a thread
+EVENT_MAX_SMEM = 227 * 1024  # an H100 block's dynamic shared memory
+
+
+def _net_planes(cn, logw, dev):
+    """The topology's planes on `dev` and their struct (the caller keeps
+    the tensors alive until the launch is queued)."""
+    from cpr_tpu_torch.netsim.engine import check_kernel_nodes, planes
+    check_kernel_nodes(cn.n, "the netsim")
+    kind, p0, p1 = planes(cn, dev)
+    logw = logw.to(dev, torch.float32).contiguous()
+    keep = (kind, p0, p1, logw)
+    return _NetPlanes(*(t.data_ptr() for t in keep), cn.n), keep
+
+
+def _net_out(n_lanes, n, dev):
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = {f: torch.empty(n_lanes, **i32) for f in _NET_OUT}
+    out["sim_time"] = torch.empty(n_lanes, dtype=torch.float64, device=dev)
+    out["node_act"] = torch.empty((n_lanes, n), **i32)
+    out["reward"] = torch.empty((n_lanes, n), dtype=torch.float32, device=dev)
+    out["exhausted"] = torch.empty(n_lanes, dtype=torch.bool, device=dev)
+    return out, _NetOut(*(out[f].data_ptr() for f in _NET_OUT))
+
+
+def _lane_inputs(keys, delays, what):
+    if not keys.is_cuda:
+        raise ValueError(f"{what} takes CUDA tensors")
+    dev = keys.device
+    n = keys.shape[0]
+    _want(keys, "keys", torch.int32, (n, 2), dev, align=8)
+    _want(delays, "delays", torch.float64, (n,), dev, align=8)
+    return dev, n
+
+
+def netsim_scan(cn, A: int, L: int, keys, delays) -> dict:
+    """K12-scan: `keys` [lanes, 2] (64-bit mode keys) and activation
+    `delays` [lanes] f64 on CUDA -> the lanes' outputs (engine.py's keys
+    but progress/on_chain) for `A` activations and lookback `L` on the
+    compiled network `cn`."""
+    from cpr_tpu_torch.netsim.engine import log_compute, uniform_const_delay
+    dev, n = _lane_inputs(keys, delays, "K12-scan")
+    A, L = int(A), min(int(L), int(A))
+    if A < 1 or not 1 <= L <= SCAN_MAX_LOOKBACK:
+        raise ValueError(f"K12-scan: activations {A} >= 1 and lookback "
+                         f"{L} in [1, {SCAN_MAX_LOOKBACK}] needed")
+    pl, keep = _net_planes(cn, log_compute(cn, dev), dev)
+    D = uniform_const_delay(cn)
+    parents = torch.empty((n, A), dtype=torch.int32, device=dev)
+    miners = torch.empty((n, A), dtype=torch.int32, device=dev)
+    out, ptrs = _net_out(n, cn.n, dev)
+    lib = _load()["netsim_scan"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k12_scan(keys.data_ptr(), delays.data_ptr(),
+                              parents.data_ptr(), miners.data_ptr(), n, A, L,
+                              int(D is not None), D or 0.0,
+                              ctypes.byref(pl), ctypes.byref(ptrs),
+                              _stream(dev))
+    _check(rc, lib, "cpr_k12_scan_error_string", "K12-scan")
+    del keep
+    launches["K12-scan"] += 1
+    return out
+
+
+def event_smem(M: int, F: int) -> int:
+    """Shared memory of one K12-event/K13 lane (csrc/netsim_event.cuh
+    `event_smem`): the queue (time, block/node, sequence, free list) and
+    32 pending buffers."""
+    return M * (8 + 3 * 4) + 32 * F * 4
+
+
+def _ledger(n, B, M, F, S, A, WA, dev, attack):
+    smem = event_smem(M, F)
+    if smem > EVENT_MAX_SMEM:
+        raise ValueError(f"netsim queue {M} and pending {F} need {smem} "
+                         f"bytes of shared memory a lane, over "
+                         f"{EVENT_MAX_SMEM}")
+    planes = [torch.empty((n, B), dtype=torch.int32, device=dev)
+              for _ in range(6 if attack else 5)]
+    ptrs = [t.data_ptr() for t in planes] + ([] if attack else [None])
+    return _Ledger(*ptrs, B, M, F, S, A, WA), planes
+
+
+def _event_launch(name, lib_key, fn, errfn, cn, logw, A, B, M, F, S, WA,
+                  keys, delays, policy=None, strict=True):
+    dev, n = _lane_inputs(keys, delays, name)
+    if policy is not None:
+        _want(policy, "policy", torch.int32, (n,), dev)
+    pl, keep = _net_planes(cn, logw, dev)
+    led, planes = _ledger(n, B, M, F, S, A, WA, dev, policy is not None)
+    lane_in = _LaneIn(keys.data_ptr(), delays.data_ptr(),
+                      None if policy is None else policy.data_ptr(), n,
+                      int(bool(strict)))
+    out, ptrs = _net_out(n, cn.n, dev)
+    lib = _load()[lib_key]
+    with torch.cuda.device(dev):
+        rc = getattr(lib, fn)(ctypes.byref(lane_in), ctypes.byref(led),
+                              ctypes.byref(pl), int(cn.flooding),
+                              ctypes.byref(ptrs), _stream(dev))
+    _check(rc, lib, errfn, name)
+    del keep, planes
+    launches[name] += 1
+    return out
+
+
+def netsim_event(cn, A, B, M, F, S, keys, delays) -> dict:
+    """K12-event: the event engine (Nakamoto) for `keys` [lanes, 2] and
+    `delays` [lanes] f64 on CUDA, ledger capacity B, queue M, pending F,
+    step cap S -> the lanes' outputs."""
+    from cpr_tpu_torch.netsim.engine import log_compute
+    return _event_launch("K12-event", "netsim_event", "cpr_k12_event",
+                         "cpr_k12_event_error_string", cn,
+                         log_compute(cn, keys.device), A, B, M, F, S, 0,
+                         keys, delays)
+
+
+def netsim_attack(cn, A, B, M, F, S, WA, keys, delays, alphas, policy,
+                  strict_match) -> dict:
+    """K13: the attacker at node 0, lane alphas [lanes] f32 and scripted
+    policy ids [lanes] int32 (`envs.nakamoto.POLICY_NAMES` order) on
+    CUDA; walk cap WA. Adds reward_attacker and reward_defender."""
+    from cpr_tpu_torch.netsim.attack import attack_logits
+    out = _event_launch("K13", "netsim_attack", "cpr_k13_attack",
+                        "cpr_k13_error_string", cn, attack_logits(cn, alphas),
+                        A, B, M, F, S, WA, keys, delays, policy, strict_match)
+    out["reward_attacker"] = out["reward"][:, 0]
+    out["reward_defender"] = out["reward"][:, 1:].sum(1)
+    return out

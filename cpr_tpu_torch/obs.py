@@ -38,7 +38,10 @@ class Field:
 
 
 def _c(x, like):
-    return torch.tensor(x, dtype=_F32, device=like.device)
+    """x rounded to a float32 tensor on like's device; filled on the
+    device, since a CUDA graph may capture the encoders and no host value
+    may be copied to the card inside one."""
+    return torch.full((), x, dtype=_F32, device=like.device)
 
 
 def field_to_float(field: Field, x, unit: bool):

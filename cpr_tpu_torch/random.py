@@ -9,12 +9,19 @@ reference runs with:
     split(k, n)[i]   = threefry2x32(k, (0, i))
     fold_in(k, d)    = threefry2x32(k, (0, d))
     bits(k, shape)   = x0 ^ x1 of threefry2x32(k, (0, j)), j the flat index
+    bits64(k, shape) = (x0 << 32) | x1 of the same block (64-bit draws)
     uniform(k)       = bitcast_f32((bits >> 9) | 0x3f800000) - 1
+    uniform(k, f64)  = bitcast_f64((bits64 >> 12) | 0x3ff0...0) - 1
     uniform(k, lo, hi) = max(lo, uniform(k) * (hi - lo) + lo)
     exponential(k)   = -log1p(-uniform(k))
     gumbel(k)        = -log(-log(uniform(k, tiny, 1)))   (mode "low")
     categorical(k, logits) = argmax(gumbel(k, noise shape) + logits)
     permutation(k, n) = rounds of a stable sort of arange(n) by bits
+
+The 64-bit draws are what the JAX package draws under 64-bit mode
+(`jax.experimental.enable_x64`, the netsim's float64 clocks): uniform and
+exponential with `dtype=torch.float64`. `PRNGKey(seed, x64=True)` is the
+64-bit mode's key, (seed >> 32, seed mod 2**32) of the int64 seed.
 
 A key is a tensor `[..., 2]` of 32-bit words, stored as int32 bit
 patterns because torch's uint32 has few operations; a leading batch of
@@ -41,6 +48,8 @@ KS_PARITY = 0x1BD11BDA
 
 # K1 output modes (csrc/random.cu)
 MODE_KEYS, MODE_BITS, MODE_UNIFORM, MODE_EXPONENTIAL = 0, 1, 2, 3
+MODE_UNIFORM64, MODE_EXPONENTIAL64 = 4, 5
+FLOAT64_MODES = (MODE_UNIFORM64, MODE_EXPONENTIAL64)
 
 
 # -- plain version ------------------------------------------------------------
@@ -89,18 +98,50 @@ def exponential_of_bits(b: torch.Tensor) -> torch.Tensor:
     return -torch.log1p(-uniform_of_bits(b))
 
 
+def threefry_words(key: torch.Tensor, counters: torch.Tensor):
+    """threefry2x32(key, (0, counter)) for keys `[..., 2]` and int64
+    counters broadcastable to `key.shape[:-1]`: the two output words as
+    uint32 values in int64. Lets a plain version draw from several keys
+    in one pass (the words of key k and counter j are those of
+    `threefry_plain(k, 1, j)`)."""
+    kw = words(key)
+    counters = counters & M32
+    return threefry2x32(kw[..., 0], kw[..., 1], torch.zeros_like(counters),
+                        counters)
+
+
+def gumbel_of_bits(b: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> jax.random.gumbel's float32 (mode "low")."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.clamp(uniform_of_bits(b) * (1.0 - tiny) + tiny, min=tiny)
+    return -torch.log(-torch.log(u))
+
+
+def uniform64_of_words(x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+    """The two words of a block (uint32 values in int64) -> jax.random.
+    uniform's float64 on [0, 1): the top 52 bits of (x0 << 32) | x1 as
+    the mantissa, which is exactly mantissa * 2**-52."""
+    mant = (x0 << 20) | (x1 >> 12)
+    return mant.to(torch.float64) * 2.0 ** -52
+
+
 def threefry_plain(key: torch.Tensor, n: int, offset: int = 0,
                    mode: int = MODE_KEYS) -> torch.Tensor:
     """Plain twin of the K1 kernel: for each key in `key[..., 2]` and
     j < n, threefry2x32(key, (0, offset + j)); `mode` picks what is
     returned: the pair as a key `[..., n, 2]`, or `[..., n]` bits (int32
-    patterns), uniform or exponential float32 draws."""
+    patterns), uniform or exponential float32 draws, or uniform or
+    exponential float64 draws of the 64-bit bits."""
     kw = words(key)
     k0, k1 = kw[..., 0:1], kw[..., 1:2]
     x0, x1 = threefry2x32(k0, k1, torch.zeros_like(k0),
                           _counters(key, n, offset))
     if mode == MODE_KEYS:
         return from_words(torch.stack((x0, x1), dim=-1))
+    if mode == MODE_UNIFORM64:
+        return uniform64_of_words(x0, x1)
+    if mode == MODE_EXPONENTIAL64:
+        return -torch.log1p(-uniform64_of_words(x0, x1))
     b = from_words(x0 ^ x1)
     if mode == MODE_BITS:
         return b
@@ -132,10 +173,13 @@ def _threefry(key, n, offset, mode):
 
 # -- public jax.random surface -------------------------------------------------
 
-def PRNGKey(seed: int, device=None) -> torch.Tensor:
-    """`jax.random.PRNGKey(seed)` with 64-bit mode off: (0, seed mod 2**32)."""
+def PRNGKey(seed: int, device=None, x64: bool = False) -> torch.Tensor:
+    """`jax.random.PRNGKey(seed)` with 64-bit mode off: (0, seed mod 2**32);
+    with `x64`, the 64-bit mode's (seed >> 32, seed mod 2**32) of the seed
+    as an int64 (a negative seed in two's complement)."""
     dev = _device.resolve(device)
-    return from_words(torch.tensor([0, int(seed) & M32],
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF if x64 else int(seed) & M32
+    return from_words(torch.tensor([s >> 32, s & M32],
                                    dtype=torch.int64)).to(dev)
 
 
@@ -153,7 +197,7 @@ def _draw(key, shape, mode):
     shape = tuple(shape)
     n = math.prod(shape)
     out = _threefry(key, n, 0, mode)
-    return out.reshape(*key.shape[:-1], *shape)
+    return out.reshape(tuple(key.shape[:-1]) + shape)
 
 
 def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
@@ -162,16 +206,26 @@ def bits(key: torch.Tensor, shape=()) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """`jax.random.uniform`, float32: on [0, 1) by default, else
-    `max(minval, u * (maxval - minval) + minval)` with both bounds and
-    every step rounded to float32, as jax computes it."""
-    u = _draw(key, shape, MODE_UNIFORM)
+            maxval: float = 1.0, dtype=torch.float32) -> torch.Tensor:
+    """`jax.random.uniform`, float32 (or float64 from 64-bit bits): on
+    [0, 1) by default, else `max(minval, u * (maxval - minval) + minval)`
+    with both bounds and every step rounded to `dtype`, as jax computes
+    it."""
+    u = _draw(key, shape, _float_mode(MODE_UNIFORM, dtype))
     if minval == 0.0 and maxval == 1.0:
         return u
-    lo = torch.tensor(minval, dtype=torch.float32, device=u.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=u.device)
+    lo = torch.tensor(minval, dtype=dtype, device=u.device)
+    hi = torch.tensor(maxval, dtype=dtype, device=u.device)
     return torch.maximum(lo, u * (hi - lo) + lo)
+
+
+def _float_mode(mode: int, dtype) -> int:
+    if dtype == torch.float32:
+        return mode
+    if dtype == torch.float64:
+        return {MODE_UNIFORM: MODE_UNIFORM64,
+                MODE_EXPONENTIAL: MODE_EXPONENTIAL64}[mode]
+    raise ValueError(f"draws are float32 or float64, not {dtype}")
 
 
 def gumbel(key: torch.Tensor, shape=()) -> torch.Tensor:
@@ -219,9 +273,10 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
     return x
 
 
-def exponential(key: torch.Tensor, shape=()) -> torch.Tensor:
-    """`jax.random.exponential`, float32."""
-    return _draw(key, shape, MODE_EXPONENTIAL)
+def exponential(key: torch.Tensor, shape=(),
+                dtype=torch.float32) -> torch.Tensor:
+    """`jax.random.exponential`, float32 or float64: -log1p(-uniform)."""
+    return _draw(key, shape, _float_mode(MODE_EXPONENTIAL, dtype))
 
 
 # -- numpy crossing ------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 Reference counterpart: `cpr_tpu/resilience.py`, the part the solve
 caches use: `atomic_write_bytes`/`atomic_write_json` (tmp file in the
-destination directory, fsync, `os.replace`) and the sealed seam
-`sealed_write`/`sealed_write_json`/`sealed_read`/`sealed_read_json`/
+destination directory, fsync, `os.replace`), `atomic_write_text` (the
+GraphML topology batches) and the sealed seam `sealed_write`/
+`sealed_write_json`/`sealed_read`/`sealed_read_json`/
 `reject_undecodable` over `cpr_tpu_torch.integrity`'s envelope. A
 damaged envelope is quarantined with one typed `integrity` event and
 raises `IntegrityError` for the caller's policy (a cache recomputes).
@@ -24,6 +25,7 @@ from cpr_tpu_torch import integrity
 from cpr_tpu_torch.integrity import IntegrityError
 
 __all__ = ["IntegrityError", "atomic_write_bytes", "atomic_write_json",
+           "atomic_write_text",
            "reject_undecodable", "sealed_read", "sealed_read_json",
            "sealed_write", "sealed_write_json"]
 
@@ -57,6 +59,10 @@ def atomic_write_bytes(path: str, data: bytes):
             os.close(dfd)
     except OSError:
         pass
+
+
+def atomic_write_text(path: str, text: str, encoding: str = "utf-8"):
+    atomic_write_bytes(path, text.encode(encoding))
 
 
 def atomic_write_json(path: str, obj):

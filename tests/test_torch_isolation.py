@@ -63,7 +63,10 @@ for mod in ("cpr_tpu_torch", "cpr_tpu_torch.envs", "cpr_tpu_torch.envs.nakamoto"
             "cpr_tpu_torch.envs.assumption", "cpr_tpu_torch.learn.buffer",
             "cpr_tpu_torch.train.ppo", "cpr_tpu_torch.train.optim",
             "cpr_tpu_torch.train.config", "cpr_tpu_torch.train.driver",
-            "cpr_tpu_torch.train.serialization", "chip_smoke"):
+            "cpr_tpu_torch.train.serialization", "cpr_tpu_torch.netsim",
+            "cpr_tpu_torch.netsim.compile", "cpr_tpu_torch.netsim.engine",
+            "cpr_tpu_torch.netsim.attack", "cpr_tpu_torch.network",
+            "cpr_tpu_torch.distributions", "chip_smoke"):
     importlib.import_module(mod)
 from cpr_tpu_torch.train import config, driver
 cfg = config.TrainConfig.from_dict(dict(
@@ -90,6 +93,15 @@ for key in ("bk-2-constant", "ethereum-byzantium",
                                       env.scripted_policies[1], 14)(
         random.split(random.PRNGKey(0, device="cpu"), 2))
     assert int(stats["n_episodes"].sum()) == 4, key
+from cpr_tpu_torch import netsim, network
+net = network.symmetric_clique(4, activation_delay=30.0, propagation_delay=1.0)
+for mode in ("scan", "event"):
+    out = netsim.Engine(net, activations=30, mode=mode, device="cpu").run(
+        [0, 1], [30.0, 30.0])
+    assert out["node_act"].sum() == 60, mode
+out = netsim.AttackEngine(net, activations=30, device="cpu").run(
+    [0, 1], [30.0, 30.0], [0.3, 0.4], [0, 2])
+assert out["n_act"].tolist() == [30, 30]
 try:
     import cpr_tpu_torch.gym
 except ImportError:

@@ -116,3 +116,33 @@ def test_numpy_word_roundtrip():
     t = rnd.from_numpy_words(w, device="cpu")
     assert t.dtype == torch.int32
     np.testing.assert_array_equal(rnd.to_numpy_words(t), w)
+
+
+@pytest.mark.parametrize("seed", [0, 9, -3, 2**40 + 11])
+def test_float64_draws_match_jax_x64(seed):
+    """The netsim's 64-bit mode: keys of int64 seeds, float64 uniform
+    draws bit for bit (the top 52 bits of (x0 << 32) | x1), exponential
+    through log1p within a few ULP."""
+    with jax.enable_x64(True):
+        jk = jax.random.PRNGKey(seed)
+        u = np.asarray(jax.random.uniform(jk, (7, 33), dtype=jax.numpy.float64))
+        uc = np.asarray(jax.random.uniform(jk, (40,), minval=1e-12,
+                                           maxval=1.0,
+                                           dtype=jax.numpy.float64))
+        e = np.asarray(jax.random.exponential(jk, (300,),
+                                              dtype=jax.numpy.float64))
+        ks = np.asarray(jax.random.split(jk, 3))
+    tk = rnd.PRNGKey(seed, device="cpu", x64=True)
+    np.testing.assert_array_equal(words(tk), np.asarray(jk))
+    np.testing.assert_array_equal(words(rnd.split(tk, 3)), ks)
+    got = rnd.uniform(tk, (7, 33), dtype=torch.float64)
+    assert got.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy(), u)
+    np.testing.assert_array_equal(
+        rnd.uniform(tk, (40,), 1e-12, 1.0, dtype=torch.float64).numpy(), uc)
+    np.testing.assert_allclose(
+        rnd.exponential(tk, (300,), dtype=torch.float64).numpy(), e,
+        rtol=1e-13, atol=0)
+    plain = rnd.threefry_plain(tk, 300, 0, rnd.MODE_EXPONENTIAL64)
+    np.testing.assert_array_equal(
+        plain.numpy(), rnd.exponential(tk, (300,), dtype=torch.float64).numpy())
