@@ -177,12 +177,13 @@ Phases, one line each; any failure raises and the exit code is not 0:
      update split, and the stream with the trained net is held to the
      plain versions at this shape (4096 lanes x 128 steps) as in 28;
  32. the config path: train_from_config on the shipped nakamoto.yaml (3
-     updates; K1, K2, K11) and tailstorm-8-discount.yaml (2 updates,
-     128-slot ring; K1, K10-ts, K11), eval.freq 1 and start_at_iteration
+     updates; K1, K2, K11), tailstorm-8-discount.yaml, spar-8.yaml and
+     sdag-8-discount.yaml (2 updates each, 128-slot ring; K1, the env's
+     K10, K11), eval.freq 1 and start_at_iteration
      0 so that the eval and the checkpoints run; eval rows finite,
      relative reward in [0, 1]; a policy snapshot exported and reloaded
-     acts as the net; Tailstorm's 128-slot ring (the reference sizes
-     full mode for the episode) under the trained net, hidden 96, 512
+     acts as the net; each DAG config's 128-slot ring (the reference
+     sizes full mode for the episode) under the trained net, hidden 96, 512
      lanes x 160 steps from a raw reset, held to the plain versions as
      in 28, its first 64 lanes to full mode as well, and no episode
      ended by the eviction of a live block;
@@ -233,6 +234,36 @@ Phases, one line each; any failure raises and the exit code is not 0:
      around each wrapper call, its small host-to-device copies
      included); the bounds (the threefry work this run's draws need and
      the lanes' inputs and outputs).
+ 41. K10-spar and K10-sdag `step_lanes` against their plain versions at
+     4096 lanes over 128 ticks of seeded masks, then the tick traces of
+     their JAX fixture (tests/fixtures/torch_port_spar_sdag_golden.npz);
+ 42. their streams against their plain versions: 4096 lanes x 256
+     steps, every policy (2 Spar, 6 Sdag) in one batched plain call,
+     unchunked and in chunks of 100; then the fixture's sums and carries;
+ 43. the variants the paths do not run (PAR_VARIANTS: Spar's block
+     scheme; Sdag constant-altruistic, constant-heuristic and
+     discount-altruistic; rings at k = 4 that wrap and overflow, Sdag's
+     of 40 slots with a 16-position release scan, Spar's of 16), 512
+     lanes x 160 steps, every policy, against their plain versions, the
+     wrapped and the overflowed episodes counted;
+ 44. the Spar path: spar-8-constant (the protocol of spar-8.yaml),
+     window 128, selfish, 4096 lanes x 1024 steps in chunks of 128,
+     alpha 0.35, gamma 0.5, max_steps 120, its launch counts zeroed
+     before it and read after (K1 and K10-spar only), one warm and three
+     timed calls; relative revenue within VOTE_GUARD of the fixture's
+     reference (cpr_tpu on the path's first 64 lanes x 256 steps); the
+     plain version held to the kernel over the first 256 steps and its
+     first 64 lanes to the reference to 1e-6; 100 `step_lanes` ticks at
+     4096 lanes;
+ 45. the Sdag path the same way (K1, K10-sdag; K8 and K9 inside):
+     sdag-8-discount-heuristic (the protocol of sdag-8-discount.yaml),
+     override-catchup; both envs are in phase 28's net-policy streams,
+     and phase 32 trains spar-8.yaml and sdag-8-discount.yaml for 2
+     updates each (K1, their K10 with K11-act, K11-gae/-loss/-adam) with
+     the ring against full mode as for Tailstorm;
+ 46. K10-spar and K10-sdag device times per 128-step launch and per
+     tick, the plain versions' times and the bounds (9 threefry blocks a
+     mining draw, the lane state read and written once).
 Then the kernels line (JSON: launches summed over the main paths, the
 error of the main-shape comparison, the times and the bound) and the
 last line {"ok": true, "device": {...}}.
@@ -358,7 +389,9 @@ DAG_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_dag_golden.npz"
 DAG_ENVS = {"bk": ("bk-8-constant", "get-ahead"),
             "eth": ("ethereum-byzantium", "fn19"),
             "ts": ("tailstorm-8-discount-heuristic", "get-ahead"),
-            "stree": ("stree-8-constant-heuristic", "override-catchup")}
+            "stree": ("stree-8-constant-heuristic", "override-catchup"),
+            "spar": ("spar-8-constant", "selfish"),
+            "sdag": ("sdag-8-discount-heuristic", "override-catchup")}
 # (the step_lanes checks run at the gym paths' lanes, BK_/ETH_LANES)
 DAG_WINDOW, DAG_CHECK_LANES, DAG_CHECK_STEPS, DAG_CHECK_TICKS = 128, 4096, \
     256, 128
@@ -404,14 +437,38 @@ VOTE_VARIANTS = {
                    release_scan=16))}
 VARIANT_LANES, VARIANT_STEPS = 512, 160
 MINE_THREEFRY5 = 9  # split into 5, then one draw from each of 4 keys
-# name: (lanes, steps, chunk, max_steps, guard, plain steps) of each path
+# The Spar and Sdag envs (K10-spar, K10-sdag): the vote paths' shape
+# (4096 lanes x 1024 steps in chunks of 128, max_steps 120) at the shipped
+# configs' k; their JAX fixture holds each path's reference revenue
+# (cpr_tpu on the path's first 64 lanes x 256 steps), which the guard
+# centres: +-VOTE_GUARD. The variants the paths do not run: Spar's block
+# scheme, Sdag's other scheme-selection pairs, and rings at k = 4 that
+# wrap and overflow: Sdag's of 40 slots with a 16-position release scan,
+# Spar's of 16 (its two policies release or adopt before a fork fills 40:
+# at 512 lanes x 160 steps no 40-slot episode overflows, ~3% of 16-slot
+# ones do).
+SPAR_SDAG_FIXTURE = ROOT / "tests" / "fixtures" / \
+    "torch_port_spar_sdag_golden.npz"
+PAR_VARIANTS = {
+    "spar": (dict(k=8, incentive_scheme="block"), dict(k=4, window=16)),
+    "sdag": (dict(k=8, incentive_scheme="constant",
+                  subblock_selection="altruistic"),
+             dict(k=8, incentive_scheme="constant",
+                  subblock_selection="heuristic"),
+             dict(k=8, incentive_scheme="discount",
+                  subblock_selection="altruistic"),
+             dict(k=4, incentive_scheme="discount", window=40,
+                  release_scan=16))}
+# the envs whose steps make one mining draw of 9 threefry blocks
+MINE5_ENVS = ("ts", "stree", "spar", "sdag")
+# name: (lanes, steps, chunk, max_steps, guard, plain steps) of each path;
+# a vote path's guard is +-VOTE_GUARD around its reference revenue
 DAG_PATHS = {
     "bk": (BK_LANES, BK_STEPS, None, BK_MAX_STEPS, BK_GUARD, BK_STEPS),
     "eth": (ETH_LANES, ETH_STEPS, ETH_CHUNK, ETH_MAX_STEPS, ETH_GUARD,
             ETH_PLAIN_STEPS),
-    **{n: (VOTE_LANES, VOTE_STEPS, VOTE_CHUNK, VOTE_MAX_STEPS,
-           (VOTE_REVENUE[n] - VOTE_GUARD, VOTE_REVENUE[n] + VOTE_GUARD),
-           VOTE_PLAIN_STEPS) for n in ("ts", "stree")}}
+    **{n: (VOTE_LANES, VOTE_STEPS, VOTE_CHUNK, VOTE_MAX_STEPS, None,
+           VOTE_PLAIN_STEPS) for n in ("ts", "stree", "spar", "sdag")}}
 # The PPO slice (K11). The bench path is bench.py:257-309's shape; the
 # fixture tests/test_torch_ppo_golden.py's (16 lanes x 32 steps); the
 # net-policy streams run every env, Nakamoto and Tailstorm under
@@ -421,13 +478,15 @@ DAG_PATHS = {
 PPO_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_ppo_golden.npz"
 PPO_LANES, PPO_STEPS, PPO_MAX_STEPS = 4096, 128, 120
 PPO_FIX_LANES, PPO_FIX_STEPS = 16, 32
-ACT_LANES, NET_LANES, NET_STEPS, NET_MAX_STEPS = 4096, 512, 64, 24
+ACT_LANES, NETPOL_LANES, NET_STEPS, NET_MAX_STEPS = 4096, 512, 64, 24
 NET_MARGIN = 1e-5
 NET_ENVS = (("nakamoto", None, True),
             ("bk-8-constant", DAG_WINDOW, False),
             ("ethereum-byzantium", DAG_WINDOW, False),
             ("tailstorm-8-discount-heuristic", DAG_WINDOW, True),
-            ("stree-8-constant-heuristic", DAG_WINDOW, False))
+            ("stree-8-constant-heuristic", DAG_WINDOW, False),
+            ("spar-8-constant", DAG_WINDOW, False),
+            ("sdag-8-discount-heuristic", DAG_WINDOW, False))
 LOSS_BATCH, ADAM_STEPS = PPO_LANES * PPO_STEPS // 4, 16
 # the Tailstorm config's ring against full mode: steps from a raw reset
 # (a whole 128-step episode on every lane) and lanes replayed in full mode
@@ -460,7 +519,13 @@ ATK_QUEUE_CAP = 2048
 ATK_EXTRA_ACTS, ATK_EXTRA_LANES = 300, 16
 
 
+_START = time.perf_counter()
+
+
 def say(phase, **kw):
+    """One phase's line; `at_s` the seconds since the script started, so
+    the log gives each phase's cost."""
+    kw["at_s"] = round(time.perf_counter() - _START, 1)
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
 
@@ -1773,6 +1838,38 @@ def dag_plain_stats(env, keys, params, policy, n_steps, chunk=None,
     return (stats, carry, secs) if timed else (stats, carry)
 
 
+def plain_stats_chunked(env, keys, params, policy, n_steps, chunk):
+    """One plain pass (`_autoreset_body`, the step `stream_plain` loops)
+    giving the stats driver's result unchunked and in chunks of `chunk`
+    steps, and the final carry: the chunked driver adds each chunk's
+    done-masked sums, so where episode rewards are not dyadic (Sdag's
+    discount: rates of (fwd + bwd - 1)/7) its float32 totals can differ
+    from the unchunked run's in the last bit, as the reference's chunked
+    driver's do; each is held to the kernel run chunked the same way."""
+    from cpr_tpu_torch.envs.base import EPISODE_KEYS
+    carry = clone_carry(env._stream_init(keys, params))
+    body = env._autoreset_body(params, policy)
+    z = torch.zeros((len(EPISODE_KEYS), keys.shape[0]), device=keys.device)
+    seq, part, chunked = z, z, z
+    n_done = torch.zeros(keys.shape[0], dtype=torch.int32,
+                         device=keys.device)
+    for t in range(n_steps):
+        carry, (_, _, _, done, info) = body(carry)
+        e = torch.stack([torch.where(done, info[k], torch.zeros_like(info[k]))
+                         for k in EPISODE_KEYS])
+        seq, part = seq + e, part + e
+        n_done = n_done + done.to(torch.int32)
+        if (t + 1) % chunk == 0 or t + 1 == n_steps:
+            chunked, part = chunked + part, z
+    nd = torch.clamp(n_done, min=1)
+    out = []
+    for totals in (seq, chunked):
+        stats = {k: totals[j] / nd for j, k in enumerate(EPISODE_KEYS)}
+        stats["n_episodes"] = n_done
+        out.append(stats)
+    return out[0], out[1], carry
+
+
 @contextlib.contextmanager
 def ring_peaks(env):
     """Around a plain run of the DAG env `env`, each episode's peak ring
@@ -1969,18 +2066,20 @@ def phase_k10_streams(dev, dfx, report, names):
         keys = rnd.split(rnd.PRNGKey(21, dev), n)
         err = report[env.kernel_name].pop("lanes_err")
         n_pol = len(env.scripted_policies)
-        want_all, pcarry = dag_plain_stats(env, keys.repeat(n_pol, 1), params,
-                                           mixed_policy(env, n),
-                                           DAG_CHECK_STEPS)
+        want_all, want_chunked, pcarry = plain_stats_chunked(
+            env, keys.repeat(n_pol, 1), params, mixed_policy(env, n),
+            DAG_CHECK_STEPS, 100)
         for i, pol in enumerate(env.scripted_policies):
             sl = slice(i * n, (i + 1) * n)
             want = {k: v[sl] for k, v in want_all.items()}
-            for chunk in (None, 100):
+            for chunk, w in ((None, want), (100, {
+                    k: v[sl] for k, v in want_chunked.items()})):
                 got = env.make_episode_stats_fn(params, env.policies[pol],
                                                 DAG_CHECK_STEPS,
                                                 chunk=chunk)(keys)
-                err = max(err, compare_stats(got, want,
-                                             f"{env.kernel_name} {pol}"))
+                err = max(err, compare_stats(got, w,
+                                             f"{env.kernel_name} {pol} "
+                                             f"chunk {chunk}"))
             kcarry, _, _, _ = env._stream(None, keys, 1, DAG_CHECK_STEPS,
                                           params, pol, False)
             err = max(err, compare_dag_state(
@@ -2018,10 +2117,11 @@ def phase_k10_streams(dev, dfx, report, names):
             max_abs_err=err, ok=True)
 
 
-def phase_vote_variants(dev, report):
-    """K10-ts and K10-stree under every scheme and selection the paths do
-    not run (VOTE_VARIANTS), every policy, against their plain versions:
-    the stats and the whole final carry."""
+def phase_vote_variants(dev, report, table):
+    """The K10 kernels of the families in `table` (VOTE_VARIANTS: K10-ts
+    and K10-stree; PAR_VARIANTS: K10-spar and K10-sdag) under every
+    scheme and selection the paths do not run, every policy, against
+    their plain versions: the stats and the whole final carry."""
     from cpr_tpu_torch import random as rnd
     from cpr_tpu_torch.envs import registry
     from cpr_tpu_torch.envs.base import map_state
@@ -2029,7 +2129,7 @@ def phase_vote_variants(dev, report):
     n, steps = VARIANT_LANES, VARIANT_STEPS
     params = make_params(alpha=0.35, gamma=0.5, max_steps=64)
     keys = rnd.split(rnd.PRNGKey(41, dev), n)
-    for family, variants in VOTE_VARIANTS.items():
+    for family, variants in table.items():
         for kw in variants:
             env = registry.get(family, **{"window": DAG_WINDOW, **kw})
             n_pol = len(env.scripted_policies)
@@ -2168,6 +2268,9 @@ def phase_dag_path(dev, report, name):
     pol = env.policies[DAG_ENVS[name][1]]
     k10 = env.kernel_name
     lanes, steps, chunk, max_steps, guard, plain_steps = DAG_PATHS[name]
+    if guard is None:
+        guard = (VOTE_REVENUE[name] - VOTE_GUARD,
+                 VOTE_REVENUE[name] + VOTE_GUARD)
     params = make_params(alpha=0.35, gamma=0.5, max_steps=max_steps)
 
     kernels.reset_launches()
@@ -2264,7 +2367,7 @@ def carry_bytes(carry):
 
 
 ENV_KINDS = {"bk": "BkEnv", "eth": "EthEnv", "ts": "TailstormEnv",
-             "stree": "StreeEnv"}
+             "stree": "StreeEnv", "spar": "SparEnv", "sdag": "SdagEnv"}
 
 
 def phase_dag_times(dev, report, names):
@@ -2297,7 +2400,7 @@ def phase_dag_times(dev, report, names):
         resets = int(n_done.sum())
         state_b = carry_bytes(carry)
         k10_bytes = L * 8 + 2 * state_b + L * (7 * 4 + 4)
-        if name in VOTE_REVENUE:
+        if name in MINE5_ENVS:
             # the threefry work of this launch's mining draws (9 blocks
             # each: the finished episodes' and the running ones')
             mines = int(sums[6].sum()) + int(carry[0].n_activations.sum())
@@ -2544,7 +2647,7 @@ def phase_net_streams(dev, report):
     episodes, hidden 64, Nakamoto and Tailstorm under AssumptionEnv
     (extend_obs) with per-lane alphas."""
     from cpr_tpu_torch import random as rnd
-    L, T = NET_LANES, NET_STEPS
+    L, T = NETPOL_LANES, NET_STEPS
     err, below = 0.0, 0
     for i, (key, window, ext) in enumerate(NET_ENVS):
         env = net_env(key, window, ext)
@@ -2840,17 +2943,27 @@ TRAIN_YAMLS = {
                                layer_size=96),
                       eval=dict(freq=25, alpha_step=0.05,
                                 episodes_per_alpha=64)),
+    # cpr_tpu/train/configs/spar-8.yaml and sdag-8-discount.yaml
+    **{name: dict(protocol=protocol, alpha=dict(min=0.15, max=0.45),
+                  gamma=0.5, episode_len=128, reward="sparse_per_progress",
+                  shape="raw", n_envs=512, total_updates=300,
+                  ppo=dict(lr=0.0003, n_steps=64, n_minibatches=4,
+                           layer_size=96),
+                  eval=dict(freq=25, alpha_step=0.05, episodes_per_alpha=64))
+       for name, protocol in (("spar", "spar-8-constant"),
+                              ("sdag", "sdag-8-discount-heuristic"))},
 }
 
 
-def config_ring_case(cfg, net, env, dev):
-    """The Tailstorm config's env as `build_env` makes it on the card (a
-    128-slot ring; the reference sizes it for the episode) under the
-    trained net at the config's widths (hidden 96, AssumptionEnv, its
-    lane alphas, episode_len 128): `net_stream_case` over its lanes for
-    CONFIG_RING_STEPS steps from a raw reset, so every lane runs a whole
-    episode, with the first CONFIG_FULL_LANES lanes replayed through the
-    full-mode env too; no episode may end by evicting a live block."""
+def config_ring_case(name, cfg, net, env, dev):
+    """A DAG config's env (Tailstorm, Spar, Sdag) as `build_env` makes it
+    on the card (a 128-slot ring; the reference sizes it for the episode)
+    under the trained net at the config's widths (hidden 96,
+    AssumptionEnv, its lane alphas, episode_len 128): `net_stream_case`
+    over its lanes for CONFIG_RING_STEPS steps from a raw reset, so every
+    lane runs a whole episode, with the first CONFIG_FULL_LANES lanes
+    replayed through the full-mode env too; no episode may end by
+    evicting a live block."""
     from cpr_tpu_torch import random as rnd
     from cpr_tpu_torch.train import driver
     params = driver._stack_params(cfg.lane_alphas(cfg.n_envs), cfg.gamma,
@@ -2858,13 +2971,13 @@ def config_ring_case(cfg, net, env, dev):
     full = driver.build_env(cfg, "cpu")
     episodes, e, below, rings = net_stream_case(
         env, params, net, rnd.split(rnd.PRNGKey(80, dev), cfg.n_envs),
-        CONFIG_RING_STEPS, rnd.PRNGKey(81, dev), "tailstorm config ring",
+        CONFIG_RING_STEPS, rnd.PRNGKey(81, dev), f"{name} config ring",
         full_env=full, full_lanes=CONFIG_FULL_LANES)
     check(rings["episodes_overflowed"] == 0,
-          f"tailstorm config: {rings['episodes_overflowed']} episodes "
+          f"{name} config: {rings['episodes_overflowed']} episodes "
           f"overflowed the {env.inner.capacity}-slot ring")
-    check(episodes >= cfg.n_envs, "tailstorm config: an episode unfinished")
-    say("config_ring", config="tailstorm", lanes=cfg.n_envs,
+    check(episodes >= cfg.n_envs, f"{name} config: an episode unfinished")
+    say("config_ring", config=name, lanes=cfg.n_envs,
         steps=CONFIG_RING_STEPS, hidden=net.hidden[0],
         window=env.inner.capacity, full_capacity=full.inner.capacity,
         full_mode_lanes=CONFIG_FULL_LANES, episodes=episodes,
@@ -2874,17 +2987,20 @@ def config_ring_case(cfg, net, env, dev):
 def phase_config_path(dev, report, tmp):
     """The config path: `train_from_config(TrainConfig.from_dict(...))`
     on the shipped nakamoto.yaml for 3 updates and tailstorm-8-
-    discount.yaml (hidden 96, 512 lanes x 64 steps; 128-slot ring) for 2,
-    each with eval.freq 1 and start_at_iteration 0 so that the eval and
-    the checkpoints run; launch counts per config; eval rows finite,
-    relative reward in [0, 1]; then a policy snapshot exported and
-    reloaded gives the same greedy actions; for Tailstorm
-    `config_ring_case` with the trained net."""
+    discount.yaml, spar-8.yaml and sdag-8-discount.yaml (hidden 96, 512
+    lanes x 64 steps; 128-slot ring) for 2 each, with eval.freq 1 and
+    start_at_iteration 0 so that the eval and the checkpoints run; launch
+    counts per config; eval rows finite, relative reward in [0, 1]; then
+    a policy snapshot exported and reloaded gives the same greedy
+    actions; for the DAG configs `config_ring_case` with the trained
+    net."""
     from cpr_tpu_torch import kernels
     from cpr_tpu_torch.train import config, driver
     counts_all = []
     for name, ran, n_updates in (("nakamoto", ("K1", "K2"), 3),
-                                 ("tailstorm", ("K1", "K10-ts"), 2)):
+                                 ("tailstorm", ("K1", "K10-ts"), 2),
+                                 ("spar", ("K1", "K10-spar"), 2),
+                                 ("sdag", ("K1", "K10-sdag"), 2)):
         d = dict(TRAIN_YAMLS[name])
         d["eval"] = dict(d["eval"], freq=1, start_at_iteration=0)
         cfg = config.TrainConfig.from_dict(d)
@@ -2922,8 +3038,8 @@ def phase_config_path(dev, report, tmp):
             a1 = torch.argmax(policy.net(obs)[0], -1)
         check(torch.equal(a0, a1) and torch.equal(net.flat, policy.net.flat),
               f"{name}: the reloaded snapshot acts otherwise")
-        if name == "tailstorm":
-            config_ring_case(cfg, net, env, dev)
+        if name != "nakamoto":
+            config_ring_case(name, cfg, net, env, dev)
         last = history[-1]
         say("config_path", config=name, eval_freq=1, start_at_iteration=0,
             updates=n_updates, seconds=secs,
@@ -3580,6 +3696,10 @@ def main() -> int:
         pfx = {k: f[k] for k in f.files}
     with np.load(NETSIM_FIXTURE) as f:
         nfx = {k: f[k] for k in f.files}
+    with np.load(SPAR_SDAG_FIXTURE) as f:
+        sfx = {k: f[k] for k in f.files}
+    for name in ("spar", "sdag"):  # the paths' reference revenues
+        VOTE_REVENUE[name] = float(sfx[f"{name}_ref_revenue"])
     csrc = "cpr_tpu_torch/csrc"
     report = {
         "K1": dict(name="K1 threefry2x32", route="cuda",
@@ -3607,7 +3727,7 @@ def main() -> int:
         # hold K8's own counter (its check kernel's) at 0, and its row's
         # launches are the K10 launches of the paths
         "K8": dict(name="K8 block-DAG primitives (device functions run "
-                   "inside K10-bk/K10-eth, launches theirs; ms, plain_ms "
+                   "inside every K10, launches theirs; ms, plain_ms "
                    "and bound_ms are its check kernel dag_script_kernel's)",
                    route="cuda",
                    source=f"{csrc}/dag.cuh",
@@ -3620,11 +3740,12 @@ def main() -> int:
                         source=f"{csrc}/ethereum_stream.cu",
                         replaces="cpr_tpu/envs/ethereum.py:327",
                         max_abs_err=0.0),
-        # device functions that K10-ts/K10-stree run inside their
+        # device functions that K10-ts/K10-stree/K10-sdag run inside their
         # launches, like K8
         "K9": dict(name="K9 vote quorums (device functions run inside "
-                   "K10-ts/K10-stree, launches theirs; ms, plain_ms and "
-                   "bound_ms are its check kernel quorum_check_kernel's)",
+                   "K10-ts/K10-stree/K10-sdag, launches theirs; ms, "
+                   "plain_ms and bound_ms are its check kernel "
+                   "quorum_check_kernel's)",
                    route="cuda", source=f"{csrc}/quorum.cuh",
                    replaces="cpr_tpu/envs/quorum.py:65"),
         "K10-ts": dict(name="K10-ts Tailstorm withholding stream and "
@@ -3637,6 +3758,17 @@ def main() -> int:
                           source=f"{csrc}/stree_stream.cu",
                           replaces="cpr_tpu/envs/stree.py:283",
                           max_abs_err=0.0),
+        "K10-spar": dict(name="K10-spar Spar withholding stream and "
+                         "step_lanes", route="cuda",
+                         source=f"{csrc}/spar_stream.cu",
+                         replaces="cpr_tpu/envs/spar.py:215",
+                         max_abs_err=0.0),
+        "K10-sdag": dict(name="K10-sdag Sdag withholding stream and "
+                         "step_lanes (K9's frame, altruistic selection, "
+                         "release prefixes and stale plane inside)",
+                         route="cuda", source=f"{csrc}/sdag_stream.cu",
+                         replaces="cpr_tpu/envs/sdag.py:201",
+                         max_abs_err=0.0),
         # device functions that K2/K10 run inside their launches with
         # the net: its launches are theirs, its ms, plain and bound its
         # check kernel's (4096 lanes, warp mode)
@@ -3696,10 +3828,16 @@ def main() -> int:
     vote = ("ts", "stree")
     phase_k10_lanes(dev, qfx, report, vote)
     phase_k10_streams(dev, qfx, report, vote)
-    phase_vote_variants(dev, report)
+    phase_vote_variants(dev, report, VOTE_VARIANTS)
     k9_carries = phase_k9(dev, qfx, report)
     ts_counts, ts_gym = phase_dag_path(dev, report, "ts")
     stree_counts, stree_gym = phase_dag_path(dev, report, "stree")
+    par = ("spar", "sdag")
+    phase_k10_lanes(dev, sfx, report, par)
+    phase_k10_streams(dev, sfx, report, par)
+    phase_vote_variants(dev, report, PAR_VARIANTS)
+    spar_counts, spar_gym = phase_dag_path(dev, report, "spar")
+    sdag_counts, sdag_gym = phase_dag_path(dev, report, "sdag")
     phase_k11_act(dev, report)
     phase_net_streams(dev, report)
     phase_k11_update(dev, report)
@@ -3715,16 +3853,19 @@ def main() -> int:
                                            rtdp_counts, bk_counts, bk_gym,
                                            eth_counts, eth_gym, ts_counts,
                                            ts_gym, stree_counts, stree_gym,
+                                           spar_counts, spar_gym,
+                                           sdag_counts, sdag_gym,
                                            ppo_counts, *config_counts))
     report["K8"]["launches"] = sum(report[k]["launches"] for k in (
-        "K10-bk", "K10-eth", "K10-ts", "K10-stree"))
-    report["K9"]["launches"] = (report["K10-ts"]["launches"]
-                                + report["K10-stree"]["launches"])
+        "K10-bk", "K10-eth", "K10-ts", "K10-stree", "K10-spar", "K10-sdag"))
+    report["K9"]["launches"] = sum(report[k]["launches"] for k in (
+        "K10-ts", "K10-stree", "K10-sdag"))
     phase_times(dev, report, main_episodes)
     phase_mdp_times(dev, report, table, policy)
     phase_grid_rtdp_times(dev, report, grid_table, probs)
     phase_dag_times(dev, report, ("bk", "eth"))
     phase_dag_times(dev, report, vote)
+    phase_dag_times(dev, report, par)
     phase_k9_times(dev, report, k9_carries)
     phase_k11_times(dev, report, bench_carry)
     phase_k1_f64(dev, nfx, report)

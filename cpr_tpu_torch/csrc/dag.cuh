@@ -11,7 +11,8 @@
 // `children0_mask` (499-527), `mask_of`/`top_k_by` (820-860). Plain twin:
 // cpr_tpu_torch/core/dag.py. Its own check kernel is csrc/dag_script.cu;
 // on the main path it runs inside K10 (csrc/bk_stream.cu,
-// csrc/ethereum_stream.cu, csrc/tailstorm_stream.cu, csrc/stree_stream.cu).
+// csrc/ethereum_stream.cu, csrc/tailstorm_stream.cu, csrc/stree_stream.cu,
+// csrc/spar_stream.cu, csrc/sdag_stream.cu).
 //
 // Layout: a lane's DAG is the slice `lane` of the port's lane-batched
 // planes: `[L][W]` per field and per parent slot, `[L][W][W]` bool for

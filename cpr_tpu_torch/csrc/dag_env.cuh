@@ -1,6 +1,6 @@
 // The episode-stream and step_lanes drivers of the DAG envs' kernels
-// (K10-bk, K10-eth, K10-ts, K10-stree), one warp per lane, templated on
-// the env.
+// (K10-bk, K10-eth, K10-ts, K10-stree, K10-spar, K10-sdag), one warp per
+// lane, templated on the env.
 //
 // Replaces: cpr_tpu/envs/base.py:342-506 `make_episode_stats_fn` (its
 // scan over `_autoreset_body`, 206-231) with `rollout` (303-328) as the
@@ -47,9 +47,9 @@ namespace cpr {
 // Per-lane scalars of a DAG env state (ctypes `_EnvPtrs`): i = public,
 // private, event, pending_append | race_tip, steps, n_activations and
 // tailstorm's match_tgt; f = time and the five last_* fields; b =
-// ethereum's mining_own, mining_foreign | tailstorm's def_dirty | stree's
-// mining_excl; `stale` the [L][W] bool plane of tailstorm and stree. An
-// env without a field passes nullptr.
+// ethereum's mining_own, mining_foreign | tailstorm's def_dirty | stree's,
+// spar's and sdag's mining_excl; `stale` the [L][W] bool plane of
+// tailstorm, stree and sdag. An env without a field passes nullptr.
 struct EnvPtrs {
   int32_t* i[7];
   float* f[6];
@@ -69,18 +69,18 @@ struct EnvParams {
 
 // Static env options (ctypes `_EnvConfig`).
 struct EnvConfig {
-  int32_t k;           // bk: votes per block; tailstorm, stree: k
-  int32_t constant;    // incentive scheme: bk constant | block, eth constant | discount
+  int32_t k;           // bk: votes per block; the parallel-PoW envs: k
+  int32_t constant;    // incentive scheme: bk, spar constant | block, eth constant | discount
   int32_t ctk;         // bk: release selection width (capacity_topk)
   int32_t max_uncles;  // eth
   int32_t pref_work;   // eth: preference by work (else height)
   int32_t prog_work;   // eth: progress by work (else height)
   int32_t whitepaper;  // eth: the whitepaper preset's policy fields
   int32_t strict;      // eth: strict_match
-  int32_t scheme;      // tailstorm, stree: constant | discount | punish | hybrid
-  int32_t selection;   // tailstorm, stree: altruistic | heuristic | optimal
-  int32_t cmax;        // tailstorm, stree: quorum candidate frame C
-  int32_t rscan;       // tailstorm, stree: release scan R
+  int32_t scheme;      // tailstorm, stree, sdag: constant | discount | punish | hybrid
+  int32_t selection;   // tailstorm, stree, sdag: altruistic | heuristic | optimal
+  int32_t cmax;        // tailstorm, stree, sdag: quorum candidate frame C
+  int32_t rscan;       // tailstorm, stree, sdag: release scan R
   int32_t opt_window;  // tailstorm, stree: optimal selection's window
   int32_t unit;        // unit observations
 };

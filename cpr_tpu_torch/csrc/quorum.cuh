@@ -8,8 +8,8 @@
 // unranked on the fly in the same order), `leaves_to_row` (343),
 // `prefix_release_sets` (352) and `stale_after_adopt` (443, the plane
 // branch). Plain twin: cpr_tpu_torch/envs/quorum.py. Its own check kernel
-// is csrc/quorum_check.cu; on the main path it runs inside K10-ts and
-// K10-stree (csrc/tailstorm_stream.cu, csrc/stree_stream.cu).
+// is csrc/quorum_check.cu; on the main path it runs inside K10-ts,
+// K10-stree and K10-sdag (csrc/{tailstorm,stree,sdag}_stream.cu).
 //
 // Layout: the candidate frame holds C <= 64 candidates; candidate i is
 // handled by thread i % 32, and a set of candidates is a warp-uniform

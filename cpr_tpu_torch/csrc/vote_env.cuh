@@ -1,9 +1,9 @@
-// Pieces shared by the vote-tree env kernels K10-ts and K10-stree
-// (csrc/tailstorm_stream.cu, csrc/stree_stream.cu) and K9's check
-// (csrc/quorum_check.cu): the confirming-vote query, the two envs'
-// preferences, warp reductions over slots, the per-lane `stale` plane,
-// and the quorum selection over K9 (csrc/quorum.cuh) with each env's
-// scores.
+// Pieces shared by the parallel-PoW env kernels K10-ts, K10-stree,
+// K10-spar and K10-sdag (csrc/{tailstorm,stree,spar,sdag}_stream.cu) and
+// K9's check (csrc/quorum_check.cu): the confirming-vote query, the
+// Tailstorm and Stree/Sdag preferences, warp reductions over slots, the
+// per-lane `stale` plane, and the quorum selection over K9
+// (csrc/quorum.cuh) with each env's scores.
 
 #pragma once
 

@@ -15,7 +15,8 @@ The drivers — `init_lanes`, `reset_lanes`, `step_lanes`, `rollout` and
 the function `make_episode_stats_fn` builds — dispatch on the device of
 their tensors: on a CUDA tensor they launch the env's kernels (K2 the
 fused episode stream, K3 the one-tick lane step; K10-bk, K10-eth,
-K10-ts and K10-stree for the DAG envs of `DagEnv`) or raise; on a CPU tensor they run the plain
+K10-ts, K10-stree, K10-spar and K10-sdag for the DAG envs of `DagEnv`) or
+raise; on a CPU tensor they run the plain
 twins `stream_plain` and `step_lanes_plain`.
 Where the JAX package donates the carry (base.py:259, :472) the port
 updates it in place: after `step_lanes` and between chunks of the stats
@@ -532,7 +533,8 @@ class TorchEnv:
 
 class DagEnv(TorchEnv):
     """Base of the envs whose state is a lane-batched `core.dag.Dag` plus
-    per-lane scalars (bk, ethereum, tailstorm, stree), with the hooks of
+    per-lane scalars (bk, ethereum, tailstorm, stree, spar, sdag), with
+    the hooks of
     their K10 kernels.
 
     A subclass sets `state_cls`, `int_fields`, `bool_fields` (its scalar

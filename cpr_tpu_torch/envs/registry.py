@@ -3,10 +3,9 @@ cpr_tpu/envs/registry.py).
 
 Reference counterpart: the protocol/attack-space registry and string keys
 (simulator/protocols/cpr_protocols.ml:11-180) with the `of_key` grammar
-(cpr_protocols.ml:786-903). The grammar is the JAX package's, whole;
-`nakamoto`, `bk`, the `ethereum` families, `stree`, `tailstorm` and
-`tailstormjune` are registered, and a key of any other valid family
-raises a KeyError naming the slice that brings it.
+(cpr_protocols.ml:786-903). The grammar is the JAX package's, whole,
+and so are the families: `nakamoto`, `bk`, the `ethereum` families,
+`spar`, `stree`, `sdag`, `tailstorm` and `tailstormjune`.
 """
 
 from __future__ import annotations
@@ -31,9 +30,8 @@ _INFO = {
 }
 
 # families the JAX package has and this package does not yet, with the
-# ROADMAP item that brings them
-_NOT_PORTED = {"spar": "8d: the Spar env",
-               "sdag": "8d: the Sdag env over the altruistic K9"}
+# ROADMAP item that brings them (none left)
+_NOT_PORTED: dict[str, str] = {}
 
 
 def register(key: str, factory: Callable):
@@ -185,6 +183,8 @@ def _ensure_builtin():
     from cpr_tpu_torch.envs.bk import BkSSZ
     from cpr_tpu_torch.envs.ethereum import EthereumSSZ
     from cpr_tpu_torch.envs.nakamoto import NakamotoSSZ
+    from cpr_tpu_torch.envs.sdag import SdagSSZ
+    from cpr_tpu_torch.envs.spar import SparSSZ
     from cpr_tpu_torch.envs.stree import StreeSSZ
     from cpr_tpu_torch.envs.tailstorm import TailstormSSZ
     from cpr_tpu_torch.envs.tailstorm_june import TailstormJuneSSZ
@@ -198,7 +198,9 @@ def _ensure_builtin():
          lambda **kw: EthereumSSZ("whitepaper", **kw)),
         ("ethereum-byzantium",
          lambda **kw: EthereumSSZ("byzantium", **kw)),
+        ("spar", SparSSZ),
         ("stree", StreeSSZ),
+        ("sdag", SdagSSZ),
         ("tailstorm", TailstormSSZ),
         ("tailstormjune", TailstormJuneSSZ),
     ]:

@@ -34,7 +34,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu", "rtdp.cu",
            "dag_script.cu", "bk_stream.cu", "ethereum_stream.cu",
            "quorum_check.cu", "tailstorm_stream.cu", "stree_stream.cu",
-           "actor_check.cu", "gae.cu", "ppo_loss.cu", "adam.cu",
+           "spar_stream.cu", "sdag_stream.cu", "actor_check.cu", "gae.cu",
+           "ppo_loss.cu", "adam.cu",
            "netsim_scan.cu", "netsim_event.cu", "netsim_attack.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -48,7 +49,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (csrc/actor_check.cu). K11-loss counts its forward and backward launches.
 launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K8": 0, "K9": 0, "K10-bk": 0, "K10-eth": 0, "K10-ts": 0,
-            "K10-stree": 0, "K11-act": 0, "K11-gae": 0, "K11-loss": 0,
+            "K10-stree": 0, "K10-spar": 0, "K10-sdag": 0, "K11-act": 0,
+            "K11-gae": 0, "K11-loss": 0,
             "K11-adam": 0, "K12-scan": 0, "K12-event": 0, "K13": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -315,7 +317,9 @@ def _load() -> dict[str, ctypes.CDLL]:
         for name, src in (("bk", "bk_stream.cu"),
                           ("eth", "ethereum_stream.cu"),
                           ("ts", "tailstorm_stream.cu"),
-                          ("stree", "stree_stream.cu")):
+                          ("stree", "stree_stream.cu"),
+                          ("spar", "spar_stream.cu"),
+                          ("sdag", "sdag_stream.cu")):
             lib = ctypes.CDLL(str(paths[src]))
             stream_fn = getattr(lib, f"cpr_k10_{name}_stream")
             stream_fn.argtypes = [dp, ep, _p, _p, _int, _i64, _int, pp, cfg,
@@ -821,6 +825,16 @@ def check_quorum_modes(name, C, R, width) -> None:
             f"{_MAX_FRAME}, release scans of at most {_MAX_WINDOW} and rows "
             f"of at most 16 leaves, this one has {C}, {R} and {width} "
             "(ROADMAP item 8c)")
+
+
+def check_spar_modes(name, k) -> None:
+    """K10-spar's limit: the release selects the k + 8 oldest votes of
+    its block in one top-k of at most 16 (csrc/dag.cuh kMaxTopK), so
+    k <= 8."""
+    if not 2 <= k <= 8:
+        raise NotImplementedError(
+            f"{name}: K10-spar's release selection holds k + 8 <= 16 votes "
+            f"(k <= 8), this one has k = {k} (ROADMAP item 8c)")
 
 
 def _dag_ptrs(dag, dev, name) -> _DagPtrs:

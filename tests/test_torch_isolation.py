@@ -60,6 +60,7 @@ for mod in ("cpr_tpu_torch", "cpr_tpu_torch.envs", "cpr_tpu_torch.envs.nakamoto"
             "cpr_tpu_torch.envs.bk", "cpr_tpu_torch.envs.ethereum",
             "cpr_tpu_torch.envs.quorum", "cpr_tpu_torch.envs.tailstorm",
             "cpr_tpu_torch.envs.stree", "cpr_tpu_torch.envs.tailstorm_june",
+            "cpr_tpu_torch.envs.spar", "cpr_tpu_torch.envs.sdag",
             "cpr_tpu_torch.envs.assumption", "cpr_tpu_torch.learn.buffer",
             "cpr_tpu_torch.train.ppo", "cpr_tpu_torch.train.optim",
             "cpr_tpu_torch.train.config", "cpr_tpu_torch.train.driver",
@@ -86,7 +87,8 @@ stats = env.make_episode_stats_fn(make_params(alpha=0.35, gamma=0.5,
     random.split(random.PRNGKey(0, device="cpu"), 4))
 assert int(stats["n_episodes"].sum()) == 8
 for key in ("bk-2-constant", "ethereum-byzantium",
-            "tailstorm-2-discount-heuristic", "stree-2-constant-optimal"):
+            "tailstorm-2-discount-heuristic", "stree-2-constant-optimal",
+            "spar-2-constant", "sdag-2-discount-heuristic"):
     env = envs.get(key, window=32)
     stats = env.make_episode_stats_fn(make_params(alpha=0.35, gamma=0.5,
                                                   max_steps=6),
@@ -186,10 +188,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from cpr_tpu_torch.envs import quorum as Q
     from cpr_tpu_torch.envs.bk import BkSSZ
     from cpr_tpu_torch.envs.ethereum import EthereumSSZ
+    from cpr_tpu_torch.envs.sdag import SdagSSZ
+    from cpr_tpu_torch.envs.spar import SparSSZ
     from cpr_tpu_torch.envs.stree import StreeSSZ
     from cpr_tpu_torch.envs.tailstorm import TailstormSSZ
     for denv in (BkSSZ(k=2, window=32), EthereumSSZ(window=32),
-                 TailstormSSZ(k=2, window=32), StreeSSZ(k=2, window=32)):
+                 TailstormSSZ(k=2, window=32), StreeSSZ(k=2, window=32),
+                 SparSSZ(k=2, window=32), SdagSSZ(k=2, window=32)):
         dstate, dobs = denv.init_lanes(keys, params)
         with pytest.raises(ValueError, match="CUDA"):
             kernels.dag_stream(denv, dstate, dobs, keys, 1, 4, params, 0)
@@ -197,7 +202,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             kernels.dag_step_lanes(denv, dstate, dobs,
                                    torch.zeros(4, dtype=torch.int32), mask,
                                    dstate, dobs, mask, params)
-        if denv.plane_fields:  # the vote envs: K9's check kernel too
+        if isinstance(denv, (TailstormSSZ, StreeSSZ)):  # K9's check too
             with pytest.raises(ValueError, match="CUDA"):
                 kernels.quorum_check(dstate.dag,
                                      Q.check_inputs(denv, dstate),
@@ -447,3 +452,22 @@ def test_k11_wrappers_refuse_cpu_tensors():
         kernels.adam(x, x, x, x, neg_lr=-1e-3, bc1=0.1, bc2=0.001, b1=0.9,
                      b2=0.999, omb1=0.1, omb2=0.001, eps=1e-5, max_norm=0.5)
     assert kernels.launches == before
+
+
+def test_chip_smoke_constants_are_assigned_once():
+    """Each module-level name of chip_smoke.py is bound once: a second
+    binding silently resizes the phases that read the first (the
+    net-policy streams' 512 lanes read the netsim path's 96)."""
+    import ast
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    seen = {}
+    for node in tree.body:
+        if isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for t in targets:
+                for n in ast.walk(t):
+                    if isinstance(n, ast.Name):
+                        seen.setdefault(n.id, []).append(node.lineno)
+    twice = {k: v for k, v in seen.items() if len(v) > 1}
+    assert not twice, f"bound more than once: {twice}"

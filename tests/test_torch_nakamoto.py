@@ -341,8 +341,10 @@ def test_parse_key_grammar(key):
 
 def test_registry_surface():
     assert tregistry.keys() == ["bk", "ethereum", "ethereum-byzantium",
-                                "ethereum-whitepaper", "nakamoto", "stree",
-                                "tailstorm", "tailstormjune"]
+                                "ethereum-whitepaper", "nakamoto", "sdag",
+                                "spar", "stree", "tailstorm",
+                                "tailstormjune"]
+    assert tregistry.keys() == jregistry.keys()
     env = tregistry.get("nakamoto")
     assert isinstance(env, TEnv) and tregistry.get("nakamoto") is env
     assert tregistry.get_sized("nakamoto", 128) is env
@@ -350,7 +352,8 @@ def test_registry_surface():
     raw = tregistry.get("nakamoto", unit_observation=False)
     assert raw is not env and raw.unit_observation is False
     for key in ("spar-3-block", "sdag-2-constant-altruistic"):
-        with pytest.raises(KeyError, match="not ported .* item 8d: "):
-            tregistry.get(key)
+        env, jenv = tregistry.get(key), jregistry.get(key)
+        assert type(env).__name__ == type(jenv).__name__
+        assert (env.k, env.capacity) == (jenv.k, jenv.capacity)
     with pytest.raises(KeyError, match="cannot parse"):
         tregistry.get("nosuch")

@@ -173,9 +173,15 @@ def test_registry_keys():
     np.testing.assert_array_equal(opt.opt_combos, jopt.opt_combos)
     for key in ("stree-8-constant-heuristic", "tailstormjune-8-block"):
         assert tregistry.describe(key) == jregistry.describe(key)
-    for key in ("spar-8-constant", "sdag-8-constant-heuristic"):
-        with pytest.raises(KeyError, match="item 8d: "):
-            tregistry.get(key)
+    # every family of the JAX registry resolves in the port
+    from cpr_tpu_torch.envs.sdag import SdagSSZ
+    from cpr_tpu_torch.envs.spar import SparSSZ
+    for key, cls in (("spar-8-constant", SparSSZ),
+                     ("sdag-8-constant-heuristic", SdagSSZ)):
+        env, jenv = tregistry.get(key), jregistry.get(key)
+        assert isinstance(env, cls)
+        assert (env.k, env.capacity) == (jenv.k, jenv.capacity)
+        assert env.scripted_policies == tuple(jenv.policies)
 
 
 def test_kernels_take_ring_windows_only():
