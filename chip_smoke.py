@@ -264,6 +264,32 @@ Phases, one line each; any failure raises and the exit code is not 0:
  46. K10-spar and K10-sdag device times per 128-step launch and per
      tick, the plain versions' times and the bounds (9 threefry blocks a
      mining draw, the lane state read and written once).
+ 47. K12-event-bk, K12-event-eth and K12-event-spar against every case of
+     their JAX fixture (tests/fixtures/torch_port_netsim_protocols_
+     golden.npz: the sweep's seven event configurations at 2000
+     activations, the block schemes at k = 2 and 1, forced window misses,
+     flooding), the engine's sizes held to the fixture's;
+ 48. each against its plain version, exactly, on the sweep's five lanes
+     (seed 0, activation delays 30 to 600): its first configuration (Bk
+     k=8 constant, the whitepaper, Spar k=4 constant) at the full 10 000
+     activations, the others at HN_PLAIN_ACTS; then flooding on
+     random_regular(13, 4) with exponential delays (NET_FLOOD_LANES x
+     NET_FLOOD_ACTS);
+ 49. the honest-network sweep on the card (`experiments.honest_net_rows`,
+     engine="jax", the JAX package's defaults: 10-node clique, 10 000
+     activations, seed 0, delays 30-600, the 8 default protocols), then
+     Spar k=4 under both schemes: one warm and three timed rounds, the
+     counters zeroed before each call and read after it (K12-scan,
+     K12-event-eth and K12-event-bk on the first, K12-event-spar on the
+     second, no other kernel); the calls' drops and window misses 0 (the
+     netsim's telemetry events), the manifest on the card, 40 rows and 2
+     Tailstorm error rows, every lane's 10 000 activations, Bk constant's
+     rewards its progress, Spar's progress k times its height, the
+     Ethereum bounds of the JAX package's invariant test, orphan rates in
+     [0, 0.2] and falling from delay 30 to 600; no lane exhausted;
+ 50. the three kernels' device times a launch at the sweep's shape, the
+     L2 scrubbed; the bounds (the threefry work of the run's steps and
+     activations, the lanes' inputs and outputs).
 Then the kernels line (JSON: launches summed over the main paths, the
 error of the main-shape comparison, the times and the bound) and the
 last line {"ok": true, "device": {...}}.
@@ -303,6 +329,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -517,6 +544,34 @@ ATK_SWEEP_LANES, ATK_SWEEP_ACTS = 4096, 2000
 # default max(256, 32 N) = 256
 ATK_QUEUE_CAP = 2048
 ATK_EXTRA_ACTS, ATK_EXTRA_LANES = 300, 16
+# The netsim's protocol branches (K12-event-bk, -eth, -spar) and the
+# honest-network sweep on them (`experiments.honest_net_rows`, engine="jax",
+# at the JAX package's defaults, cpr_tpu/experiments/honest_net.py:30-43,
+# 188-207: the 10-node clique, propagation 1.0, 10 000 activations, seed 0
+# at the five activation delays, the 8 default protocols), then Spar k=4
+# under both schemes at the same shape (the Spar config of
+# tests/test_netsim.py:416-420). Each kernel is held to its plain version
+# on the sweep's five lanes: its first configuration at the full 10 000
+# activations, the others at HN_PLAIN_ACTS; and to every case of its JAX
+# fixture.
+PROTO_FIXTURE = ROOT / "tests" / "fixtures" / \
+    "torch_port_netsim_protocols_golden.npz"
+HN_NODES, HN_ACTS, HN_PROP, HN_SEED = 10, 10000, 1.0, 0
+HN_DELAYS = (30.0, 60.0, 120.0, 300.0, 600.0)
+HN_SPAR = (("spar", {"k": 4, "scheme": "constant"}),
+           ("spar", {"k": 4, "scheme": "block"}))
+HN_PLAIN_ACTS = 2000
+PROTO_CONFIGS = {
+    "K12-event-bk": (("bk", 8, "constant"), ("bk", 4, "constant"),
+                     ("bk", 8, "block")),
+    "K12-event-eth": (("ethereum-whitepaper", 1, "constant"),
+                      ("ethereum-byzantium", 1, "constant")),
+    "K12-event-spar": (("spar", 4, "constant"), ("spar", 4, "block")),
+}
+PROTO_KERNELS = tuple(PROTO_CONFIGS)
+PROTO_OUT_KEYS = ("head", "head_height", "progress", "on_chain", "sim_time",
+                  "n_blocks", "n_act", "node_act", "reward", "steps",
+                  "drop_q", "drop_p", "drop_b", "win_miss", "exhausted")
 
 
 _START = time.perf_counter()
@@ -3638,6 +3693,229 @@ def phase_netsim_times(dev, report, event_steps, attack_steps):
         for k in ("K12-scan", "K12-event", "K13")})
 
 
+# -- the netsim's protocol branches and the honest-network sweep -------------
+
+def proto_fixture_engine(prfx, name, dev):
+    """A protocol fixture case's Engine, from the fixture alone."""
+    from cpr_tpu_torch import netsim
+    kw = dict(protocol=str(prfx[f"{name}_protocol"]),
+              k=int(prfx[f"{name}_k"]), scheme=str(prfx[f"{name}_scheme"]),
+              activations=int(prfx[f"{name}_A"]))
+    for f in ("window", "uncle_cap"):
+        if int(prfx[f"{name}_{f}"]):
+            kw[f] = int(prfx[f"{name}_{f}"])
+    return netsim.Engine(netsim_fixture_net(prfx, name), mode="event",
+                         device=dev, **kw)
+
+
+def phase_proto_fixture(dev, prfx):
+    """Every case of the protocols' JAX fixture through its kernel: the
+    sweep's seven event configurations at 2000 activations, the block
+    schemes at k = 2 and 1, the forced window misses and flooding."""
+    from cpr_tpu_torch.netsim import engine as E
+    names = sorted(k[:-len("_protocol")] for k in prfx
+                   if k.endswith("_protocol"))
+    for name in names:
+        eng = proto_fixture_engine(prfx, name, dev)
+        check((eng.B, eng.W, eng.U) == tuple(int(prfx[f"{name}_{f}"])
+                                             for f in ("B", "W", "U")),
+              f"{name}: engine sizes differ from the JAX package's")
+        keys, dl = lane_inputs(prfx[f"{name}_seeds"].tolist(),
+                               prfx[f"{name}_delays"].tolist(), dev)
+        got = E.finish(eng.lanes(keys, dl))
+        want = {k: prfx[f"{name}_{k}"] for k in PROTO_OUT_KEYS}
+        compare_netsim(got, want, f"{name} vs the JAX fixture",
+                       NET_TIME_RTOL)
+    say("proto_fixture", cases=len(names), ok=True)
+
+
+def proto_engine(proto, k, scheme, acts, cn=None):
+    from cpr_tpu_torch import netsim
+    return netsim.Engine(cn if cn is not None
+                         else bench_clique(HN_NODES, HN_PROP),
+                         protocol=proto, k=k, scheme=scheme,
+                         activations=acts)
+
+
+def proto_plain(eng, keys, dl):
+    from cpr_tpu_torch.netsim import engine as E
+    return E.event_plain(eng.net, eng.activations, eng.B, eng.M, eng.F,
+                         eng.S, keys, dl, eng.proto)
+
+
+def phase_proto_plain(dev, report):
+    """Each protocol kernel against its plain version, exactly: the
+    kernel's first configuration (PROTO_FULL) at the path's full shape
+    (the sweep's five lanes, 10 000 activations, delay 30 the most
+    contended), its other configurations at HN_PLAIN_ACTS on the same
+    lanes; then flooding on random_regular(13, 4) with exponential
+    delays. The full shape's plain replay gives the row's plain time and
+    error."""
+    from cpr_tpu_torch import distributions as D
+    from cpr_tpu_torch import kernels, netsim, network
+    flood = netsim.compile_network(network.random_regular(
+        13, 4, activation_delay=NET_ACT_DELAY, delay=D.exponential(2.0),
+        seed=1))
+    keys, dl = lane_inputs([HN_SEED] * len(HN_DELAYS), HN_DELAYS, dev)
+    margins, secs = {}, {}
+    for kern, configs in PROTO_CONFIGS.items():
+        for i, (proto, k, scheme) in enumerate(configs):
+            acts = HN_ACTS if i == 0 else HN_PLAIN_ACTS
+            eng = proto_engine(proto, k, scheme, acts)
+            what = f"{proto}-{k}-{scheme}@{acts}"
+            got = eng.lanes(keys, dl)
+            want, secs[what] = plain_timed(lambda: proto_plain(eng, keys, dl))
+            margins[what] = float(want["margin"].min())
+            err = compare_netsim(got, want, f"{kern} {what} vs plain")
+            if i == 0:
+                report[kern]["plain_ms"] = secs[what] * 1e3
+                report[kern]["max_abs_err"] = err
+                check(int(got["steps"].max()) > 0, f"{kern} ran no step")
+        proto, k, scheme = configs[0]
+        eng = proto_engine(proto, k, scheme, NET_FLOOD_ACTS, flood)
+        fk, fd = lane_inputs(range(NET_FLOOD_LANES),
+                             [NET_ACT_DELAY] * NET_FLOOD_LANES, dev)
+        got = eng.lanes(fk, fd)
+        what = f"{proto}-flood13"
+        want, secs[what] = plain_timed(lambda: proto_plain(eng, fk, fd))
+        margins[what] = float(want["margin"].min())
+        compare_netsim(got, want, f"{kern} flooding vs plain")
+    kernels.reset_launches()  # the comparisons' launches count nowhere
+    say("proto_plain", margin=json.dumps(margins), plain_s=json.dumps(secs),
+        max_abs_err=json.dumps({k: report[k]["max_abs_err"]
+                                for k in PROTO_KERNELS}), ok=True)
+
+
+def hn_guards(rows, spar_rows):
+    """The sweep's guards on its rows: 30 rows and 2 Tailstorm error rows,
+    then 10 Spar rows; every lane's activations there; Bk constant's
+    rewards summing to its progress; Spar's progress k times the head's
+    height; the Ethereum bounds of the JAX package's invariant test;
+    orphan rates in [0, 0.2], falling from delay 30 to 600."""
+    ok = [r for r in rows + spar_rows if "error" not in r]
+    bad = [r for r in rows + spar_rows if "error" in r]
+    check(len(ok) == 40 and len(bad) == 2, f"{len(ok)} rows, {len(bad)} "
+          f"error rows, expected 40 and 2")
+    check(all(r["protocol"] == "tailstorm"
+              and r["reason"] == "unsupported-protocol" for r in bad),
+          f"unexpected error rows: {bad}")
+    orphan = {}
+    for r in ok:
+        what = f"{r['protocol']}-{r['k']}-{r['incentive_scheme']}"
+        acts = sum(int(x) for x in r["node_activations"].split("|"))
+        check(acts == HN_ACTS, f"{what}: {acts} activations")
+        hh, prog = r["head_height"], r["head_progress"]
+        if r["protocol"] == "bk" and r["incentive_scheme"] == "constant":
+            check(abs(r["reward_total"] - prog) < 1e-6,
+                  f"{what}: rewards {r['reward_total']} != progress {prog}")
+        if r["protocol"] == "spar":
+            check(prog == r["k"] * hh, f"{what}: progress {prog} != k*h")
+        if r["protocol"].startswith("ethereum"):
+            if r["protocol"] == "ethereum-byzantium":
+                check(prog >= hh, f"{what}: progress below height")
+            else:
+                check(prog == hh, f"{what}: progress {prog} != height")
+            check(hh - 1e-6 <= r["reward_total"] <= HN_ACTS + 1e-6,
+                  f"{what}: rewards {r['reward_total']} out of bounds")
+            check(r["on_chain"] >= hh, f"{what}: on_chain below height")
+        check(0.0 <= r["orphan_rate"] <= 0.2,
+              f"{what}: orphan rate {r['orphan_rate']}")
+        orphan.setdefault(what, {})[r["activation_delay"]] = r["orphan_rate"]
+    for what, by in orphan.items():
+        check(by[30.0] > by[600.0], f"{what}: orphan rate at delay 30 "
+              f"{by[30.0]} not above delay 600's {by[600.0]}")
+    return orphan
+
+
+def phase_honest_net(dev, report):
+    """The honest-network sweep on the card (`experiments.honest_net_rows`,
+    engine="jax") at the JAX package's defaults: the 8 default protocols
+    (30 rows through K12-scan, K12-event-eth and K12-event-bk, and 2
+    Tailstorm error rows), then Spar k=4 under both schemes at the same
+    shape (K12-event-spar); one warm and three timed rounds, the launch
+    counters zeroed before each call and read after it. The netsim's
+    telemetry events count each call's drops and window misses; the
+    lanes' outputs are read again by one Engine.run per configuration
+    (exhausted), counted nowhere."""
+    from cpr_tpu_torch import kernels, telemetry
+    from cpr_tpu_torch.experiments import honest_net_rows
+    counts = {k: 0 for k in kernels.launches}
+    secs, spar_secs = [], []
+    for rnd_i in range(4):
+        buf = io.StringIO()
+        telemetry.configure(stream=buf)
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rows = honest_net_rows(engine="jax")
+            secs.append(time.perf_counter() - t0)
+            c1 = dict(kernels.launches)
+            path_launches(c1, ("K12-scan", "K12-event-eth", "K12-event-bk"),
+                          "honest-net")
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            spar_rows = honest_net_rows(protocols=HN_SPAR, engine="jax")
+            spar_secs.append(time.perf_counter() - t0)
+            c2 = dict(kernels.launches)
+            path_launches(c2, ("K12-event-spar",), "honest-net spar")
+        finally:
+            telemetry.configure()
+        for c in (c1, c2):
+            for k, n in c.items():
+                counts[k] += n
+        events = [json.loads(line) for line in buf.getvalue().splitlines()]
+        nets = [e for e in events if e.get("name") == "netsim"
+                and e.get("kind") == "event"]
+        check(len(nets) == 8 and all(e["drops"] == 0 for e in nets),
+              f"honest-net calls dropped or missed: {nets}")
+        check(any(e.get("kind") == "manifest"
+                  and e.get("backend") == "cuda" for e in events),
+              "the sweep's manifest does not state the card")
+        orphan = hn_guards(rows, spar_rows)
+    check(all(r["backend"] == "cuda" for r in rows), "rows not on the card")
+    for kern, configs in PROTO_CONFIGS.items():
+        for proto, k, scheme in configs:
+            out = proto_engine(proto, k, scheme, HN_ACTS).run(
+                [HN_SEED] * len(HN_DELAYS), HN_DELAYS)
+            check(drops(out) == 0 and not out["exhausted"].any(),
+                  f"{proto}-{k}-{scheme} dropped or exhausted")
+    kernels.reset_launches()
+    say("honest_net", rows=len(rows) + len(spar_rows), call_s=secs,
+        spar_call_s=spar_secs, orphan=json.dumps(
+            {w: [round(by[d], 6) for d in HN_DELAYS]
+             for w, by in orphan.items()}),
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    return counts
+
+
+def phase_proto_times(dev, report):
+    """Each protocol kernel's device time a launch at the path's shape (its
+    first configuration, the sweep's five lanes x 10 000 activations),
+    the L2 scrubbed, by CUDA events around the wrapper call; the bound:
+    the threefry work of this run's steps (a 5-way split a step, N + 1
+    blocks an activation and, Bk, one more for the vote's hash, 2 at
+    init) and the lanes' inputs and outputs."""
+    from cpr_tpu_torch import kernels
+    N, L = HN_NODES, len(HN_DELAYS)
+    keys, dl = lane_inputs([HN_SEED] * L, HN_DELAYS, dev)
+    io_bytes = L * (16 + 9 * 4 + 1 + 8 + 2 * 8 + N * 8)
+    for kern, configs in PROTO_CONFIGS.items():
+        proto, k, scheme = configs[0]
+        eng = proto_engine(proto, k, scheme, HN_ACTS)
+        steps = int(eng.lanes(keys, dl)["steps"].sum())
+        per_act = N + (2 if proto == "bk" else 1)
+        r = report[kern]
+        r["ms"] = event_ms(lambda: eng.lanes(keys, dl), 5)
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            io_bytes, THREEFRY_OPS * (5 * steps + L * HN_ACTS * per_act
+                                      + 2 * L))
+        r["library_ms"] = None
+    kernels.reset_launches()
+    say("proto_times", **{k: json.dumps(
+        {f: report[k][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")})
+        for k in PROTO_KERNELS})
+
+
 def parametric_capstone():
     """The capstone's structure, compiled once at the probe point with
     its exponent columns; returns (ParamMDP, host seconds)."""
@@ -3698,6 +3976,8 @@ def main() -> int:
         nfx = {k: f[k] for k in f.files}
     with np.load(SPAR_SDAG_FIXTURE) as f:
         sfx = {k: f[k] for k in f.files}
+    with np.load(PROTO_FIXTURE) as f:
+        prfx = {k: f[k] for k in f.files}
     for name in ("spar", "sdag"):  # the paths' reference revenues
         VOTE_REVENUE[name] = float(sfx[f"{name}_ref_revenue"])
     csrc = "cpr_tpu_torch/csrc"
@@ -3803,8 +4083,26 @@ def main() -> int:
                     route="cuda",
                     source=f"{csrc}/netsim_attack.cu",
                     replaces="cpr_tpu/netsim/attack.py:81"),
+        "K12-event-bk": dict(name="K12-event-bk netsim event engine under "
+                             "Bk (the honest-net sweep: k=4 constant, k=8 "
+                             "constant and block; 5 lanes x 10000 "
+                             "activations a launch)", route="cuda",
+                             source=f"{csrc}/netsim_event_bk.cu",
+                             replaces="cpr_tpu/netsim/engine.py:409"),
+        "K12-event-eth": dict(name="K12-event-eth netsim event engine under "
+                              "Ethereum (the honest-net sweep: whitepaper "
+                              "and Byzantium; 5 lanes x 10000 activations "
+                              "a launch)", route="cuda",
+                              source=f"{csrc}/netsim_event_eth.cu",
+                              replaces="cpr_tpu/netsim/engine.py:311"),
+        "K12-event-spar": dict(name="K12-event-spar netsim event engine "
+                               "under Spar (the honest-net sweep's Spar "
+                               "call: k=4 constant and block; 5 lanes x "
+                               "10000 activations a launch)", route="cuda",
+                               source=f"{csrc}/netsim_event_spar.cu",
+                               replaces="cpr_tpu/netsim/engine.py:368"),
     }
-    netsim_rows = ("K12-scan", "K12-event", "K13")
+    netsim_rows = ("K12-scan", "K12-event", "K13", *PROTO_KERNELS)
     phase_k1(dev, fx, report)
     phase_k3(dev, fx)
     phase_k2(dev, fx)
@@ -3876,10 +4174,14 @@ def main() -> int:
                                                      scan_orphan)
     phase_k13(dev, nfx, report)
     attack_counts, attack_steps = phase_attack_path(dev, report)
+    phase_netsim_times(dev, report, event_steps, attack_steps)
+    phase_proto_fixture(dev, prfx)
+    phase_proto_plain(dev, report)
+    hn_counts = phase_honest_net(dev, report)
     for k in netsim_rows:
         report[k]["launches"] = sum(c[k] for c in (net_counts, event_counts,
-                                                   attack_counts))
-    phase_netsim_times(dev, report, event_steps, attack_steps)
+                                                   attack_counts, hn_counts))
+    phase_proto_times(dev, report)
     for k, v in report.items():
         check(v["ms"] >= v["bound_ms"],
               f"{k} measured {v['ms']} ms, below its bound of "

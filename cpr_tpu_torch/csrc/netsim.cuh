@@ -5,7 +5,7 @@
 //
 // Replaces: cpr_tpu/netsim/compile.py:75-99 `sample_delay_matrix`, the
 // `jax.random.categorical` miner draws (engine.py:298,777, attack.py:225)
-// and the reward walks (engine.py:638-687 nakamoto, :886-898,
+// and the Nakamoto reward walks (engine.py:638-687, :886-898,
 // attack.py:371-379). Plain twins: cpr_tpu_torch/netsim/compile.py
 // `sample_delay_matrix`, engine.py `scan_plain`/`event_plain`,
 // attack.py `attack_plain`.
@@ -119,6 +119,17 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
 __device__ __forceinline__ void warp_argmax(int& v, int& i) {
   for (int o = 16; o > 0; o >>= 1) {
     const int v2 = __shfl_xor_sync(kFull, v, o);
+    const int i2 = __shfl_xor_sync(kFull, i, o);
+    if (v2 > v || (v2 == v && i2 < i)) {
+      v = v2;
+      i = i2;
+    }
+  }
+}
+
+__device__ __forceinline__ void warp_argmax(double& v, int& i) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const double v2 = __shfl_xor_sync(kFull, v, o);
     const int i2 = __shfl_xor_sync(kFull, i, o);
     if (v2 > v || (v2 == v && i2 < i)) {
       v = v2;

@@ -2,10 +2,11 @@
 // Nakamoto (simple and flooding dissemination), one lane a (seed,
 // activation delay) simulation of `activations` blocks.
 //
-// Replaces: cpr_tpu/netsim/engine.py:92-715 `_lane_fn`, Nakamoto (its bk,
-// Ethereum and Spar branches, :311-459, are queued). Plain twin:
+// Replaces: cpr_tpu/netsim/engine.py:92-715 `_lane_fn`, Nakamoto (its Bk,
+// Ethereum and Spar branches are K12-event-bk/-eth/-spar,
+// netsim_event_{bk,eth,spar}.cu). Plain twin:
 // cpr_tpu_torch/netsim/engine.py `event_plain`. The engine itself is
-// netsim_event.cuh, shared with K13.
+// netsim_event.cuh, shared with those and K13.
 //
 // Bound: the threefry work (a 5-way key split, a Gumbel block a node at
 // each activation, an exponential draw, two blocks for each random

@@ -36,7 +36,8 @@ SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu", "rtdp.cu",
            "quorum_check.cu", "tailstorm_stream.cu", "stree_stream.cu",
            "spar_stream.cu", "sdag_stream.cu", "actor_check.cu", "gae.cu",
            "ppo_loss.cu", "adam.cu",
-           "netsim_scan.cu", "netsim_event.cu", "netsim_attack.cu")
+           "netsim_scan.cu", "netsim_event.cu", "netsim_attack.cu",
+           "netsim_event_bk.cu", "netsim_event_eth.cu", "netsim_event_spar.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,11 +48,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # inside K2 and K10 too: a stream launch with the net adds one to it as
 # well as to its own kernel, and so does its check kernel
 # (csrc/actor_check.cu). K11-loss counts its forward and backward launches.
+# K12-event-bk/-eth/-spar count the protocol kernels of the event engine
+# (csrc/netsim_event_{bk,eth,spar}.cu).
 launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K8": 0, "K9": 0, "K10-bk": 0, "K10-eth": 0, "K10-ts": 0,
             "K10-stree": 0, "K10-spar": 0, "K10-sdag": 0, "K11-act": 0,
             "K11-gae": 0, "K11-loss": 0,
-            "K11-adam": 0, "K12-scan": 0, "K12-event": 0, "K13": 0}
+            "K11-adam": 0, "K12-scan": 0, "K12-event": 0, "K13": 0,
+            "K12-event-bk": 0, "K12-event-eth": 0, "K12-event-spar": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -248,6 +252,17 @@ class _Ledger(ctypes.Structure):  # csrc/netsim_event.cuh Ledger
         (f, ctypes.c_int32) for f in ("B", "M", "F", "S", "A", "WA")]
 
 
+_PROTO_PLANES = ("is_vote", "nvotes", "powh", "lhash", "conf", "conf_own",
+                 "mybest", "repl", "noprop", "quorum", "work", "uncles",
+                 "progress", "on_chain")
+
+
+class _Proto(ctypes.Structure):  # csrc/netsim_event.cuh Proto
+    _fields_ = [(f, _p) for f in _PROTO_PLANES] + [
+        (f, ctypes.c_int32) for f in ("k", "qw", "W", "U", "byz",
+                                      "block_scheme")]
+
+
 class _LaneIn(ctypes.Structure):  # csrc/netsim_event.cuh LaneIn
     _fields_ = [(f, _p) for f in ("keys", "delays", "policy")] + [
         ("n_lanes", _i64), ("strict_match", ctypes.c_int32)]
@@ -378,6 +393,15 @@ def _load() -> dict[str, ctypes.CDLL]:
             getattr(lib, err).restype = ctypes.c_char_p
         _libs.update(netsim_scan=scan, netsim_event=event,
                      netsim_attack=attack)
+        for name in PROTOCOL_KERNELS.values():
+            lib = ctypes.CDLL(str(paths[f"netsim_event_{name}.cu"]))
+            fn = getattr(lib, f"cpr_k12_event_{name}")
+            fn.argtypes = ev_args[:4] + [ctypes.POINTER(_Proto)] + ev_args[4:]
+            fn.restype = _int
+            err = getattr(lib, f"cpr_k12_event_{name}_error_string")
+            err.argtypes = [_int]
+            err.restype = ctypes.c_char_p
+            _libs[f"netsim_event_{name}"] = lib
         return _libs
 
 
@@ -1237,6 +1261,9 @@ def adam(flat, grad, mu, nu, *, neg_lr, bc1, bc2, b1, b2, omb1, omb2, eps,
 # -- K12 / K13 ----------------------------------------------------------------
 
 SCAN_MAX_LOOKBACK = 256      # csrc/netsim_scan.cu: 8 ring slots a thread
+# the event engine's protocol kernels, by the protocol they run
+PROTOCOL_KERNELS = {"bk": "bk", "ethereum-whitepaper": "eth",
+                    "ethereum-byzantium": "eth", "spar": "spar"}
 EVENT_MAX_SMEM = 227 * 1024  # an H100 block's dynamic shared memory
 
 
@@ -1350,6 +1377,65 @@ def netsim_event(cn, A, B, M, F, S, keys, delays) -> dict:
                          "cpr_k12_event_error_string", cn,
                          log_compute(cn, keys.device), A, B, M, F, S, 0,
                          keys, delays)
+
+
+def proto_smem(W: int, QW: int, U: int) -> int:
+    """Shared memory a protocol kernel's lane adds to `event_smem`
+    (csrc/netsim_event.cuh `proto_smem`): four scratch arrays of
+    max(W, QW, U) entries and Ethereum's chain set."""
+    return (4 * max(W, QW, U) + 7 + 6 * U) * 4
+
+
+def netsim_event_protocol(cn, proto, A, B, M, F, S, keys, delays) -> dict:
+    """K12-event-bk, K12-event-eth or K12-event-spar, by `proto`
+    (`netsim.engine.Proto`): the event engine running that protocol for
+    `keys` [lanes, 2] and `delays` [lanes] f64 on CUDA, ledger capacity B,
+    queue M, pending F, step cap S -> the lanes' outputs with progress and
+    on_chain."""
+    from cpr_tpu_torch.netsim.engine import log_compute
+    name = PROTOCOL_KERNELS.get(proto.protocol)
+    if name is None:
+        raise ValueError(f"no event kernel runs '{proto.protocol}'")
+    kernel = f"K12-event-{name}"
+    dev, n = _lane_inputs(keys, delays, kernel)
+    N, QW, W, U = cn.n, proto.QW, proto.W, proto.U
+    smem = event_smem(M, F) + proto_smem(W, QW, U)
+    if smem > EVENT_MAX_SMEM:
+        raise ValueError(f"{kernel}: queue {M}, pending {F} and window {W} "
+                         f"need {smem} bytes of shared memory a lane, over "
+                         f"{EVENT_MAX_SMEM}")
+    pl, keep = _net_planes(cn, log_compute(cn, dev), dev)
+    led, planes = _ledger(n, B, M, F, S, A, 0, dev, False)
+    i32, f32 = torch.int32, torch.float32
+    shapes = {"is_vote": ((n, B), i32), "nvotes": ((n, B), i32),
+              "conf": ((n, B, N), i32), "conf_own": ((n, B, N), i32),
+              "quorum": ((n, B, QW), i32)}
+    if name == "bk":
+        shapes.update(powh=((n, B), f32), lhash=((n, B), f32),
+                      mybest=((n, B, N), f32), repl=((n, B, N), f32),
+                      noprop=((n, B), i32))
+    if name == "eth":
+        shapes = {"work": ((n, B), i32), "uncles": ((n, B, U), i32)}
+    bufs = {f: torch.empty(shape, dtype=dt, device=dev)
+            for f, (shape, dt) in shapes.items()}
+    out, ptrs = _net_out(n, N, dev)
+    for f in ("progress", "on_chain"):
+        bufs[f] = out[f] = torch.empty(n, dtype=torch.float64, device=dev)
+    pr = _Proto(*(bufs[f].data_ptr() if f in bufs else None
+                  for f in _PROTO_PLANES),
+                proto.k, QW, W, U, int(proto.byz),
+                int(proto.scheme == "block"))
+    lane_in = _LaneIn(keys.data_ptr(), delays.data_ptr(), None, n, 1)
+    lib = _load()[f"netsim_event_{name}"]
+    with torch.cuda.device(dev):
+        rc = getattr(lib, f"cpr_k12_event_{name}")(
+            ctypes.byref(lane_in), ctypes.byref(led), ctypes.byref(pl),
+            int(cn.flooding), ctypes.byref(pr), ctypes.byref(ptrs),
+            _stream(dev))
+    _check(rc, lib, f"cpr_k12_event_{name}_error_string", kernel)
+    del keep, planes, bufs
+    launches[kernel] += 1
+    return out
 
 
 def netsim_attack(cn, A, B, M, F, S, WA, keys, delays, alphas, policy,

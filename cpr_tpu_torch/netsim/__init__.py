@@ -2,12 +2,12 @@
 cpr_tpu/netsim).
 
 A `network.Network` compiles into dense planes (`compile_network`); the
-honest-node engine (`Engine`: the scan path K12-scan and the event
-engine K12-event) and the attacker at node 0 (`AttackEngine`, K13) run
+honest-node engine (`Engine`: the scan path K12-scan, and the event
+engine, K12-event for Nakamoto and K12-event-bk/-eth/-spar for Bk,
+Ethereum and Spar) and the attacker at node 0 (`AttackEngine`, K13) run
 a batch of independent lanes, each a (seed, activation delay[, alpha,
 policy]) tuple, as one kernel launch. Semantics, RNG stream and outputs
-are the JAX package's (Nakamoto; the bk, Ethereum and Spar branches are
-queued as ROADMAP item 11b).
+are the JAX package's, for every protocol it supports.
 """
 
 from cpr_tpu_torch.netsim.compile import (  # noqa: F401

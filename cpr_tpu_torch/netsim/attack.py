@@ -252,7 +252,7 @@ def attack_plain(cn: CompiledNet, A: int, B: int, M: int, F: int, S: int,
     h_priv = h_of(height, st["priv"])
     # the withheld suffix competes at the end; ties go to the attacker
     head = torch.where(h_priv >= best_h, st["priv"], st["pref"][lanes, jb])
-    reward = led.reward_walk(head, A + 2)
+    reward = led.reward_walk(head, A + 2)[0]
     return dict(head=head, head_height=h_of(height, head),
                 reward=reward, reward_attacker=reward[:, 0],
                 reward_defender=reward[:, 1:].sum(1),

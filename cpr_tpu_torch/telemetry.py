@@ -1,13 +1,15 @@
-"""Runtime telemetry for the port: spans, point events, memory watermarks.
+"""Runtime telemetry for the port: spans, point events, memory watermarks,
+run manifests.
 
-The part of `cpr_tpu.telemetry` that the exact-analysis path calls, over
-torch: a JSONL event sink (`Telemetry`, `configure`, `current`), `Span`
-timers that fence on the card with `torch.cuda.synchronize()` so device
-work lands in the span that launched it, and `MemoryWatermark`, which
-reads PyTorch's CUDA allocator (`memory_allocated`,
-`max_memory_allocated`) or, on the CPU, the process RSS. Event names and
-fields are the JAX package's (`vi_residuals`, `memory`), so one report
-reads the streams of either package.
+The part of `cpr_tpu.telemetry` that the port's paths call, over torch: a
+JSONL event sink (`Telemetry`, `configure`, `current`), `Span` timers
+that fence on the card with `torch.cuda.synchronize()` so device work
+lands in the span that launched it, `MemoryWatermark`, which reads
+PyTorch's CUDA allocator (`memory_allocated`, `max_memory_allocated`) or,
+on the CPU, the process RSS, and run manifests (`run_manifest`,
+`Telemetry.manifest`) that state torch's backend, card and versions.
+Event names and fields are the JAX package's (`vi_residuals`, `memory`,
+`manifest`), so one report reads the streams of either package.
 
 With no sink configured (`configure(path)`, or the `CPR_TELEMETRY` env
 var) spans still time and events go nowhere. Interval timing goes
@@ -18,10 +20,18 @@ from __future__ import annotations
 
 import json
 import os
+import socket
+import subprocess
+import sys
 import threading
+from datetime import datetime, timezone
 from time import perf_counter as now  # noqa: F401 — re-exported
 
 TELEMETRY_ENV_VAR = "CPR_TELEMETRY"
+# the JAX package's artifact schema (cpr_tpu/telemetry.py SCHEMA_VERSION)
+SCHEMA_VERSION = 17
+# a run id minted by a parent process, shared by its children's streams
+RUN_ID_ENV_VAR = "CPR_RUN_ID"
 
 # one lock serializes writes: two interleaved partial lines would
 # corrupt the JSONL stream
@@ -112,6 +122,12 @@ class Telemetry:
 
     def event(self, name: str, **fields):
         self.emit({"kind": "event", "name": name, "ts": now(), **fields})
+
+    def manifest(self, config: dict | None = None) -> dict:
+        """Emit (and return) a run manifest (`run_manifest`)."""
+        man = run_manifest(config)
+        self.emit(man)
+        return man
 
     def close(self):
         if self._sink is not None and self._own:
@@ -265,3 +281,76 @@ class MemoryWatermark:
 def memory_watermark(scope: str, tele: Telemetry | None = None,
                      **extra) -> MemoryWatermark:
     return MemoryWatermark(scope, tele, **extra)
+
+
+# -- run manifests -------------------------------------------------------------
+
+_run_id: str | None = None
+
+
+def run_id() -> str:
+    """This process tree's run id: inherited from $CPR_RUN_ID when a
+    parent minted one, else minted here and exported so every child
+    spawned after this call lands in the same trace."""
+    global _run_id
+    if _run_id is None:
+        rid = os.environ.get(RUN_ID_ENV_VAR)
+        if not rid:
+            import uuid
+
+            rid = uuid.uuid4().hex[:16]
+            os.environ[RUN_ID_ENV_VAR] = rid
+        _run_id = rid
+    return _run_id
+
+
+def git_sha() -> str | None:
+    """HEAD SHA of this checkout, or None outside a work tree."""
+    try:
+        out = subprocess.run(
+            ["git", "rev-parse", "HEAD"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=10)
+        if out.returncode == 0:
+            return out.stdout.strip()
+    except Exception:  # noqa: BLE001 — manifests are best-effort metadata
+        pass
+    return None
+
+
+def run_manifest(config: dict | None = None) -> dict:
+    """Self-describing snapshot of this process's runtime, so an artifact
+    row can be read with no other context: torch's backend (`cuda` when
+    a card is present, else `cpu`), the card's name and count, the torch
+    and CUDA versions, the git SHA and the resolved config. A failure to
+    read the runtime lands in `torch_error`; a manifest never kills a
+    run."""
+    man: dict = {
+        "kind": "manifest",
+        "schema": SCHEMA_VERSION,
+        "run": run_id(),
+        "time_utc": datetime.now(timezone.utc).isoformat(
+            timespec="seconds"),
+        "argv": list(sys.argv),
+        "hostname": socket.gethostname(),
+        "python": sys.version.split()[0],
+        "git_sha": git_sha(),
+    }
+    try:
+        import torch
+
+        cuda = torch.cuda.is_available()
+        man["backend"] = "cuda" if cuda else "cpu"
+        man["device_kind"] = (torch.cuda.get_device_name(0) if cuda
+                              else "cpu")
+        man["device_count"] = torch.cuda.device_count() if cuda else 1
+        man["torch_version"] = torch.__version__
+        man["cuda_version"] = torch.version.cuda
+        mem = device_memory_stats()
+        if mem:
+            man["memory_before"] = mem
+    except Exception as e:  # noqa: BLE001 — a manifest must never kill a run
+        man["torch_error"] = repr(e)
+    if config is not None:
+        man["config"] = config
+    return man

@@ -471,3 +471,26 @@ def test_chip_smoke_constants_are_assigned_once():
                         seen.setdefault(n.id, []).append(node.lineno)
     twice = {k: v for k, v in seen.items() if len(v) > 1}
     assert not twice, f"bound more than once: {twice}"
+
+
+def test_chip_smoke_main_binds_each_name_once():
+    """Each name chip_smoke.py's main() assigns is assigned once: the
+    fixtures are loaded into dicts side by side, and a second binding of
+    one name (the netsim protocols' fixture over the PPO fixture's) hands
+    the later phases the wrong fixture."""
+    import ast
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    seen = {}
+    for node in ast.walk(main):
+        if isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for t in targets:
+                for n in ast.walk(t):
+                    if isinstance(n, ast.Name) and isinstance(n.ctx,
+                                                              ast.Store):
+                        seen.setdefault(n.id, []).append(node.lineno)
+    twice = {k: v for k, v in seen.items() if len(v) > 1}
+    assert not twice, f"main() binds more than once: {twice}"

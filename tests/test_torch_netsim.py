@@ -281,12 +281,15 @@ def test_engine_validation(monkeypatch):
                          device="cpu").mode == "event"
     with pytest.raises(ValueError, match="pair up"):
         eng.run([0, 1], [50.0])
-    # the JAX package's other protocols, float32 clocks and meshes are
-    # queued, each naming its ROADMAP item
+    # the JAX package's other protocols run on the event engine (their
+    # parity: test_torch_netsim_protocols.py); float32 clocks and meshes
+    # are queued, each naming its ROADMAP item
     for proto, k in (("bk", 2), ("ethereum-byzantium", 1), ("spar", 4)):
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            netsim.Engine(net, protocol=proto, k=k, activations=100,
-                          device="cpu")
+        other = netsim.Engine(net, protocol=proto, k=k, activations=20,
+                              device="cpu")
+        assert other.mode == "event"
+        out = other.run([0], [50.0])
+        assert out["n_act"][0] == 20 and not out["exhausted"][0]
     with pytest.raises(NotImplementedError, match="item 11b"):
         netsim.Engine(net, activations=100, x64=False, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
