@@ -290,6 +290,45 @@ Phases, one line each; any failure raises and the exit code is not 0:
  50. the three kernels' device times a launch at the sweep's shape, the
      L2 scrubbed; the bounds (the threefry work of the run's steps and
      activations, the lanes' inputs and outputs).
+ 51. the serve engine at the main path's width, in two runs each with its
+     own launch counts: `ResidentEngine` (Nakamoto, alpha 0.35, gamma
+     0.5, max_steps 2016) over 131072 lanes, every lane spliced and run
+     under SM1 for SERVE_BURSTS bursts of 256 steps (K2, K3, K14; with
+     the experience rings at capacity 256 also K1 and K15); ms a burst,
+     env-steps/s, the relative revenue of the first-done registers
+     inside SM1_GUARD; the burst the episodes end in run again from a
+     copy of its carry and held to the plain twin (`_burst_plain`; with
+     the rings on, the kernel's recorded actions replayed through the
+     plain `_lane_step`, every recorded field checked), its plain time;
+     then the K2 stream over the same lanes and steps and the ratio;
+ 52. the mixed table at 4096 lanes, burst 256, max_steps 256, the rings
+     on: lanes cycled over the four scripted policies, a loaded greedy
+     net, the swap net `ppo` and `ppo#sample` ((64, 64), seeded), two
+     bursts each held to the plain version as in 51 (draws below
+     NET_MARGIN counted and printed), the first drained into
+     `Learner.ingest` at n_envs 4096, n_steps 256 (one update, every
+     metric finite), its own launch counts (K1, K2, K3, K11-*, K14,
+     K15); then a mid-run swap, after which the scripted lanes are bit
+     for bit those of an unswapped engine;
+ 53. K15's check kernel against its plain version at 131072 lanes and
+     C = 256 over numpy-seeded live masks (the rings wrap), the step
+     keys; then the device ms of K15 (a step) and K14 (a burst at full
+     width, rings on; rings off printed), L2 scrubbed, and their bounds;
+ 54. the wire path: `python -m cpr_tpu_torch.serve.server` as a child
+     at its defaults (32 lanes, burst 256, max_steps 256) with a policy
+     snapshot; 32 concurrent clients (scripted and `ppo` episode.run,
+     interactive episodes stepped to their end, one netsim.query);
+     SIGTERM: a drain report with 0 < p50 <= p99 < the traffic's wall,
+     exit 0; the child's launch counts (printed at its exit: K2, K3,
+     K14, K11-act, K12-scan, and K1 allowed);
+ 55. the learning loop: `python -m cpr_tpu_torch.learn.learner` and a
+     server with `--learner` and `--learn-watch` at tools/learn_smoke.
+     py's shape (16 lanes, burst 64, max_steps 64, --n-envs 16 --n-steps
+     64, alpha 0.45), flooded with `ppo#sample`, `honest` and `ppo`
+     sessions until the fingerprints in the replies have rotated through
+     LEARN_MIN_SWAPS published swaps, no session refused; the greedy
+     relative reward before and after printed (no gain required); both
+     children exit 0 on SIGTERM, with their launch counts.
 Then the kernels line (JSON: launches summed over the main paths, the
 error of the main-shape comparison, the times and the bound) and the
 last line {"ok": true, "device": {...}}.
@@ -573,6 +612,15 @@ PROTO_OUT_KEYS = ("head", "head_height", "progress", "on_chain", "sim_time",
                   "n_blocks", "n_act", "node_act", "reward", "steps",
                   "drop_q", "drop_p", "drop_b", "win_miss", "exhausted")
 
+# The serve paths (phases 51-55). Nine bursts of 256 cover an episode of
+# 2016 steps; it ends in burst 7, the one held to the plain version.
+SERVE_BURST, SERVE_BURSTS, SERVE_COMPARE_BURST = 256, 9, 7
+MIX_LANES, MIX_BURST, MIX_MAX_STEPS = 4096, 256, 256
+WIRE_CLIENTS, WIRE_MAX_STEPS = 32, 256  # the server's defaults: 32 lanes
+LEARN_LANES, LEARN_STEPS = 16, 64  # tools/learn_smoke.py's shape
+LEARN_MIN_SWAPS, LEARN_MAX_WAVES, LEARN_WALL_S = 2, 30, 240.0
+CHILD_READY_S, CHILD_STOP_S = 180.0, 120.0
+
 
 _START = time.perf_counter()
 
@@ -619,17 +667,20 @@ def device_ms(fn, reps, kernel):
     and its writes evict lines that go back to HBM, as they would for a
     caller that did other work between calls. A trace that lost a
     launch record (the profiler once reported 2 of 3 launches) is taken
-    again, twice at most; raises if it still does not hold every
-    launch."""
+    again, twice at most; if every one of them lost records, each call
+    is traced alone (three tries a call); raises if a call's launch is
+    still not in its trace."""
     from torch.profiler import ProfilerActivity, profile
     scrub = torch.empty(L2_SCRUB_BYTES // 4, dtype=torch.float32,
                         device="cuda")
     fn()
     torch.cuda.synchronize()
     parts = (kernel,) if isinstance(kernel, str) else kernel
-    for _ in range(3):
+
+    def traced(n):
+        """(device us, launches) of the kernel over n scrubbed calls."""
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(reps):
+            for i in range(n):
                 scrub.fill_(float(i))
                 fn()
             torch.cuda.synchronize()
@@ -639,14 +690,26 @@ def device_ms(fn, reps, kernel):
                 total_us += getattr(ev, "device_time_total",
                                     getattr(ev, "cuda_time_total", 0.0))
                 count += ev.count
+        return total_us, count
+
+    for _ in range(3):
+        total_us, count = traced(reps)
         if count == reps and total_us > 0:
-            break
+            return total_us / count / 1e3
         say("device_ms", kernel=json.dumps(parts), traced=count,
             expected=reps, retry=True)
-    check(count == reps and total_us > 0,
-          f"profiler trace holds {count} launches of *{kernel}*, "
-          f"expected {reps}")
-    return total_us / count / 1e3
+    total_us = 0.0
+    for _ in range(reps):
+        for _ in range(3):
+            us, n = traced(1)
+            if n == 1 and us > 0:
+                break
+        check(n == 1 and us > 0,
+              f"profiler trace holds {n} launches of *{kernel}*, "
+              f"expected 1")
+        total_us += us
+    say("device_ms", kernel=json.dumps(parts), one_call_a_trace=reps)
+    return total_us / reps / 1e3
 
 
 def bound_ms(n_bytes, n_ops):
@@ -3916,6 +3979,595 @@ def phase_proto_times(dev, report):
         for k in PROTO_KERNELS})
 
 
+# -- phases 51-55: the serve engine (K14, K15) and the learning loop ----------
+
+def serve_env(max_steps):
+    from cpr_tpu_torch.envs.nakamoto import NakamotoSSZ
+    from cpr_tpu_torch.params import make_params
+    return NakamotoSSZ(), make_params(alpha=0.35, gamma=0.5,
+                                      max_steps=max_steps)
+
+
+def exp_clone(exp):
+    return {k: v.clone() for k, v in exp.items()}
+
+
+def net_margins(eng, o, pol, live, exp_key, t):
+    """Per lane, the gap between the two largest (perturbed) logits of
+    its net entry at this step (inf for scripted lanes): a net's draw is
+    decided wherever it exceeds NET_MARGIN."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.learn import buffer
+    margin = torch.full(pol.shape, float("inf"), device=o.device)
+    for i, (kind, arg, _) in enumerate(eng._entries):
+        sel = (pol == i) & live
+        if kind == 0 or not bool(sel.any()):
+            continue
+        net, flat = eng._slots[arg]
+        with torch.no_grad():
+            z = net(o, flat)[0]
+        if kind == 2:  # the per-lane categorical of `#sample`
+            keys = buffer.step_keys_plain(exp_key, t)
+            x0, x1 = rnd.threefry_words(
+                keys[:, None, :], torch.arange(z.shape[-1],
+                                               device=o.device)[None, :])
+            z = z + rnd.gumbel_of_bits(rnd.from_words(x0 ^ x1))
+        margin = torch.where(sel, gumbel_margin(z), margin)
+    return margin
+
+
+def replay_burst(eng, carry0, exp0, pol, live, regs, what):
+    """K14 with the rings on against the plain version on the card: the
+    actions the kernel recorded replayed through the plain `_lane_step`
+    from a copy of the pre-burst carry. Every step the plain table
+    (`_actions_plain`) picks the recorded action wherever its margin
+    exceeds NET_MARGIN, and the recorded observation, reward, done,
+    episode rewards and policy are the plain ones; then the carry, the
+    cursors and counters and the first-done registers. Returns (largest
+    float error, draws below the margin, smallest net margin)."""
+    from cpr_tpu_torch.envs.base import _lane_where, map_state
+    from cpr_tpu_torch.serve.engine import CAPTURE_FIELDS
+    ring = eng._exp
+    C = ring["action"].shape[1]
+    n, dev = pol.shape[0], pol.device
+    lanes = torch.arange(n, device=dev)
+    state, o = clone_carry(carry0)
+    got = torch.zeros(n, dtype=torch.bool, device=dev)
+    idx = torch.zeros(n, dtype=torch.int32, device=dev)
+    caps = {k: torch.zeros(n, device=dev) for k in CAPTURE_FIELDS}
+    err, below, low = 0.0, 0, float("inf")
+    for i in range(eng.burst):
+        slot = ((exp0["cursor"].long() + i) % C)
+        t = exp0["t"] + i
+        d = float((ring["obs"][lanes, slot][live] - o[live]).abs().max())
+        check(d <= 1e-6, f"{what}: recorded obs beyond 1e-6 at step {i}")
+        err = max(err, d)
+        act = ring["action"][lanes, slot]
+        choice = eng._actions_plain(state, o, pol, live,
+                                    {"key": exp0["key"], "t": t})
+        m = net_margins(eng, o, pol, live, exp0["key"], t)
+        sure = live & (m > NET_MARGIN)
+        check(torch.equal(act[sure], choice[sure]),
+              f"{what}: actions differ at step {i}")
+        below += int((live & ~sure).sum())
+        if bool(torch.isfinite(m).any()):
+            low = min(low, float(m[torch.isfinite(m)].min()))
+        new, o2, _, reward, done, info = eng.env._lane_step(state, act,
+                                                            eng.params)
+        done = done & live
+        for f, v in (("reward", reward), ("done", done),
+                     ("era", info["episode_reward_attacker"]),
+                     ("erd", info["episode_reward_defender"]),
+                     ("policy", pol)):
+            check(torch.equal(ring[f][lanes, slot][live], v[live].to(
+                ring[f].dtype)), f"{what}: recorded {f} differs at {i}")
+        state = map_state(lambda a, b: _lane_where(live, a, b), new, state)
+        o = _lane_where(live, o2, o)
+        newly = done & ~got
+        idx = torch.where(newly, torch.full_like(idx, i), idx)
+        caps = {k: torch.where(newly, info[k], v) for k, v in caps.items()}
+        got = got | done
+    err = max(err, compare_state(eng._carry[0], state, f"{what} carry"))
+    check(float((eng._carry[1] - o).abs().max()) <= 1e-6,
+          f"{what}: final obs differs")
+    live_i = live.to(torch.int32)
+    check(torch.equal(ring["t"], exp0["t"] + eng.burst * live_i)
+          and torch.equal(ring["cursor"],
+                          exp0["cursor"] + eng.burst * live_i),
+          f"{what}: cursors or counters differ")
+    check(np.array_equal(regs["done"], got.cpu().numpy())
+          and np.array_equal(regs["done_step"], idx.cpu().numpy()),
+          f"{what}: first-done registers differ")
+    for k in CAPTURE_FIELDS:
+        check(np.array_equal(regs[k], caps[k].cpu().numpy()),
+              f"{what}: register {k} differs")
+    return err, below, low
+
+
+def phase_serve_full(dev, report):
+    """Phase 51: the serve engine at the main path's width, SM1 on every
+    lane, rings off then on; each run its own launch counts."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.serve.engine import ResidentEngine
+    env, params = serve_env(MAIN_MAX_STEPS)
+    L, B = MAIN_LANES, SERVE_BURST
+    counts, out = [], {}
+    for cap in (0, SERVE_BURST):
+        kernels.reset_launches()
+        eng = ResidentEngine(env, params, n_lanes=L, burst=B,
+                             experience=cap)
+        eng.start()
+        eng.splice({ln: ln for ln in range(L)})
+        sm1 = eng.policy_ids["sapirshtein-2016-sm1"]
+        lane_policy = dict.fromkeys(range(L), sm1)
+        atk = dfn = 0.0
+        secs, done = [], 0
+        for b in range(SERVE_BURSTS):
+            if b == SERVE_COMPARE_BURST:  # the burst the episodes end in:
+                # a copy of its carry to hold the kernel against
+                carry0 = clone_carry(eng._carry)
+                exp0 = None if eng._exp is None else exp_clone(eng._exp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            regs = eng.burst_run(lane_policy)
+            secs.append(time.perf_counter() - t0)
+            m = regs["done"]
+            atk += float(regs["episode_reward_attacker"][m].sum())
+            dfn += float(regs["episode_reward_defender"][m].sum())
+            done += int(m.sum())
+        counts.append(dict(kernels.launches))
+        path_launches(counts[-1], ("K2", "K3", "K14")
+                      + (("K1", "K15") if cap else ()),
+                      f"serve (rings {cap})")
+        rel = atk / (atk + dfn)
+        check(done >= L, f"serve: {done} episodes in {SERVE_BURSTS} "
+              f"bursts of {L} lanes")
+        check(SM1_GUARD[0] < rel < SM1_GUARD[1],
+              f"serve SM1 relative revenue {rel} outside {SM1_GUARD}")
+        ms = 1e3 * float(np.median(secs[1:]))
+        out[cap] = ms
+        say("serve", lanes=L, burst=B, rings=cap, rel_revenue=rel,
+            episodes=done, burst_ms=ms,
+            env_steps_per_s=L * B / (ms / 1e3),
+            launches=json.dumps(counts[-1]))
+        # that burst again from the copies, outside the counted path:
+        # the kernel against the plain twin
+        pol = torch.full((L,), sm1, dtype=torch.int32, device=dev)
+        live = torch.ones(L, dtype=torch.bool, device=dev)
+        eng._carry = clone_carry(carry0)
+        if cap:
+            eng._exp = exp_clone(exp0)
+        regs = eng.burst_run(lane_policy)
+        check(int(regs["done"].sum()) == L,
+              "the compared burst ends every lane's episode")
+        if cap:
+            err, below, _ = replay_burst(eng, carry0, exp0, pol, live, regs,
+                                         "K14 full width, rings on")
+            check(below == 0, "K14 full width: scripted lanes tied")
+            report["K14"]["max_abs_err"] = max(
+                report["K14"].get("max_abs_err", 0.0), err)
+            carry_p, exp_p = clone_carry(carry0), exp_clone(exp0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._burst_plain(carry_p, exp_p, pol, live)
+            torch.cuda.synchronize()
+            report["K14"]["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            say("serve_vs_plain", lanes=L, burst=B, rings=cap,
+                max_abs_err=err, plain_ms=report["K14"]["plain_ms"],
+                ok=True)
+        else:
+            carry_p = clone_carry(carry0)
+            regs_p = eng._burst_plain(carry_p, None, pol, live)
+            for k, v in regs_p.items():
+                check(np.array_equal(regs[k], v.cpu().numpy()),
+                      f"K14 full width rings off: register {k} differs")
+            compare_state(eng._carry[0], carry_p[0], "K14 rings off carry")
+            check(float((eng._carry[1] - carry_p[1]).abs().max()) <= 1e-6,
+                  "K14 rings off: obs differs")
+    # the K2 stream over the same lanes and steps, for the ratio
+    fn = env.make_episode_stats_fn(params, "sapirshtein-2016-sm1",
+                                   B * SERVE_BURSTS)
+    keys = rnd.split(rnd.PRNGKey(0, dev), L)
+    fn(keys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(keys)
+    torch.cuda.synchronize()
+    stream_ms = (time.perf_counter() - t0) * 1e3 / SERVE_BURSTS
+    say("serve_ratio", stream_ms_per_256_steps=stream_ms,
+        serve_over_stream=stream_ms / out[0],
+        serve_rings_over_stream=stream_ms / out[SERVE_BURST])
+    return counts
+
+
+def mixed_engine(dev, nets):
+    from cpr_tpu_torch.serve.engine import ResidentEngine
+    from cpr_tpu_torch.train.ppo import NetPolicy
+    env, params = serve_env(MIX_MAX_STEPS)
+    loaded, ppo = nets
+    eng = ResidentEngine(env, params, n_lanes=MIX_LANES, burst=MIX_BURST,
+                         extra_policies={"loaded": NetPolicy(loaded)},
+                         swap_policies={"ppo": (ppo, ppo.flat.detach()
+                                                .clone(), "fp0")},
+                         sample_policies=("ppo",), experience=MIX_BURST)
+    eng.start()
+    eng.splice({ln: 5000 + ln for ln in range(MIX_LANES)})
+    return eng
+
+
+def phase_serve_mixed(dev, report, tmp):
+    """Phase 52: the seven-entry table at 4096 lanes, K14 held to the
+    plain version; a mid-run swap; drain -> Learner.ingest."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.learn.learner import Learner
+    from cpr_tpu_torch.train.ppo import PPOConfig
+    nets = (make_net(4, 4, 64, 71, dev), make_net(4, 4, 64, 72, dev))
+    kernels.reset_launches()
+    eng = mixed_engine(dev, nets)
+    names = eng.policy_names
+    check(len(names) == 7, f"table {names}")
+    lane_policy = {ln: ln % len(names) for ln in range(MIX_LANES)}
+    pol = torch.tensor([lane_policy[ln] for ln in range(MIX_LANES)],
+                       dtype=torch.int32, device=dev)
+    live = torch.ones(MIX_LANES, dtype=torch.bool, device=dev)
+    err, below, low, episodes = 0.0, 0, float("inf"), 0
+    for b in range(2):
+        carry0, exp0 = clone_carry(eng._carry), exp_clone(eng._exp)
+        regs = eng.burst_run(lane_policy)
+        e, n_below, m = replay_burst(eng, carry0, exp0, pol, live, regs,
+                                     f"K14 mixed burst {b}")
+        err, below, low = max(err, e), below + n_below, min(low, m)
+        episodes += int(regs["done"].sum())
+        if b == 0:
+            batch = eng.drain_experience()
+    check(err <= 1e-5, f"K14 mixed: error {err}")
+    report["K14"]["max_abs_err"] = max(report["K14"].get("max_abs_err",
+                                                         0.0), err)
+    cfg = PPOConfig(n_envs=MIX_LANES, n_steps=MIX_BURST, hidden=(64, 64))
+    lr = Learner(eng.env, cfg, protocol="nakamoto", publish_dir=tmp)
+    reply = lr.ingest(batch)
+    metrics = lr.last_metrics
+    check(reply["updated"] >= 1 and metrics
+          and all(np.isfinite(v) for v in metrics.values()),
+          f"learner update: {reply} {metrics}")
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K1", "K2", "K3", "K14", "K15", "K11-act",
+                           "K11-gae", "K11-loss", "K11-adam"), "serve mixed")
+    say("serve_mixed", lanes=MIX_LANES, burst=MIX_BURST, table=len(names),
+        episodes=episodes, max_abs_err=err, draws_below_margin=below,
+        smallest_margin=low, windows=int(len(batch["lanes"])),
+        updates=lr.updates, pg_loss=metrics.get("pg_loss"),
+        launches=json.dumps(counts))
+
+    # a mid-run swap: the scripted lanes stay bit for bit those of an
+    # unswapped engine (outside the counted path)
+    a, bb = mixed_engine(dev, nets), mixed_engine(dev, nets)
+    ids = {ln: ln % 4 if ln % 2 else 4 + ln % 3 for ln in range(MIX_LANES)}
+    a.burst_run(ids), bb.burst_run(ids)
+    swapped = bb.swap_policy("ppo", make_net(4, 4, 64, 73, dev),
+                             fingerprint="fp1")
+    check(swapped["swapped"], "swap refused")
+    ra, rb = a.burst_run(ids), bb.burst_run(ids)
+    scripted = np.array([ln % 2 == 1 for ln in range(MIX_LANES)])
+    for k in ra:
+        check(np.array_equal(ra[k][scripted], rb[k][scripted]),
+              f"swap perturbed scripted lanes' {k}")
+    sl = torch.from_numpy(scripted).to(dev)
+    for f in ("a", "h", "steps", "key", "time"):
+        check(torch.equal(getattr(a._carry[0], f)[sl],
+                          getattr(bb._carry[0], f)[sl]),
+              f"swap perturbed scripted lanes' {f}")
+    say("serve_swap", lanes=MIX_LANES, scripted_lanes=int(scripted.sum()),
+        identical=True)
+    return counts
+
+
+def phase_exp_check(dev, report):
+    """Phase 53: K15's check kernel against its plain version at 131072
+    lanes and C = 256, live masks from a numpy seed; then the device
+    times of K14 and K15, their plain times and bounds."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.learn import buffer
+    from cpr_tpu_torch.serve.engine import ResidentEngine
+    L, C = MAIN_LANES, SERVE_BURST
+    exp = buffer.init_buffer(rnd.split(rnd.PRNGKey(9, dev), L), C, 4)
+    rng = np.random.default_rng(15)
+
+    def step_inputs():
+        g = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        return (g(rng.random(L) < 0.8),
+                g(rng.random((L, 4), dtype=np.float32)),
+                g(rng.integers(0, 4, L).astype(np.int32)),
+                g(rng.random(L, dtype=np.float32)),
+                g(rng.random(L) < 0.05),
+                g(rng.random(L, dtype=np.float32)),
+                g(rng.random(L, dtype=np.float32)),
+                g(rng.integers(0, 7, L).astype(np.int32)))
+
+    plain = exp_clone(exp)
+    for s in range(C + 3):  # the rings wrap
+        live, o, a, r, d, era, erd, pid = step_inputs()
+        kernels.exp_record(exp, live, o, a, r, d, era, erd, pid)
+        buffer.record_plain(plain, live, o, a, r, d, era, erd, pid)
+    for k in exp:
+        check(torch.equal(exp[k], plain[k]), f"K15 vs plain: {k} differs")
+    check(torch.equal(buffer.step_keys(exp),
+                      buffer.step_keys_plain(exp["key"], exp["t"])),
+          "K15 step keys differ")
+    report["K15"]["max_abs_err"] = 0.0
+    live, o, a, r, d, era, erd, pid = step_inputs()
+    k15 = report["K15"]
+    k15["ms"] = device_ms(lambda: kernels.exp_record(
+        exp, live, o, a, r, d, era, erd, pid), 50, "record_kernel")
+    k15["plain_ms"] = cuda_ms(lambda: buffer.record_plain(
+        plain, live, o, a, r, d, era, erd, pid), 10)
+    n_live = int(live.sum())
+    # inputs read once (live, obs, action, reward, done, era, erd,
+    # policy; cursor, t), a live lane's row slots and counters written
+    k15_bytes = L * (1 + 16 + 4 + 4 + 1 + 4 + 4 + 4 + 8) + n_live * (37 + 8)
+    k15["bound_ms"], k15["bound_by"] = bound_ms(k15_bytes, 0)
+
+    env, params = serve_env(MAIN_MAX_STEPS)
+    out = {}
+    for cap in (0, C):
+        eng = ResidentEngine(env, params, n_lanes=L, burst=C,
+                             experience=cap)
+        eng.start()
+        eng.splice({ln: ln for ln in range(L)})
+        sm1 = eng.policy_ids["sapirshtein-2016-sm1"]
+        pol = torch.full((L,), sm1, dtype=torch.int32, device=dev)
+        live1 = torch.ones(L, dtype=torch.bool, device=dev)
+
+        ended = torch.zeros((), dtype=torch.int64, device=dev)
+        calls = [0]
+
+        def burst():
+            calls[0] += 1
+            ended.add_(eng._burst(pol, live1, {sm1})["done"].sum())
+
+        out[cap] = device_ms(burst, 9, "burst_kernel")
+        if cap:  # episodes end at most once a lane a burst here
+            resets = int(ended) / calls[0]
+    k14 = report["K14"]
+    k14["ms"] = out[C]
+    # per lane: the state and obs read and written, policy, live and the
+    # six params read, the registers written; a lane-step's ring row
+    # (37 bytes); the threefry work of every step and reset
+    k14_bytes = L * (2 * (STATE_BYTES + OBS_BYTES) + 4 + 1 + 6 * 4
+                     + 1 + 4 + 16 + 3 * 8) + L * C * 37
+    k14_ops = THREEFRY_OPS * MINE_THREEFRY * (L * C + resets)
+    k14["bound_ms"], k14["bound_by"] = bound_ms(k14_bytes, k14_ops)
+    say("serve_times", K14=json.dumps({f: k14[f] for f in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}), K14_rings_off_ms=out[0],
+        K15=json.dumps({f: k15[f] for f in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")}),
+        resets=resets)
+
+
+CHILD_MAIN = """
+import atexit, json, runpy, sys
+from cpr_tpu_torch import kernels
+atexit.register(lambda: print("LAUNCHES " + json.dumps(kernels.launches),
+                              flush=True))
+mod = sys.argv[1]
+sys.argv = [mod] + sys.argv[2:]
+runpy.run_module(mod, run_name="__main__", alter_sys=True)
+"""
+
+
+def spawn_child(module, args, tmp, name):
+    """`python -m module args` as a child whose launch counts print at
+    its exit; its output in tmp/name.out, its telemetry in
+    tmp/name.jsonl. Returns the Popen."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT),
+           "CPR_TELEMETRY": str(Path(tmp) / f"{name}.jsonl")}
+    out = open(Path(tmp) / f"{name}.out", "w")
+    proc = subprocess.Popen([sys.executable, "-c", CHILD_MAIN, module,
+                             *map(str, args)], cwd=ROOT, env=env,
+                            stdout=out, stderr=subprocess.STDOUT)
+    out.close()
+    return proc
+
+
+def wait_ready(path, proc, what):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < CHILD_READY_S:
+        if Path(path).exists():
+            return json.loads(Path(path).read_text())
+        check(proc.poll() is None, f"{what} exited early ({proc.poll()})")
+        time.sleep(0.1)
+    raise AssertionError(f"{what} not ready in {CHILD_READY_S} s")
+
+
+def stop_child(proc, tmp, name, required, allowed=()):
+    """SIGTERM, exit 0 within the limit; the child's launch counts hold
+    `required` (each launched) and nothing outside `required + allowed`."""
+    import signal
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=CHILD_STOP_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{name} did not exit on SIGTERM") from None
+    text = (Path(tmp) / f"{name}.out").read_text()
+    check(rc == 0, f"{name} exited {rc}: {text[-3000:]}")
+    line = [x for x in text.splitlines() if x.startswith("LAUNCHES ")]
+    check(line, f"{name} printed no launch counts")
+    counts = json.loads(line[-1][len("LAUNCHES "):])
+    for k, n in counts.items():
+        if k in required:
+            check(n > 0, f"{k} never launched in {name}")
+        elif k not in allowed:
+            check(n == 0, f"{k} launched {n} times in {name}")
+    return counts
+
+
+def serve_events(tmp, name, action):
+    path = Path(tmp) / f"{name}.jsonl"
+    out = []
+    for line in path.read_text().splitlines():
+        e = json.loads(line)
+        if e.get("name") == "serve" and e.get("action") == action:
+            out.append(e)
+    return out
+
+
+def phase_wire(dev, report, tmp):
+    """Phase 54: `python -m cpr_tpu_torch.serve.server` as a child at its
+    defaults with a policy snapshot; 32 concurrent clients; SIGTERM."""
+    from cpr_tpu_torch.envs.nakamoto import NakamotoSSZ
+    from cpr_tpu_torch.serve.protocol import ServeClient
+    from cpr_tpu_torch.train.driver import export_policy_snapshot
+    honest = NakamotoSSZ().policies["honest"]
+
+    def honest_action(obs):
+        return int(honest(torch.tensor([obs], dtype=torch.float32))[0])
+
+    snap = str(Path(tmp) / "wire-ppo.msgpack")
+    export_policy_snapshot(snap, make_net(4, 4, 64, 81, dev),
+                           protocol="nakamoto", n_actions=4,
+                           observation_length=4, hidden=[64, 64])
+    ready = str(Path(tmp) / "wire-ready.json")
+    proc = spawn_child("cpr_tpu_torch.serve.server",
+                       ["--protocol", "nakamoto", "--policy-snapshot", snap,
+                        "--ready-file", ready, "--heartbeat-s", 0.5], tmp,
+                       "wire")
+    try:
+        port = wait_ready(ready, proc, "server")["port"]
+
+        def client(i):
+            with ServeClient("127.0.0.1", port, timeout=CHILD_STOP_S) as c:
+                if i == 0:
+                    r = c.request("netsim.query", seed=1)
+                    check(r["ok"] and sum(r["activations"]) == 1000,
+                          f"netsim.query: {r}")
+                    return "netsim"
+                if i % 3 == 1:  # interactive to the episode's end
+                    o = c.request("episode.open", seed=i)
+                    check(o["ok"], f"episode.open: {o}")
+                    obs = o["obs"]
+                    for _ in range(WIRE_MAX_STEPS + 1):
+                        s = c.request("episode.step", session=o["session"],
+                                      action=honest_action(obs))
+                        check(s["ok"], f"episode.step: {s}")
+                        if s["done"]:
+                            return "interactive"
+                        obs = s["obs"]
+                    raise AssertionError("interactive episode never ended")
+                policy = ("ppo" if i % 3 == 2
+                          else POLICIES[i % len(POLICIES)])
+                r = c.request("episode.run", policy=policy, seed=i)
+                check(r["ok"] and r["episode"]["n_steps"] > 0,
+                      f"episode.run {policy}: {r}")
+                return "ppo" if policy == "ppo" else "scripted"
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(WIRE_CLIENTS) as pool:
+            kinds = list(pool.map(client, range(WIRE_CLIENTS)))
+        wall = time.perf_counter() - t0
+    finally:
+        counts = stop_child(proc, tmp, "wire",
+                            ("K2", "K3", "K14", "K11-act", "K12-scan"),
+                            ("K1",))
+    reports = serve_events(tmp, "wire", "report")
+    check(len(reports) == 1, "no drain report")
+    rep = reports[0]["detail"]
+    check(0 < rep["p50_s"] <= rep["p99_s"] < wall,
+          f"drain report p50 {rep['p50_s']} p99 {rep['p99_s']} wall {wall}")
+    say("wire", clients=WIRE_CLIENTS,
+        kinds=json.dumps({k: kinds.count(k) for k in set(kinds)}),
+        wall_s=wall, p50_s=rep["p50_s"], p99_s=rep["p99_s"],
+        steps=rep["steps"], episodes=rep["episodes"],
+        launches=json.dumps(counts))
+    return counts
+
+
+def phase_learn_loop(dev, report, tmp):
+    """Phase 55: learner child + server child with --learner and
+    --learn-watch at tools/learn_smoke.py's shape; flood until the
+    fingerprint in the replies has rotated through LEARN_MIN_SWAPS
+    published swaps; both children exit 0 on SIGTERM."""
+    from cpr_tpu_torch.serve.protocol import ServeClient
+    pub = Path(tmp) / "published"
+    lready, sready = (str(Path(tmp) / "learner-ready.json"),
+                      str(Path(tmp) / "learn-server-ready.json"))
+    shape = ["--max-steps", LEARN_STEPS, "--protocol", "nakamoto"]
+    learner = spawn_child(
+        "cpr_tpu_torch.learn.learner",
+        [*shape, "--publish-dir", pub, "--ready-file", lready, "--n-envs",
+         LEARN_LANES, "--n-steps", LEARN_STEPS], tmp, "learner")
+    server = None
+    counts = {}
+    try:
+        lport = wait_ready(lready, learner, "learner")["port"]
+        server = spawn_child(
+            "cpr_tpu_torch.serve.server",
+            [*shape, "--lanes", LEARN_LANES, "--burst", LEARN_STEPS,
+             "--alpha", 0.45, "--policy-snapshot",
+             pub / "snapshot-000000.msgpack",
+             "--learner", f"127.0.0.1:{lport}", "--learn-watch", pub,
+             "--heartbeat-s", 0.5, "--staleness-slo-s", 60,
+             "--ready-file", sready], tmp, "learn-server")
+        port = wait_ready(sready, server, "server")["port"]
+
+        def worker(policies):
+            out = []
+            with ServeClient("127.0.0.1", port, timeout=CHILD_STOP_S) as c:
+                for policy in policies:
+                    r = c.request("episode.run", policy=policy)
+                    check(r.get("ok"), f"episode.run {policy}: {r}")
+                    if policy == "ppo":
+                        out.append((r["policy_fingerprint"],
+                                    r["episode"]["relative_reward"]))
+            return out
+
+        def wave(policies):
+            with ThreadPoolExecutor(LEARN_LANES) as pool:
+                jobs = [pool.submit(worker, policies)
+                        for _ in range(LEARN_LANES)]
+                return [x for j in jobs for x in j.result()]
+
+        t0 = time.perf_counter()
+        measured = wave(("ppo",) * 2)
+        base_fp = measured[0][0]
+        base = [r for fp, r in measured if fp == base_fp]
+        waves = 0
+        while len({fp for fp, _ in measured}) < LEARN_MIN_SWAPS + 1:
+            check(waves < LEARN_MAX_WAVES
+                  and time.perf_counter() - t0 < LEARN_WALL_S,
+                  f"{LEARN_MIN_SWAPS} swaps not seen in {waves} waves")
+            measured.extend(wave(("ppo#sample", "honest", "ppo",
+                                  "ppo#sample")))
+            waves += 1
+        fps = list(dict.fromkeys(fp for fp, _ in measured))
+        tail = [r for fp, r in measured if fp == fps[-1]]
+        wall = time.perf_counter() - t0
+    finally:
+        try:
+            if server is not None:
+                counts["server"] = stop_child(
+                    server, tmp, "learn-server",
+                    ("K1", "K2", "K3", "K14", "K15", "K11-act"))
+        finally:
+            counts["learner"] = stop_child(
+                learner, tmp, "learner",
+                ("K1", "K11-gae", "K11-loss", "K11-adam"))
+    rep = serve_events(tmp, "learn-server", "report")[0]["detail"]
+    check(rep["learn"]["swaps"] >= LEARN_MIN_SWAPS,
+          f"drain report swaps {rep['learn']['swaps']}")
+    say("learn_loop", lanes=LEARN_LANES, burst=LEARN_STEPS, waves=waves,
+        wall_s=wall, fingerprints=len(fps), swaps=rep["learn"]["swaps"],
+        samples=rep["learn"]["samples"],
+        greedy_rel_before=float(np.mean(base)),
+        greedy_rel_after=float(np.mean(tail)),
+        launches=json.dumps(counts))
+    return counts
+
+
 def parametric_capstone():
     """The capstone's structure, compiled once at the probe point with
     its exponent columns; returns (ParamMDP, host seconds)."""
@@ -4101,6 +4753,21 @@ def main() -> int:
                                "10000 activations a launch)", route="cuda",
                                source=f"{csrc}/netsim_event_spar.cu",
                                replaces="cpr_tpu/netsim/engine.py:368"),
+        "K14": dict(name="K14 serve burst (Nakamoto: 131072 lanes x 256 "
+                    "steps under SM1, the experience rings on; the policy "
+                    "table's scripted, greedy-net and per-lane sampled "
+                    "entries)", route="cuda",
+                    source=f"{csrc}/nakamoto_stream.cu",
+                    replaces="cpr_tpu/serve/engine.py:215"),
+        # device functions that K14 runs inside its launches with the
+        # rings on: its launches are those, its ms, plain and bound its
+        # check kernel's (one step of 131072 lanes, C = 256)
+        "K15": dict(name="K15 experience rings (device functions inside "
+                    "K14, launches its launches with the rings; ms, "
+                    "plain_ms and bound_ms are its check kernel "
+                    "record_kernel's)", route="cuda",
+                    source=f"{csrc}/exp_ring.cuh",
+                    replaces="cpr_tpu/learn/buffer.py:82"),
     }
     netsim_rows = ("K12-scan", "K12-event", "K13", *PROTO_KERNELS)
     phase_k1(dev, fx, report)
@@ -4182,6 +4849,14 @@ def main() -> int:
         report[k]["launches"] = sum(c[k] for c in (net_counts, event_counts,
                                                    attack_counts, hn_counts))
     phase_proto_times(dev, report)
+    serve_counts = phase_serve_full(dev, report)
+    with tempfile.TemporaryDirectory(dir=kernels.build_dir()) as tmp:
+        serve_counts.append(phase_serve_mixed(dev, report, tmp))
+        phase_exp_check(dev, report)
+        serve_counts.append(phase_wire(dev, report, tmp))
+        serve_counts.extend(phase_learn_loop(dev, report, tmp).values())
+    for k, r in report.items():
+        r["launches"] += sum(c.get(k, 0) for c in serve_counts)
     for k, v in report.items():
         check(v["ms"] >= v["bound_ms"],
               f"{k} measured {v['ms']} ms, below its bound of "
@@ -4191,7 +4866,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(card, flush=True)  # again, beside the numbers at the end
-    for k in ("K1", "K2", "K3"):
+    for k in ("K1", "K2", "K3", "K14", "K15"):
         report[k]["library_ms"] = None  # no PyTorch call computes these
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in report.values()]}), flush=True)

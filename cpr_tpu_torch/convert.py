@@ -3,8 +3,8 @@
 What crosses over is the parameter record, the policy net's weights,
 PRNG keys, the per-lane env states (Nakamoto's scalars; bk's,
 Ethereum's, Tailstorm's and Stree's `Dag` plus scalars, and the latter
-two's `stale` plane), compiled MDP tables and compiled netsim
-topologies.
+two's `stale` plane), the serve engine's experience rings, compiled MDP
+tables and compiled netsim topologies.
 Everything passes through numpy with the reference's field names; keys
 are uint32 word pairs there (jax's key data) and int32 bit patterns
 here.
@@ -16,6 +16,8 @@ here.
     dag_state_to_numpy(state) -> {"dag": {f: ...}, f: ...}
     actor_critic_from_flax(flax_params, device) -> flat parameter vector
     actor_critic_to_flax(flat, obs_dim, n_actions, hidden) -> flax tree
+    exp_buffer_from_numpy(jax.device_get(jax_rings), device)
+    exp_buffer_to_numpy(rings) -> {field: np.ndarray}
     tensor_mdp(tm.n_states, tm.n_actions, *(np.asarray(getattr(tm, f))
                for f in ("start", "src", "act", "dst", "prob", "reward",
                          "progress")), device=device)
@@ -194,6 +196,37 @@ def actor_critic_to_flax(flat: torch.Tensor, obs_dim: int, n_actions: int,
                          f"({obs_dim}, {n_actions}, {tuple(hidden)}) has "
                          f"{off}")
     return {"params": dict(sorted(layers.items()))}
+
+
+# the experience rings' fields (learn/buffer.py `init_buffer`) and dtypes
+_EXP_DTYPES = {"obs": np.float32, "action": np.int32, "reward": np.float32,
+               "done": np.bool_, "era": np.float32, "erd": np.float32,
+               "policy": np.int32, "cursor": np.int32, "t": np.int32,
+               "key": np.uint32}
+
+
+def exp_buffer_from_numpy(d: dict, device=None) -> dict:
+    """The port's experience rings (`learn.buffer.init_buffer`'s dict)
+    from the JAX package's, numpy leaves; the key words cross as int32
+    bit patterns."""
+    dev = _device.resolve(device)
+    missing = set(_EXP_DTYPES) - set(d)
+    if missing:
+        raise KeyError(f"missing ring fields: {sorted(missing)}")
+    out = {}
+    for f, dt in _EXP_DTYPES.items():
+        a = np.ascontiguousarray(np.asarray(d[f], dtype=dt))
+        if f == "key":
+            a = a.view(np.int32)
+        out[f] = torch.from_numpy(a.copy()).to(dev)
+    return out
+
+
+def exp_buffer_to_numpy(exp: dict) -> dict:
+    """The JAX package's ring dict (numpy) of the port's rings."""
+    out = {f: exp[f].detach().cpu().numpy().copy() for f in _EXP_DTYPES}
+    out["key"] = out["key"].view(np.uint32)
+    return out
 
 
 def compiled_net(cn):

@@ -27,7 +27,10 @@
 // to the plain version within 1e-5, and an action differs only where two
 // perturbed logits are closer than that (chip_smoke.py counts those
 // lanes). The Gumbel bits are jax's: element lane * A + a of
-// `uniform(k_act, (L, A))` in the partitionable threefry.
+// `uniform(k_act, (L, A))` in the partitionable threefry; in the
+// per-lane mode (the serve burst, K14) element a of `uniform(k_act,
+// (A,))` under the lane's own key, as `jax.vmap(jax.random.categorical)`
+// draws (cpr_tpu/serve/engine.py:281-284).
 
 #pragma once
 
@@ -44,6 +47,8 @@ constexpr int kNetMaxHidden = 96;
 constexpr int kNetSlots = kNetMaxHidden / 32;  // hidden units a warp thread
 constexpr int kNetMaxActions = 24;
 constexpr int kNetOff = 0, kNetGreedy = 1, kNetSample = 2;
+// K14's `#sample` policies: a key per lane, the noise at index a
+constexpr int kNetSampleLane = 3;
 
 // ctypes `_NetArgs`. The flat parameter vector holds, for pi then vf,
 // each Dense's kernel [in, out] row-major and then its bias: layers
@@ -57,7 +62,7 @@ struct NetArgs {
   int32_t in;           // the net's input width
   int32_t hidden;
   int32_t n_actions;
-  int32_t mode;  // kNetOff, kNetGreedy, kNetSample
+  int32_t mode;  // kNetOff, kNetGreedy, kNetSample, kNetSampleLane
 };
 
 __host__ __device__ inline int net_mlp_floats(int in, int h, int out) {
@@ -177,13 +182,15 @@ __device__ __forceinline__ void mlp_warp(const float* w, int in, int h,
 
 // The action of `logits` [A]: the argmax (first index among equals) of
 // the logits (greedy) or of logits + gumbel(k_act) at flat index
-// lane * A + a (sample); `logp` its log_softmax entry.
+// lane * A + a (sample) or at index a (per-lane sample); `logp` its
+// log_softmax entry.
 template <int MAXA>
 __device__ __forceinline__ int net_choose(const NetArgs& n,
                                           const float* logits, uint2 k_act,
                                           int64_t lane, float& logp) {
   const int A = n.n_actions;
-  const bool sample = n.mode == kNetSample;
+  const bool sample = n.mode == kNetSample || n.mode == kNetSampleLane;
+  const int64_t base = n.mode == kNetSampleLane ? 0 : lane * A;
   float m = logits[0];
   int best = 0;
   float bv = -__int_as_float(0x7f800000);
@@ -193,7 +200,7 @@ __device__ __forceinline__ int net_choose(const NetArgs& n,
     m = fmaxf(m, logits[a]);
     float v = logits[a];
     if (sample)
-      v = gumbel_of_bits(random_bits(k_act, (uint32_t)(lane * A + a))) + v;
+      v = gumbel_of_bits(random_bits(k_act, (uint32_t)(base + a))) + v;
     if (v > bv) {
       bv = v;
       best = a;

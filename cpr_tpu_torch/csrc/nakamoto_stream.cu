@@ -1,5 +1,6 @@
-// Kernels K2 (fused episode stream) and K3 (one-tick step_lanes) for
-// the Nakamoto SSZ selfish-mining environment.
+// Kernels K2 (fused episode stream), K3 (one-tick step_lanes) and K14
+// (the serve engine's policy burst) for the Nakamoto SSZ selfish-mining
+// environment.
 //
 // Replaces:
 //   K2: cpr_tpu/envs/base.py:342-506 `make_episode_stats_fn` (its
@@ -7,10 +8,13 @@
 //       (:303-328) as the STORE_TRAJ variant and `init_lanes` /
 //       `reset_lanes` (:245-257) as its zero-length launches;
 //   K3: cpr_tpu/envs/base.py:259-301 `step_lanes`;
-// both over cpr_tpu/envs/nakamoto.py `_mine` (120-157), `reset`
+//   K14: cpr_tpu/serve/engine.py:215-344 `_build_burst` (the K-step burst
+//        over the resident lanes, with K15's `record` inline);
+// all over cpr_tpu/envs/nakamoto.py `_mine` (120-157), `reset`
 // (159-174), `_apply` (176-214), `step` (216-237) and the four scripted
 // policies (247-289). Plain twins: cpr_tpu_torch/envs/base.py
-// (`stream_plain`, `step_lanes_plain`).
+// (`stream_plain`, `step_lanes_plain`) and cpr_tpu_torch/serve/engine.py
+// (`ResidentEngine._burst_plain`).
 //
 // Bound: integer ALU. A lane step is 7 threefry2x32 blocks (about 560
 // integer operations) plus a few dozen for the dynamics, against 76
@@ -28,6 +32,22 @@
 // `extend_obs` appends the lane's (alpha, gamma) to every observation
 // written and to the net's input (cpr_tpu/envs/assumption.py).
 //
+// K14 runs `burst` steps of every live lane, a thread a lane as K2, and
+// holds the other lanes bit for bit. A lane's action comes from its
+// entry of the engine's policy table: a scripted policy, a greedy net
+// (argmax of the logits, first index among equals) or a sampled net (the
+// per-lane categorical of csrc/actor.cuh under fold_in(exp key, t)); the
+// nets are K11-act's policy MLP, each net slot's weights copied into
+// shared memory once a block (a launch whose lanes use no net takes the
+// instantiation without them). Per step, as engine.py:241-302: the
+// action from the pre-step observation, the auto-resetting step, the
+// record (K15, csrc/exp_ring.cuh) of the pre-step observation, action,
+// reward, done and episode rewards, the continuation observation, and
+// the lane's first done (step index and the four CAPTURE_FIELDS) kept in
+// registers. Bound: the threefry work of a step, as K2; with nets the
+// policy MLP's FMAs (4 * 64 + 64 * 64 + 64 * 4 at (64, 64)); with the
+// rings their 37 bytes a step.
+//
 // Parity with the JAX package: integer state, keys, actions, done and
 // the integer-valued float32 rewards are bit-identical. The time update
 // is written with __fmul_rn/__fadd_rn so nvcc cannot contract it into an
@@ -43,6 +63,7 @@
 #include <cstdint>
 
 #include "actor.cuh"
+#include "exp_ring.cuh"
 #include "lane_params.cuh"
 #include "nakamoto_policy.cuh"
 #include "threefry.cuh"
@@ -93,8 +114,34 @@ struct TrajPtrs {
   float* info;
 };
 
+// K14: a lane's policy table entry is scripted (arg: the policy id of
+// `policy`), a greedy net or a sampled net (arg: a net slot).
+constexpr int kBurstSlots = 4;   // net slots a launch
+constexpr int kBurstTable = 16;  // policy table entries
+constexpr int kBurstScripted = 0, kBurstGreedy = 1, kBurstSample = 2;
+
+// ctypes `_BurstArgs`.
+struct BurstArgs {
+  const int32_t* policy;  // [L] table id of each lane
+  const bool* live;       // [L] lanes the burst advances
+  bool* got;              // [L] out: the lane ended an episode
+  int32_t* done_step;     // [L] out: the step of its first done
+  float* caps;            // [4, L] out: CAPTURE_FIELDS at that step
+  const float* w[kBurstSlots];  // a slot's policy MLP weights, or null
+  int32_t w_off[kBurstSlots];   // their offset in shared memory (floats)
+  int32_t in[kBurstSlots];
+  int32_t hidden[kBurstSlots];
+  int32_t n_actions[kBurstSlots];
+  int32_t kind[kBurstTable];
+  int32_t arg[kBurstTable];
+  int32_t smem_floats;  // the slots' weights, 0 without nets
+  int32_t burst;
+};
+
 }  // namespace cpr
 
+using cpr::BurstArgs;
+using cpr::ExpPtrs;
 using cpr::NetArgs;
 using cpr::ParamPtrs;
 using cpr::Params;
@@ -426,6 +473,105 @@ step_lanes_kernel(StatePtrs st, float* __restrict__ obs,
   for (int k = 0; k < kInfo; ++k) info[k * n_lanes + i] = 0.f;
 }
 
+// K14: `b.burst` steps of every live lane under its table entry, the
+// carry (`st`, `obs` [L, 4]) updated in place, the first-done registers
+// written for every lane (false/0 where not live), and with `e.obs` set
+// every live step recorded into the rings (K15).
+template <bool NET>
+__global__ void __launch_bounds__(kThreads)
+burst_kernel(StatePtrs st, float* __restrict__ obs, int64_t n_lanes,
+             ParamPtrs pp, bool strict, bool unit, BurstArgs b, ExpPtrs e) {
+  extern __shared__ float net_smem[];
+  if (NET) {
+    for (int k = 0; k < cpr::kBurstSlots; ++k) {
+      if (b.w[k] == nullptr) continue;
+      const int nf = cpr::net_mlp_floats(b.in[k], b.hidden[k],
+                                         b.n_actions[k]);
+      for (int j = threadIdx.x; j < nf; j += blockDim.x)
+        net_smem[b.w_off[k] + j] = b.w[k][j];
+    }
+    __syncthreads();
+  }
+  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i >= n_lanes) return;
+  if (!b.live[i]) {  // held: registers zero, carry and rings untouched
+    b.got[i] = false;
+    b.done_step[i] = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) b.caps[k * n_lanes + i] = 0.f;
+    return;
+  }
+  const int32_t pid = b.policy[i];
+  const int kind = b.kind[pid], arg = b.arg[pid];
+  NetArgs na{};
+  const float* w = nullptr;
+  if (NET && kind != cpr::kBurstScripted) {
+    na.in = b.in[arg];
+    na.hidden = b.hidden[arg];
+    na.n_actions = b.n_actions[arg];
+    na.mode = kind == cpr::kBurstSample ? cpr::kNetSampleLane
+                                        : cpr::kNetGreedy;
+    w = net_smem + b.w_off[arg];
+  }
+  const Params p = cpr::load_params<Params>(pp, i);
+  const bool rec = e.obs != nullptr;
+  Lane s = load(st, i);
+  float4 o = *reinterpret_cast<const float4*>(obs + i * 4);
+  int32_t cursor = 0, t = 0;
+  uint2 ekey = make_uint2(0u, 0u);
+  if (rec) {
+    cursor = e.cursor[i];
+    t = e.t[i];
+    ekey = e.key[i];
+  }
+  bool got = false;
+  int32_t done_step = 0;
+  float cap[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < b.burst; ++k) {
+    int action;
+    if (NET && kind != cpr::kBurstScripted) {
+      const float x[cpr::kNetMaxIn] = {o.x, o.y, o.z, o.w};
+      float logits[4], logp;
+      cpr::mlp_thread<4>(w, na.in, na.hidden, na.n_actions, x, logits);
+      const uint2 k_act = kind == cpr::kBurstSample
+                              ? cpr::exp_step_key(ekey, t)
+                              : make_uint2(0u, 0u);
+      action = cpr::net_choose<4>(na, logits, k_act, i, logp);
+    } else {
+      action = policy(arg, s.a, s.h);
+    }
+    StepOut so;
+    step(s, action, p, strict, so);
+    if (rec) {
+      const float ov[4] = {o.x, o.y, o.z, o.w};
+      cpr::exp_record(e, i, cursor, ov, action, so.reward, so.done,
+                      so.info[5], so.info[6], pid);
+      ++cursor;
+      ++t;
+    }
+    if (so.done) reset(s, s.key, p);
+    o = observe(s, unit);
+    if (so.done && !got) {  // CAPTURE_FIELDS: info 5, 6, 7, 10
+      got = true;
+      done_step = k;
+      cap[0] = so.info[5];
+      cap[1] = so.info[6];
+      cap[2] = so.info[7];
+      cap[3] = so.info[10];
+    }
+  }
+  store(st, i, s);
+  *reinterpret_cast<float4*>(obs + i * 4) = o;
+  b.got[i] = got;
+  b.done_step[i] = done_step;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) b.caps[k * n_lanes + i] = cap[k];
+  if (rec) {
+    e.cursor[i] = cursor;
+    e.t[i] = t;
+  }
+}
+
 unsigned blocks_for(int64_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
@@ -511,6 +657,32 @@ cudaError_t cpr_k3_step_lanes(const StatePtrs* st, void* obs,
       unit_obs != 0, extend_obs != 0, static_cast<float*>(out_obs),
       static_cast<float*>(reward), static_cast<bool*>(done),
       static_cast<float*>(info));
+  return cudaGetLastError();
+}
+
+// K14 launch; the carry (`st`, `obs`) and, with `e`, the rings are
+// updated in place. `e` null: the experience plane is off.
+cudaError_t cpr_k14_burst(const StatePtrs* st, void* obs, int64_t n_lanes,
+                          const ParamPtrs* p, int strict_match, int unit_obs,
+                          const BurstArgs* b, const ExpPtrs* e,
+                          void* stream) {
+  if (n_lanes <= 0) return cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const ExpPtrs ex = e != nullptr ? *e : ExpPtrs{};
+  const size_t smem = sizeof(float) * (size_t)b->smem_floats;
+  if (smem > 0) {
+    auto kernel = burst_kernel<true>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<blocks_for(n_lanes), kThreads, smem, s>>>(
+        *st, static_cast<float*>(obs), n_lanes, *p, strict_match != 0,
+        unit_obs != 0, *b, ex);
+  } else {
+    burst_kernel<false><<<blocks_for(n_lanes), kThreads, 0, s>>>(
+        *st, static_cast<float*>(obs), n_lanes, *p, strict_match != 0,
+        unit_obs != 0, *b, ex);
+  }
   return cudaGetLastError();
 }
 

@@ -364,6 +364,14 @@ class TorchEnv:
                            step_mask, params, extend_obs=False):
         raise _no_kernel(type(self).__name__, self.kernel_item)
 
+    # the serve engine's policy burst (K14) exists for this env on CUDA
+    burst_kernel = False
+
+    def _kernel_burst(self, state, obs, params, policy, live, table, nets,
+                      length, exp):
+        raise _no_kernel(f"{type(self).__name__} serve burst (K14-dag)",
+                         "12")
+
     # -- drivers (kernel on CUDA, plain twin on CPU) ------------------------
 
     def _stream(self, carry, keys, init_mode: int, length: int, params,

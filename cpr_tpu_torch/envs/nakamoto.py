@@ -283,7 +283,9 @@ class NakamotoSSZ(TorchEnv):
 
         return {name: make(i, name) for i, name in enumerate(POLICY_NAMES)}
 
-    # -- kernel hooks (K2, K3) --------------------------------------------
+    # -- kernel hooks (K2, K3, K14) ---------------------------------------
+
+    burst_kernel = True
 
     def _empty_carry(self, n: int, device):
         i32 = dict(dtype=torch.int32, device=device)
@@ -316,3 +318,10 @@ class NakamotoSSZ(TorchEnv):
             self.strict_match, self.unit_observation, extend_obs=extend_obs)
         return out_obs, reward, done, {k: info[i]
                                        for i, k in enumerate(INFO_KEYS)}
+
+    def _kernel_burst(self, state, obs, params, policy, live, table, nets,
+                      length, exp):
+        from cpr_tpu_torch import kernels
+        return kernels.burst(state, obs, params, self.strict_match,
+                             self.unit_observation, policy, live, table,
+                             nets, length, exp)

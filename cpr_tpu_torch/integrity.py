@@ -10,8 +10,9 @@ unseals in the other:
 
 A damaged artifact is never deserialized: `quarantine` moves it (and
 its sidecars) to `<path>.quarantine/` and emits one typed `integrity`
-event. The chaos schedules and injected artifact damage are not ported
-(fault injection, ROADMAP item 6).
+event. `damage_artifact` is the fault injector's storage-corruption
+stand-in (`resilience.artifact_fault_point`); the chaos schedules are not
+ported (ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ SEAL_SCHEMA = 1
 
 REASONS = ("checksum", "truncated", "version", "sidecar_missing")
 ACTIONS = ("quarantined", "regenerated", "refused")
+# the fault grammar's artifact-damage actions (resilience.FaultSpec)
+ARTIFACT_ACTIONS = ("corrupt", "truncate", "garble_json")
 
 
 class IntegrityError(Exception):
@@ -146,3 +149,27 @@ def quarantine(path: str, *, kind: str, reason: str,
         integrity_event(artifact=path, kind=kind, reason=reason,
                         action=action, quarantine=dest)
     return dest
+
+
+def damage_artifact(path: str, action: str):
+    """Deterministically damage an on-disk artifact in place — the
+    storage-corruption stand-ins the fault grammar arms (`corrupt@`,
+    `truncate@`, `garble_json@`). Deliberately not atomic: real
+    corruption isn't."""
+    size = os.path.getsize(path)
+    if action == "corrupt":
+        # flip the last byte — always inside the sealed payload, so the
+        # digest check (not just a decode error) is what must catch it
+        with open(path, "r+b") as f:
+            f.seek(max(size - 1, 0))
+            tail = f.read(1) or b"\0"
+            f.seek(max(size - 1, 0))
+            f.write(bytes([tail[0] ^ 0xFF]))
+    elif action == "truncate":
+        os.truncate(path, size // 2)
+    elif action == "garble_json":
+        with open(path, "r+b") as f:
+            f.write(b'{"garbled": ')
+            f.truncate()
+    else:
+        raise ValueError(f"unknown artifact damage action {action!r}")

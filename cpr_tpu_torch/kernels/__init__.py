@@ -37,7 +37,8 @@ SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu", "rtdp.cu",
            "spar_stream.cu", "sdag_stream.cu", "actor_check.cu", "gae.cu",
            "ppo_loss.cu", "adam.cu",
            "netsim_scan.cu", "netsim_event.cu", "netsim_attack.cu",
-           "netsim_event_bk.cu", "netsim_event_eth.cu", "netsim_event_spar.cu")
+           "netsim_event_bk.cu", "netsim_event_eth.cu", "netsim_event_spar.cu",
+           "exp_check.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,13 +50,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # well as to its own kernel, and so does its check kernel
 # (csrc/actor_check.cu). K11-loss counts its forward and backward launches.
 # K12-event-bk/-eth/-spar count the protocol kernels of the event engine
-# (csrc/netsim_event_{bk,eth,spar}.cu).
+# (csrc/netsim_event_{bk,eth,spar}.cu). K15 (csrc/exp_ring.cuh) runs
+# inside K14 too: a burst launch with the experience rings adds one to it
+# as well as to K14, and so does each launch of its check kernel
+# (csrc/exp_check.cu); a burst launch with a net adds one to K11-act.
 launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K8": 0, "K9": 0, "K10-bk": 0, "K10-eth": 0, "K10-ts": 0,
             "K10-stree": 0, "K10-spar": 0, "K10-sdag": 0, "K11-act": 0,
             "K11-gae": 0, "K11-loss": 0,
             "K11-adam": 0, "K12-scan": 0, "K12-event": 0, "K13": 0,
-            "K12-event-bk": 0, "K12-event-eth": 0, "K12-event-spar": 0}
+            "K12-event-bk": 0, "K12-event-eth": 0, "K12-event-spar": 0,
+            "K14": 0, "K15": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -154,6 +159,35 @@ class _NetArgs(ctypes.Structure):  # csrc/actor.cuh
     _fields_ = [(f, _p) for f in ("w", "logp", "value", "key_in",
                                   "key_out")] + [
         (f, ctypes.c_int32) for f in ("in_", "hidden", "n_actions", "mode")]
+
+
+_BURST_SLOTS = 4   # csrc/nakamoto_stream.cu kBurstSlots
+_BURST_TABLE = 16  # kBurstTable
+BURST_SCRIPTED, BURST_GREEDY, BURST_SAMPLE = 0, 1, 2
+
+
+class _BurstArgs(ctypes.Structure):  # csrc/nakamoto_stream.cu
+    _fields_ = [(f, _p) for f in ("policy", "live", "got", "done_step",
+                                  "caps")] + [
+        ("w", _p * _BURST_SLOTS)] + [
+        (f, ctypes.c_int32 * _BURST_SLOTS) for f in ("w_off", "in_",
+                                                     "hidden",
+                                                     "n_actions")] + [
+        (f, ctypes.c_int32 * _BURST_TABLE) for f in ("kind", "arg")] + [
+        ("smem_floats", ctypes.c_int32), ("burst", ctypes.c_int32)]
+
+
+EXP_FIELDS = ("obs", "action", "reward", "done", "era", "erd", "policy")
+
+
+class _ExpPtrs(ctypes.Structure):  # csrc/exp_ring.cuh
+    _fields_ = [(f, _p) for f in (*EXP_FIELDS, "cursor", "t", "key")] + [
+        ("cap", ctypes.c_int32), ("obs_dim", ctypes.c_int32)]
+
+
+class _ExpStepIn(ctypes.Structure):  # csrc/exp_check.cu
+    _fields_ = [(f, _p) for f in ("live", "obs", "action", "reward", "done",
+                                  "era", "erd", "policy")]
 
 
 class _TrajPtrs(ctypes.Structure):
@@ -290,6 +324,10 @@ def _load() -> dict[str, ctypes.CDLL]:
                                           pp, _int, _int, _int, _p, _p, _p,
                                           _p, _p]
         nak.cpr_k3_step_lanes.restype = _int
+        nak.cpr_k14_burst.argtypes = [sp, _p, _i64, pp, _int, _int,
+                                      ctypes.POINTER(_BurstArgs),
+                                      ctypes.POINTER(_ExpPtrs), _p]
+        nak.cpr_k14_burst.restype = _int
         nak.cpr_k23_error_string.argtypes = [_int]
         nak.cpr_k23_error_string.restype = ctypes.c_char_p
         mdp = ctypes.CDLL(str(paths["mdp_sweep.cu"]))
@@ -393,6 +431,15 @@ def _load() -> dict[str, ctypes.CDLL]:
             getattr(lib, err).restype = ctypes.c_char_p
         _libs.update(netsim_scan=scan, netsim_event=event,
                      netsim_attack=attack)
+        exp = ctypes.CDLL(str(paths["exp_check.cu"]))
+        exp.cpr_k15_record.argtypes = [ctypes.POINTER(_ExpPtrs),
+                                       ctypes.POINTER(_ExpStepIn), _i64, _p]
+        exp.cpr_k15_step_keys.argtypes = [_p, _p, _p, _i64, _p]
+        for fn in ("cpr_k15_record", "cpr_k15_step_keys"):
+            getattr(exp, fn).restype = _int
+        exp.cpr_k15_error_string.argtypes = [_int]
+        exp.cpr_k15_error_string.restype = ctypes.c_char_p
+        _libs["exp"] = exp
         for name in PROTOCOL_KERNELS.values():
             lib = ctypes.CDLL(str(paths[f"netsim_event_{name}.cu"]))
             fn = getattr(lib, f"cpr_k12_event_{name}")
@@ -629,6 +676,181 @@ def step_lanes(state, obs, actions, admit_mask, fresh_state, fresh_obs,
     _check(rc, lib, "cpr_k23_error_string", "K3 step_lanes")
     launches["K3"] += 1
     return out_obs, reward, done, info
+
+
+# -- K14 / K15 ----------------------------------------------------------------
+
+def _exp_ptrs(exp: dict, n: int, dev) -> _ExpPtrs:
+    """Check the rings of `learn.buffer.init_buffer` for `n` lanes on
+    `dev` and point an `_ExpPtrs` at them."""
+    cap, F = exp["obs"].shape[1], exp["obs"].shape[2]
+    _want(exp["obs"], "exp.obs", torch.float32, (n, cap, F), dev,
+          align=16)
+    for f in EXP_FIELDS[1:]:
+        dt = (torch.bool if f == "done" else torch.int32
+              if f in ("action", "policy") else torch.float32)
+        _want(exp[f], f"exp.{f}", dt, (n, cap), dev,
+              align=1 if dt == torch.bool else 4)
+    for f in ("cursor", "t"):
+        _want(exp[f], f"exp.{f}", torch.int32, (n,), dev)
+    _want(exp["key"], "exp.key", torch.int32, (n, 2), dev, align=8)
+    return _ExpPtrs(*(exp[f].data_ptr() for f in (*EXP_FIELDS, "cursor", "t",
+                                                  "key")), cap, F)
+
+
+def check_burst_nets(nets, n_actions: int) -> None:
+    """The net slots K14 runs: at most 4, each a two-layer MLP of equal
+    widths of at most 96 units on at most 16 inputs (K11-act's thread
+    mode) with at most 4 actions; raises NotImplementedError otherwise."""
+    if len(nets) > _BURST_SLOTS:
+        raise NotImplementedError(
+            f"K14 runs at most {_BURST_SLOTS} net slots a launch, the "
+            f"policy table has {len(nets)}")
+    for net in nets:
+        h = net.hidden
+        if (len(h) != 2 or h[0] != h[1] or not 0 < h[0] <= 96
+                or not 0 < net.obs_dim <= 16
+                or not 0 < net.n_actions <= min(4, n_actions)):
+            raise NotImplementedError(
+                f"K14 runs nets of two equal hidden layers of at most 96 "
+                f"units on at most 16 inputs and at most 4 actions; this "
+                f"net has hidden {h}, input {net.obs_dim} and "
+                f"{net.n_actions} actions")
+
+
+def burst(state, obs, params, strict_match: bool, unit_obs: bool, policy,
+          live, table, nets, length: int, exp: dict | None = None):
+    """K14: `length` steps of every lane where `live` [L] bool, each
+    under its entry `policy` [L] int32 of `table`, a list of (kind, arg):
+    (BURST_SCRIPTED, scripted policy id), (BURST_GREEDY, net slot) or
+    (BURST_SAMPLE, net slot). `nets` holds the net slots, each None (no
+    lane of this launch uses it) or (net, flat): an `ActorCritic` for
+    the widths and its flat float32 parameter vector on the card, whose
+    policy MLP the launch copies into shared memory. The carry (`state`,
+    `obs` [L, 4]) and, given, `exp` (the rings of
+    `learn.buffer.init_buffer`; a sampled net needs them) are updated IN
+    PLACE; other lanes are held bit for bit. A lane may use a net
+    entry only where its slot is given. Returns (got [L] bool,
+    done_step [L] int32, caps [4, L] float32), the first-done registers
+    (zero where not live)."""
+    dev = obs.device
+    if dev.type != "cuda":
+        raise ValueError("K14 takes CUDA tensors")
+    n = obs.shape[0]
+    sp = _state_ptrs(state, n, dev, "state")
+    _want(obs, "obs", torch.float32, (n, 4), dev, align=16)
+    _want(policy, "policy", torch.int32, (n,), dev)
+    _want(live, "live", torch.bool, (n,), dev, align=1)
+    if not 0 < len(table) <= _BURST_TABLE:
+        raise NotImplementedError(
+            f"K14 takes 1 to {_BURST_TABLE} policy table entries, "
+            f"got {len(table)}")
+    if len(nets) > _BURST_SLOTS:
+        raise NotImplementedError(
+            f"K14 runs at most {_BURST_SLOTS} net slots a launch, "
+            f"got {len(nets)}")
+    if exp is None and any(k == BURST_SAMPLE for k, _ in table):
+        raise ValueError("a sampled net draws from the experience rings' "
+                         "key streams: pass `exp`")
+    args = _BurstArgs()
+    keep = []
+    off = 0
+    for j, slot in enumerate(nets):
+        if slot is None:
+            continue
+        net, flat = slot
+        check_burst_nets([net], 4)
+        _want(flat, f"nets[{j}]", torch.float32, (net.n_params,), dev,
+              align=16)
+        flat = flat.detach()
+        keep.append(flat)
+        h = net.hidden[0]
+        args.w[j] = flat.data_ptr()
+        args.w_off[j] = off
+        args.in_[j], args.hidden[j], args.n_actions[j] = (
+            net.obs_dim, h, net.n_actions)
+        off += net.obs_dim * h + h + h * h + h + h * net.n_actions \
+            + net.n_actions
+    for j, (kind, arg) in enumerate(table):
+        if kind != BURST_SCRIPTED and (arg >= len(nets)
+                                       or nets[arg] is None):
+            continue  # a net entry no lane of this launch may use
+        args.kind[j], args.arg[j] = kind, arg
+    got = torch.empty((n,), dtype=torch.bool, device=dev)
+    done_step = torch.empty((n,), dtype=torch.int32, device=dev)
+    caps = torch.empty((4, n), dtype=torch.float32, device=dev)
+    args.policy, args.live = policy.data_ptr(), live.data_ptr()
+    args.got, args.done_step, args.caps = (got.data_ptr(),
+                                           done_step.data_ptr(),
+                                           caps.data_ptr())
+    args.smem_floats, args.burst = off, int(length)
+    ep = None if exp is None else ctypes.byref(_exp_ptrs(exp, n, dev))
+    p, _p_keep = _params(params, n, dev)
+    lib = _load()["nakamoto"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k14_burst(ctypes.byref(sp), obs.data_ptr(), n,
+                               ctypes.byref(p), int(strict_match),
+                               int(unit_obs), ctypes.byref(args), ep,
+                               _stream(dev))
+    _check(rc, lib, "cpr_k23_error_string", "K14 burst")
+    launches["K14"] += 1
+    if exp is not None:
+        launches["K15"] += 1
+    if keep:
+        launches["K11-act"] += 1
+    return got, done_step, caps
+
+
+def exp_record(exp: dict, live, obs, action, reward, done, era, erd,
+               policy):
+    """K15's check kernel: record one step of every lane where `live`
+    [L] into the rings `exp` (updated IN PLACE): obs [L, F], action and
+    policy [L] int32, reward, era, erd [L] float32, done [L] bool."""
+    dev = live.device
+    if dev.type != "cuda":
+        raise ValueError("K15 takes CUDA tensors")
+    n = live.shape[0]
+    ep = _exp_ptrs(exp, n, dev)
+    F = exp["obs"].shape[2]
+    _want(live, "live", torch.bool, (n,), dev, align=1)
+    _want(obs, "obs", torch.float32, (n, F), dev,
+          align=16 if F == 4 else 4)
+    _want(done, "done", torch.bool, (n,), dev, align=1)
+    for name, t, dt in (("action", action, torch.int32),
+                        ("policy", policy, torch.int32),
+                        ("reward", reward, torch.float32),
+                        ("era", era, torch.float32),
+                        ("erd", erd, torch.float32)):
+        _want(t, name, dt, (n,), dev)
+    step = _ExpStepIn(live.data_ptr(), obs.data_ptr(), action.data_ptr(),
+                      reward.data_ptr(), done.data_ptr(), era.data_ptr(),
+                      erd.data_ptr(), policy.data_ptr())
+    lib = _load()["exp"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k15_record(ctypes.byref(ep), ctypes.byref(step), n,
+                                _stream(dev))
+    _check(rc, lib, "cpr_k15_error_string", "K15 record")
+    launches["K15"] += 1
+    return exp
+
+
+def exp_step_keys(key, t):
+    """K15's check kernel: each lane's action key fold_in(key[i], t[i])
+    for keys [L, 2] and counters t [L] int32. Returns [L, 2] int32."""
+    dev = key.device
+    if dev.type != "cuda":
+        raise ValueError("K15 takes CUDA tensors")
+    n = key.shape[0]
+    _want(key, "key", torch.int32, (n, 2), dev, align=8)
+    _want(t, "t", torch.int32, (n,), dev)
+    out = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    lib = _load()["exp"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k15_step_keys(key.data_ptr(), t.data_ptr(),
+                                   out.data_ptr(), n, _stream(dev))
+    _check(rc, lib, "cpr_k15_error_string", "K15 step_keys")
+    launches["K15"] += 1
+    return out
 
 
 # -- K4 / K5 ------------------------------------------------------------------

@@ -349,7 +349,7 @@ class AttackEngine:
                     f"attack policy '{nm}' is a callable: on the card a "
                     f"lane runs one of the scripted policies "
                     f"{SCRIPTED_POLICIES}; policy nets in attack sweeps "
-                    f"come with serve/learn (ROADMAP item 12)")
+                    f"on the card are not ported yet (ROADMAP item 12)")
             table.append(POLICY_NAMES.index(nm))
         t = torch.tensor(table, dtype=I32, device=pids.device)
         return t[torch.clamp(pids, 0, len(table) - 1).long()]

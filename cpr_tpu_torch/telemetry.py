@@ -14,6 +14,15 @@ Event names and fields are the JAX package's (`vi_residuals`, `memory`,
 With no sink configured (`configure(path)`, or the `CPR_TELEMETRY` env
 var) spans still time and events go nowhere. Interval timing goes
 through `now()` (`time.perf_counter`).
+
+The serving layer's pieces are the reference's (cpr_tpu/telemetry.py):
+`EVENT_FIELDS`, the fields each reserved event carries (`serve`,
+`request`, `admission`, `alert`, `learn` and the other events the port
+emits); the flight-recorder ring, which keeps the last
+`blackbox_capacity()` emitted events in the process, sink or no sink,
+for `monitor.blackbox.dump_blackbox`; `Telemetry.n_emitted`, the emit
+counter the supervisor heartbeat reports as progress; `span_path`; and
+the per-request `new_trace_id`.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import socket
 import subprocess
 import sys
 import threading
+from collections import deque
 from datetime import datetime, timezone
 from time import perf_counter as now  # noqa: F401 — re-exported
 
@@ -32,10 +42,86 @@ TELEMETRY_ENV_VAR = "CPR_TELEMETRY"
 SCHEMA_VERSION = 17
 # a run id minted by a parent process, shared by its children's streams
 RUN_ID_ENV_VAR = "CPR_RUN_ID"
+# flight-recorder ring capacity: the last N emitted events
+BLACKBOX_ENV_VAR = "CPR_BLACKBOX_EVENTS"
+BLACKBOX_DEFAULT_EVENTS = 512
+# in-graph device metrics (K17, ROADMAP item 14): read by the serve
+# engine, which refuses to run with it set
+DEVICE_METRICS_ENV_VAR = "CPR_DEVICE_METRICS"
 
-# one lock serializes writes: two interleaved partial lines would
-# corrupt the JSONL stream
+# every span event carries at least these keys
+SPAN_KEYS = ("kind", "name", "path", "depth", "t_start", "t_end",
+             "dur_s")
+
+# reserved point-event names -> the fields each must carry (the
+# reference's EVENT_FIELDS for the events the port emits; other names
+# stay free-form)
+EVENT_FIELDS = {
+    "checkpoint": ("path", "what"),
+    "retry": ("attempt", "delay_s", "error"),
+    "fault_injected": ("spec", "site"),
+    "netsim": ("protocol", "lanes", "activations", "steps", "drops"),
+    # one per serving-layer decision: action is start|admit|complete|
+    # query|heartbeat|report|drain|stop, session the client session id
+    # (null for service-scope events), detail a free-form dict
+    "serve": ("action", "session", "detail"),
+    # one per serve request on both sides of the wire (role "server" or
+    # "client"); trace_id correlates the two streams
+    "request": ("trace_id", "op", "status", "queue_wait_s",
+                "service_s", "total_s"),
+    # one per admission-control refusal: reason is queue_full|
+    # slo_breach|tenant_quota
+    "admission": ("reason", "op", "priority", "tenant",
+                  "retry_after_s"),
+    "attack_sweep": ("protocol", "topology", "lanes", "policies",
+                     "drops"),
+    # one per SLO burn-rate breach (monitor/alerts.py)
+    "alert": ("signal", "severity", "window_s", "value", "budget",
+              "burn_rate"),
+    "memory": ("scope", "peak_bytes", "source"),
+    "integrity": ("artifact", "artifact_kind", "reason", "action"),
+    # one per leg of the always-on learning loop (learn.learn_event):
+    # role is sample|feed|update|publish|swap
+    "learn": ("role", "steps", "batches", "fingerprint",
+              "staleness_s"),
+}
+
+# one lock serializes the emit path (counter, ring append, sink write):
+# two interleaved partial lines would corrupt the JSONL stream, and the
+# ring copy must not race an append
 _emit_lock = threading.Lock()
+
+_blackbox: deque | None = None
+
+
+def blackbox_capacity() -> int:
+    """Ring capacity: $CPR_BLACKBOX_EVENTS (>= 1), default 512."""
+    try:
+        n = int(os.environ.get(BLACKBOX_ENV_VAR, BLACKBOX_DEFAULT_EVENTS))
+    except ValueError:
+        n = BLACKBOX_DEFAULT_EVENTS
+    return max(1, n)
+
+
+def _blackbox_ring() -> deque:
+    global _blackbox
+    if _blackbox is None:
+        _blackbox = deque(maxlen=blackbox_capacity())
+    return _blackbox
+
+
+def blackbox_events() -> list[dict]:
+    """The recorded tail, oldest first (a copy, taken under the emit
+    lock)."""
+    with _emit_lock:
+        return list(_blackbox_ring())
+
+
+def new_trace_id() -> str:
+    """A fresh per-request trace id (client side of a serve request)."""
+    import uuid
+
+    return uuid.uuid4().hex[:16]
 
 
 class Span:
@@ -105,17 +191,32 @@ class Telemetry:
         self._sink = stream if stream is not None else (
             open(path, "a") if path else None)
         self._stack: list[Span] = []
+        self.n_emitted = 0
+
+    @property
+    def enabled(self) -> bool:
+        return self._sink is not None
 
     def emit(self, event: dict):
-        """Write one event line, flushed (no-op when disabled)."""
+        """Write one event line, flushed (no-op when disabled); counted
+        and kept in the flight-recorder ring either way."""
         line = (json.dumps(event, default=str) + "\n"
                 if self._sink is not None else None)
         with _emit_lock:
+            self.n_emitted += 1
+            _blackbox_ring().append(event)
             sink = self._sink
             if line is None or sink is None:
                 return
             sink.write(line)
             sink.flush()
+
+    def span_path(self) -> str | None:
+        """The innermost open span's path, or None outside any span."""
+        try:
+            return self._stack[-1].path
+        except IndexError:
+            return None
 
     def span(self, name: str, **counters) -> Span:
         return Span(self, name, counters)
@@ -259,6 +360,25 @@ class MemoryWatermark:
         if self.in_use_bytes is None or self.baseline_bytes is None:
             return None
         return self.in_use_bytes - self.baseline_bytes
+
+    @property
+    def headroom_bytes(self) -> int | None:
+        """limit - peak; None without a limit (the RSS fallback)."""
+        if self.limit_bytes is None or self.peak_bytes is None:
+            return None
+        return self.limit_bytes - self.peak_bytes
+
+    def snapshot(self) -> dict:
+        """JSON-ready summary for heartbeat/stats/drain reports."""
+        out = {"scope": self.scope, "source": self.source,
+               "peak_bytes": self.peak_bytes,
+               "in_use_bytes": self.in_use_bytes,
+               "delta_bytes": self.delta_bytes,
+               "n_samples": self.n_samples}
+        if self.limit_bytes is not None:
+            out["limit_bytes"] = self.limit_bytes
+            out["headroom_bytes"] = self.headroom_bytes
+        return out
 
     def emit(self, **extra):
         tele = self._tele if self._tele is not None else current()

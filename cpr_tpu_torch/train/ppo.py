@@ -546,8 +546,9 @@ def make_train(env, env_params, cfg: PPOConfig,
 
 
 def make_lane_rollout(env, env_params, cfg: PPOConfig, **kw):
-    """The resident lane rollout (ppo.py:380-447) and its per-lane
-    `categorical` draws come with the serve engine."""
+    """The resident lane rollout (ppo.py:380-447) is not ported yet; its
+    per-lane `categorical` draw is the serve burst's (K14's per-lane
+    sample mode)."""
     raise _not_ported("make_lane_rollout", 12)
 
 

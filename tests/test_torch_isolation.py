@@ -2,7 +2,7 @@
 `chip_smoke.py`, imports jax, flax, optax, pydantic, msgpack or cpr_tpu;
 yaml only inside `train.config.TrainConfig.from_yaml`; gymnasium only
 under `cpr_tpu_torch/gym/`; the package imports and trains with those
-modules blocked; `cpr_tpu.train` and `cpr_tpu_torch.train` resolve to
+modules blocked, and serves, records and learns with them blocked; `cpr_tpu.train` and `cpr_tpu_torch.train` resolve to
 their own packages; entry points refuse to run without a device; the
 kernel wrappers refuse CPU tensors."""
 
@@ -67,7 +67,15 @@ for mod in ("cpr_tpu_torch", "cpr_tpu_torch.envs", "cpr_tpu_torch.envs.nakamoto"
             "cpr_tpu_torch.train.serialization", "cpr_tpu_torch.netsim",
             "cpr_tpu_torch.netsim.compile", "cpr_tpu_torch.netsim.engine",
             "cpr_tpu_torch.netsim.attack", "cpr_tpu_torch.network",
-            "cpr_tpu_torch.distributions", "chip_smoke"):
+            "cpr_tpu_torch.distributions", "cpr_tpu_torch.latency",
+            "cpr_tpu_torch.monitor", "cpr_tpu_torch.monitor.alerts",
+            "cpr_tpu_torch.monitor.blackbox", "cpr_tpu_torch.monitor.expo",
+            "cpr_tpu_torch.monitor.registry", "cpr_tpu_torch.supervisor",
+            "cpr_tpu_torch.serve", "cpr_tpu_torch.serve.engine",
+            "cpr_tpu_torch.serve.scheduler", "cpr_tpu_torch.serve.protocol",
+            "cpr_tpu_torch.serve.server", "cpr_tpu_torch.learn",
+            "cpr_tpu_torch.learn.feed", "cpr_tpu_torch.learn.learner",
+            "chip_smoke"):
     importlib.import_module(mod)
 from cpr_tpu_torch.train import config, driver
 cfg = config.TrainConfig.from_dict(dict(
@@ -121,6 +129,54 @@ def test_imports_with_jax_flax_gymnasium_blocked():
                          timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "isolated-ok" in out.stdout
+
+
+BLOCKED_SERVE_RUN = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "gymnasium",
+             "cpr_tpu"):
+    sys.modules[name] = None
+import tempfile
+from cpr_tpu_torch import random
+from cpr_tpu_torch.envs import registry
+from cpr_tpu_torch.learn.feed import decode_batch, encode_batch
+from cpr_tpu_torch.learn.learner import Learner
+from cpr_tpu_torch.params import make_params
+from cpr_tpu_torch.serve import ResidentEngine
+from cpr_tpu_torch.serve.server import ServeServer
+from cpr_tpu_torch.train.ppo import ActorCritic, PPOConfig
+env = registry.get_sized("nakamoto", 8)
+net = ActorCritic(4, 4, (8, 8), device="cpu").init(
+    random.PRNGKey(0, device="cpu"))
+eng = ResidentEngine(env, make_params(alpha=0.3, gamma=0.5, max_steps=8),
+                     n_lanes=2, burst=8, device="cpu",
+                     swap_policies={"ppo": (net, net.flat.detach(), "fp")},
+                     sample_policies=("ppo",), experience=8)
+eng.start()
+eng.splice({0: 1, 1: 2})
+regs = eng.burst_run({0: eng.policy_ids["ppo#sample"],
+                      1: eng.policy_ids["honest"]})
+assert regs["done"].all()
+batch = eng.drain_experience()
+with tempfile.TemporaryDirectory() as d:
+    lr = Learner(env, PPOConfig(n_envs=2, n_steps=8, hidden=(8, 8),
+                                update_epochs=1, n_minibatches=1),
+                 protocol="nakamoto", publish_dir=d, device="cpu")
+    assert lr.ingest(decode_batch(encode_batch(batch)))["updated"] == 1
+    out = ServeServer(eng, protocol="nakamoto")._swap_from_path(
+        d + "/snapshot-000000.msgpack")
+    assert out["swapped"], out
+print("serve-isolated-ok")
+"""
+
+
+def test_serve_and_learn_run_with_jax_blocked():
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", BLOCKED_SERVE_RUN],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "serve-isolated-ok" in out.stdout
 
 
 def test_chip_smoke_refuses_without_card_or_package(tmp_path):
@@ -184,6 +240,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.step_lanes(state, obs, torch.zeros(4, dtype=torch.int32),
                            mask, state, obs, mask, params, True, True)
+    from cpr_tpu_torch.learn import buffer
+    zi = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.burst(state, obs, params, True, True, zi, mask,
+                      [(kernels.BURST_SCRIPTED, 0)], [], 8)
+    exp = buffer.init_buffer(keys, 8, 4)
+    zf = torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.exp_record(exp, mask, obs, zi, zf, mask, zf, zf, zi)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.exp_step_keys(keys, zi)
     from cpr_tpu_torch.core import dag as D
     from cpr_tpu_torch.envs import quorum as Q
     from cpr_tpu_torch.envs.bk import BkSSZ
