@@ -81,11 +81,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
      exactly; and the committed JAX fixture's script
      (tests/fixtures/torch_port_dag_golden.npz);
  15. K10-bk and K10-eth `step_lanes` against their plain versions at
-     their gym paths' lanes (8192 bk, 4096 Ethereum), 128 ticks of
+     their gym paths' lanes (8192 bk, 4096 Ethereum), 64 ticks of
      numpy-seeded actions and admit/step masks, the
      outputs every tick and the whole carry (every DAG plane, stale rows
      included); then the fixture's tick traces;
- 16. the K10 streams against their plain versions: 4096 lanes x 256
+ 16. the K10 streams against their plain versions: 4096 lanes x 128
      steps, every policy of bk (k=8, constant) and Ethereum (byzantium),
      window 128, unchunked and in chunks of 100, the stats and the final
      carry; then the fixture's per-policy sums and final carries;
@@ -110,16 +110,16 @@ Phases, one line each; any failure raises and the exit code is not 0:
      `last_by_age` and `descendants_mask`, at the same shapes against its
      plain version and against the fixture's second script;
  21. K10-ts and K10-stree `step_lanes` against their plain versions at
-     4096 lanes over 128 ticks of seeded masks, then the tick traces of
+     4096 lanes over 64 ticks of seeded masks, then the tick traces of
      the vote-quorum fixture (tests/fixtures/torch_port_quorum_golden.npz);
- 22. their streams against their plain versions: 4096 lanes x 256 steps,
+ 22. their streams against their plain versions: 4096 lanes x 128 steps,
      every policy (7 Tailstorm, 6 Stree) in one batched plain call,
      unchunked and in chunks of 100; then the fixture's sums and carries;
  22b. K10-ts and K10-stree under the schemes and selections the paths
      do not run (VOTE_VARIANTS: altruistic, optimal, constant, punish,
      hybrid, and a 40-slot ring at k = 4 that wraps and overflows with a
      16-position release scan), 512
-     lanes x 160 steps, every policy, against their plain versions, with
+     lanes x 96 steps, every policy, against their plain versions, with
      the episodes whose ring wrapped counted (`ring_peaks`);
  23. K9 (the vote quorums, device functions of K10-ts/K10-stree) through
      its check kernel: 4096 lanes of each env's plain stream carry (every
@@ -136,8 +136,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
      same keys held to the kernel over the first 256 steps, its first 64
      lanes' revenue held to VOTE_REVENUE (the CPU reference's, equal to
      cpr_tpu's) and its episodes whose ring wrapped counted; 100
-     `step_lanes` ticks at 4096 lanes (the gym path cpr-tailstorm-torch-
-     v0);
+     `step_lanes` ticks at 4096 lanes (the gym step path, in the ring;
+     the gym id itself builds full mode: phase 60);
  25. the Stree path the same way (K1, K10-stree): stree-8-constant-
      heuristic, override-catchup;
  26. K10-ts and K10-stree device times per 128-step launch and per tick,
@@ -178,15 +178,14 @@ Phases, one line each; any failure raises and the exit code is not 0:
      plain versions at this shape (4096 lanes x 128 steps) as in 28;
  32. the config path: train_from_config on the shipped nakamoto.yaml (3
      updates; K1, K2, K11), tailstorm-8-discount.yaml, spar-8.yaml and
-     sdag-8-discount.yaml (2 updates each, 128-slot ring; K1, the env's
-     K10, K11), eval.freq 1 and start_at_iteration
-     0 so that the eval and the checkpoints run; eval rows finite,
-     relative reward in [0, 1]; a policy snapshot exported and reloaded
-     acts as the net; each DAG config's 128-slot ring (the reference
-     sizes full mode for the episode) under the trained net, hidden 96, 512
-     lanes x 160 steps from a raw reset, held to the plain versions as
-     in 28, its first 64 lanes to full mode as well, and no episode
-     ended by the eviction of a live block;
+     sdag-8-discount.yaml (2 updates each, full mode as the reference
+     sizes it: 264 or 136 slots; K1, the env's K10-<env>-full, K11),
+     eval.freq 1 and start_at_iteration 0 so that the eval and the
+     checkpoints run; eval rows finite, relative reward in [0, 1]; a
+     policy snapshot exported and reloaded acts as the net; each DAG
+     config's env under the trained net, hidden 96, 512 lanes x 160 steps
+     from a raw reset, held to the plain versions as in 28, no episode
+     filling its capacity;
  33. K11's device times (the check kernel; the Tailstorm stream with the
      net against the heuristic per 128-step launch; GAE; the loss head
      forward + backward; the Adam step against torch.optim.Adam(fused=
@@ -235,16 +234,16 @@ Phases, one line each; any failure raises and the exit code is not 0:
      included); the bounds (the threefry work this run's draws need and
      the lanes' inputs and outputs).
  41. K10-spar and K10-sdag `step_lanes` against their plain versions at
-     4096 lanes over 128 ticks of seeded masks, then the tick traces of
+     4096 lanes over 64 ticks of seeded masks, then the tick traces of
      their JAX fixture (tests/fixtures/torch_port_spar_sdag_golden.npz);
- 42. their streams against their plain versions: 4096 lanes x 256
+ 42. their streams against their plain versions: 4096 lanes x 128
      steps, every policy (2 Spar, 6 Sdag) in one batched plain call,
      unchunked and in chunks of 100; then the fixture's sums and carries;
  43. the variants the paths do not run (PAR_VARIANTS: Spar's block
      scheme; Sdag constant-altruistic, constant-heuristic and
      discount-altruistic; rings at k = 4 that wrap and overflow, Sdag's
      of 40 slots with a 16-position release scan, Spar's of 16), 512
-     lanes x 160 steps, every policy, against their plain versions, the
+     lanes x 96 steps, every policy, against their plain versions, the
      wrapped and the overflowed episodes counted;
  44. the Spar path: spar-8-constant (the protocol of spar-8.yaml),
      window 128, selfish, 4096 lanes x 1024 steps in chunks of 128,
@@ -300,7 +299,12 @@ Phases, one line each; any failure raises and the exit code is not 0:
      copy of its carry and held to the plain twin (`_burst_plain`; with
      the rings on, the kernel's recorded actions replayed through the
      plain `_lane_step`, every recorded field checked), its plain time;
-     then the K2 stream over the same lanes and steps and the ratio;
+     then K14's admission: from copies, a numpy-seeded eighth of the
+     lanes admitted with a burst over a seeded seven eighths (some
+     admitted lanes run, some are held), held to the plain splice then
+     the plain burst, and the card's splice (K2's prologue, then K3)
+     held to the plain splice; then the K2 stream over the same lanes
+     and steps and the ratio;
  52. the mixed table at 4096 lanes, burst 256, max_steps 256, the rings
      on: lanes cycled over the four scripted policies, a loaded greedy
      net, the swap net `ppo` and `ppo#sample` ((64, 64), seeded), two
@@ -318,17 +322,54 @@ Phases, one line each; any failure raises and the exit code is not 0:
      at its defaults (32 lanes, burst 256, max_steps 256) with a policy
      snapshot; 32 concurrent clients (scripted and `ppo` episode.run,
      interactive episodes stepped to their end, one netsim.query);
-     SIGTERM: a drain report with 0 < p50 <= p99 < the traffic's wall,
-     exit 0; the child's launch counts (printed at its exit: K2, K3,
-     K14, K11-act, K12-scan, and K1 allowed);
+     then tools/serve_smoke.py's flood: FLOOD_EPISODES honest episodes
+     over 128 persistent connections from 2 client processes, the steps
+     per busy dispatch second of the server's stats over a batch
+     `rollout()` at the server's width (32 lanes x 256 steps, honest,
+     alpha 0.25) timed here after it, printed beside the reference's
+     floor SERVE_MIN_FRAC (0.8; not held: ROADMAP §3.4); SIGTERM: a
+     drain report with 0 <
+     p50 <= p99 < the traffic's wall, exit 0; the child's launch counts
+     (printed at its exit: K2, K3, K14, K11-act, K12-scan, and K1
+     allowed);
  55. the learning loop: `python -m cpr_tpu_torch.learn.learner` and a
      server with `--learner` and `--learn-watch` at tools/learn_smoke.
      py's shape (16 lanes, burst 64, max_steps 64, --n-envs 16 --n-steps
      64, alpha 0.45), flooded with `ppo#sample`, `honest` and `ppo`
      sessions until the fingerprints in the replies have rotated through
-     LEARN_MIN_SWAPS published swaps, no session refused; the greedy
-     relative reward before and after printed (no gain required); both
-     children exit 0 on SIGTERM, with their launch counts.
+     LEARN_MIN_SWAPS published swaps and the LEARN_TAIL newest greedy
+     episodes, all after a swap, beat the untrained snapshot's baseline
+     wave by LEARN_MIN_GAIN (0.01, tools/learn_smoke.py's floor), no
+     session refused; both children exit 0 on SIGTERM, with their launch
+     counts.
+ 56. (after 46) full mode, every DAG env as the reference sizes it:
+     K8-full's check kernel, both full modes (walks, binary lifting, the
+     chain and closure releases), 2048 lanes x 320 ops of FULL_OPS at
+     520 slots against `script_plain`, then the full-mode JAX fixture's
+     scripts (tests/fixtures/torch_port_fullmode_golden.npz);
+ 57. K9-full's check kernel (the log-doubling frame, the release
+     prefixes and the stale walk without planes) on 4096 lanes of
+     Tailstorm's and Stree's full-mode plain carries against
+     `check_plain`, then the fixture's carries against cpr_tpu's outputs;
+ 58. each K10-<env>-full `step_lanes` (bk, Ethereum lifted, Tailstorm,
+     Stree, Spar, Sdag, TailstormJune on K10-stree-full) against its
+     plain version over 64 ticks of seeded masks at 512 lanes, then the
+     fixture's tick traces;
+ 59. each env's full-mode stream path, `registry.get(key)` with no
+     window (520 slots for bk and Tailstorm, 264 for the rest), 4096
+     lanes x 256 steps in chunks of 128, max_steps 128, its own launch
+     counts (K1 and its K10-<env>-full only), relative revenue within
+     VOTE_GUARD of cpr_tpu's on the fixture's lanes, no episode filling
+     its capacity; every policy on the first 64 lanes over 128 steps
+     against one batched plain replay; every policy on the fixture's keys
+     against cpr_tpu (the sums, done counts and obs; the main policy's
+     whole final carry);
+ 60. `cpr-tailstorm-torch-v0` at its defaults (the env its factory
+     builds: 264 slots, max_steps 128): one lane, 100 ticks of
+     K10-ts-full, its own launch counts;
+ 61. each K10-<env>-full's device time per 128-step launch at the
+     stream path's shape and per step_lanes tick, the plain versions'
+     times and the bounds; K8-full's and K9-full's check kernels.
 Then the kernels line (JSON: launches summed over the main paths, the
 error of the main-shape comparison, the times and the bound) and the
 last line {"ok": true, "device": {...}}.
@@ -458,9 +499,11 @@ DAG_ENVS = {"bk": ("bk-8-constant", "get-ahead"),
             "stree": ("stree-8-constant-heuristic", "override-catchup"),
             "spar": ("spar-8-constant", "selfish"),
             "sdag": ("sdag-8-discount-heuristic", "override-catchup")}
-# (the step_lanes checks run at the gym paths' lanes, BK_/ETH_LANES)
+# (the step_lanes checks run at the gym paths' lanes, BK_/ETH_LANES; 64
+# ticks and 128 steps leave room in the smoke's time for full mode's
+# phases, and still cross episode ends at max_steps 32 and 64)
 DAG_WINDOW, DAG_CHECK_LANES, DAG_CHECK_STEPS, DAG_CHECK_TICKS = 128, 4096, \
-    256, 128
+    128, 64
 K8_LANES, K8_OPS, K8_PARENTS = 4096, 480, 9
 BK_LANES, BK_STEPS, BK_MAX_STEPS, BK_GUARD = 8192, 128, 120, (0.05, 0.6)
 ETH_LANES, ETH_STEPS, ETH_CHUNK, ETH_MAX_STEPS = 4096, 4096, 128, 120
@@ -501,7 +544,9 @@ VOTE_VARIANTS = {
               dict(k=4, incentive_scheme="constant",
                    subblock_selection="optimal", window=40,
                    release_scan=16))}
-VARIANT_LANES, VARIANT_STEPS = 512, 160
+# (96 steps leave room for full mode's phases, cross an episode end at
+# max_steps 64 and wrap the 40- and 16-slot rings)
+VARIANT_LANES, VARIANT_STEPS = 512, 96
 MINE_THREEFRY5 = 9  # split into 5, then one draw from each of 4 keys
 # The Spar and Sdag envs (K10-spar, K10-sdag): the vote paths' shape
 # (4096 lanes x 1024 steps in chunks of 128, max_steps 120) at the shipped
@@ -511,8 +556,8 @@ MINE_THREEFRY5 = 9  # split into 5, then one draw from each of 4 keys
 # scheme, Sdag's other scheme-selection pairs, and rings at k = 4 that
 # wrap and overflow: Sdag's of 40 slots with a 16-position release scan,
 # Spar's of 16 (its two policies release or adopt before a fork fills 40:
-# at 512 lanes x 160 steps no 40-slot episode overflows, ~3% of 16-slot
-# ones do).
+# at 512 lanes x 160 steps no 40-slot episode overflowed, ~3% of 16-slot
+# ones did).
 SPAR_SDAG_FIXTURE = ROOT / "tests" / "fixtures" / \
     "torch_port_spar_sdag_golden.npz"
 PAR_VARIANTS = {
@@ -554,9 +599,30 @@ NET_ENVS = (("nakamoto", None, True),
             ("spar-8-constant", DAG_WINDOW, False),
             ("sdag-8-discount-heuristic", DAG_WINDOW, False))
 LOSS_BATCH, ADAM_STEPS = PPO_LANES * PPO_STEPS // 4, 16
-# the Tailstorm config's ring against full mode: steps from a raw reset
-# (a whole 128-step episode on every lane) and lanes replayed in full mode
-CONFIG_RING_STEPS, CONFIG_FULL_LANES = 160, 64
+# the DAG configs' nets in full mode: steps from a raw reset (a whole
+# 128-step episode on every lane)
+CONFIG_FULL_STEPS = 160
+# Full mode (K8-full, K9-full, K10-<env>-full): every DAG env as the
+# reference sizes it. The stream paths take `registry.get(key)` (no window,
+# the default hint of 256: 520 slots for Bₖ and Tailstorm, 264 for the
+# rest) at the vote paths' shape; the checks and the JAX fixture
+# (tests/test_torch_fullmode_golden.py) take `registry.get_sized(key,
+# 128)`, the training configs' sizing. A path's revenue guard is
+# +-VOTE_GUARD around cpr_tpu's on the fixture's 64 lanes (full mode's
+# episodes end alike at any capacity that holds them). The gym path is
+# `cpr-tailstorm-torch-v0` at its defaults, built as its factory builds
+# it (the card has no gymnasium): one lane, FULL_GYM_TICKS ticks.
+FULL_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_fullmode_golden.npz"
+FULL_ENVS = {**DAG_ENVS, "june": ("tailstormjune-8-block", "override-catchup")}
+FULL_LIB = {"bk": "bk", "eth": "eth", "ts": "ts", "stree": "stree",
+            "spar": "spar", "sdag": "sdag", "june": "stree"}
+FULL_HINT, FULL_MAX_STEPS, FULL_REF_LANES = 128, 128, 64
+FULL_LANES, FULL_STEPS, FULL_CHUNK = 4096, 256, 128
+FULL_REPLAY_STEPS = 128  # the plain replay's depth (the fixture's: 256)
+FULL_CHECK_LANES, FULL_CHECK_TICKS, FULL_CHECK_MAX_STEPS = 512, 64, 32
+K8F_LANES, K8F_OPS, K8F_CAP, K8F_PARENTS = 2048, 320, 520, 9
+K9F_STEPS, K9F_MAX_STEPS = 120, 200
+FULL_GYM_TICKS = 100
 # The netsim slice (K12-scan, K12-event, K13): bench.py's netsim_sweep
 # (bench.py:312-350) and attack_sweep (:477-541) shapes and guards, the
 # sweep widths and the fixture. The netsim sweep runs the activation
@@ -616,9 +682,27 @@ PROTO_OUT_KEYS = ("head", "head_height", "progress", "on_chain", "sim_time",
 # 2016 steps; it ends in burst 7, the one held to the plain version.
 SERVE_BURST, SERVE_BURSTS, SERVE_COMPARE_BURST = 256, 9, 7
 MIX_LANES, MIX_BURST, MIX_MAX_STEPS = 4096, 256, 256
-WIRE_CLIENTS, WIRE_MAX_STEPS = 32, 256  # the server's defaults: 32 lanes
+WIRE_CLIENTS, WIRE_MAX_STEPS = 32, 256
+WIRE_LANES = 32  # the server's defaults: 32 lanes, burst and max_steps 256
 LEARN_LANES, LEARN_STEPS = 16, 64  # tools/learn_smoke.py's shape
 LEARN_MIN_SWAPS, LEARN_MAX_WAVES, LEARN_WALL_S = 2, 30, 240.0
+# tools/learn_smoke.py's gain floor (CPR_LEARN_MIN_GAIN): the TAIL_WINDOW
+# newest greedy episodes, all after a swap, beat the untrained snapshot's
+# baseline wave (6 greedy episodes a worker) by LEARN_MIN_GAIN
+LEARN_MIN_GAIN, LEARN_TAIL, LEARN_BASE_EPISODES = 0.01, 32, 6
+# tools/serve_smoke.py's throughput floor (CPR_SERVE_MIN_FRAC): a full
+# occupancy flood of FLOOD_EPISODES honest episodes over FLOOD_CLIENTS
+# connections from FLOOD_PROCS asyncio client processes at the lowest
+# priority (a burst of 32 lanes x 256 steps takes well under a
+# millisecond on the card, and one process of client threads answers
+# too slowly to keep the lanes full: at the reference's twice the lanes,
+# bursts ran half full; busier clients take the host's cores from the
+# server), steps per busy dispatch second from the server's stats,
+# against a batch rollout() at the server's width: printed beside the
+# reference's floor SERVE_MIN_FRAC, which the port meets in some runs and
+# not in others (ROADMAP §3.4)
+FLOOD_EPISODES, FLOOD_CLIENTS, FLOOD_PROCS = 4096, 128, 2
+SERVE_MIN_FRAC = 0.8
 CHILD_READY_S, CHILD_STOP_S = 180.0, 120.0
 
 
@@ -668,8 +752,10 @@ def device_ms(fn, reps, kernel):
     caller that did other work between calls. A trace that lost a
     launch record (the profiler once reported 2 of 3 launches) is taken
     again, twice at most; if every one of them lost records, each call
-    is traced alone (three tries a call); raises if a call's launch is
-    still not in its trace."""
+    is traced alone (three tries a call); once a call's launch is
+    missing from all three of its traces (the profiler has returned
+    none at all), the calls left are timed by CUDA events around each
+    scrubbed call: the call's whole span on the stream."""
     from torch.profiler import ProfilerActivity, profile
     scrub = torch.empty(L2_SCRUB_BYTES // 4, dtype=torch.float32,
                         device="cuda")
@@ -698,18 +784,28 @@ def device_ms(fn, reps, kernel):
             return total_us / count / 1e3
         say("device_ms", kernel=json.dumps(parts), traced=count,
             expected=reps, retry=True)
-    total_us = 0.0
-    for _ in range(reps):
+    total_ms, alone = 0.0, 0
+    while alone < reps:
         for _ in range(3):
             us, n = traced(1)
             if n == 1 and us > 0:
                 break
-        check(n == 1 and us > 0,
-              f"profiler trace holds {n} launches of *{kernel}*, "
-              f"expected 1")
-        total_us += us
-    say("device_ms", kernel=json.dumps(parts), one_call_a_trace=reps)
-    return total_us / reps / 1e3
+        if n != 1 or us <= 0:
+            break
+        total_ms += us / 1e3
+        alone += 1
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(reps - alone):
+        scrub.fill_(float(i))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total_ms += start.elapsed_time(end)
+    say("device_ms", kernel=json.dumps(parts), one_call_a_trace=alone,
+        cuda_events=reps - alone)
+    return total_ms / reps
 
 
 def bound_ms(n_bytes, n_ops):
@@ -2568,6 +2664,463 @@ def phase_dag_times(dev, report, names):
     say("dag_times", **{k: json.dumps(v) for k, v in times.items()})
 
 
+# -- full mode (K8-full, K9-full, K10-<env>-full) ---------------------------------
+
+def full_env(name, sized=True):
+    """A DAG env in full mode: the checks' and the fixture's sizing
+    (`get_sized(key, FULL_HINT)`), or the registry's default (the stream
+    paths)."""
+    from cpr_tpu_torch.envs import registry
+    key = FULL_ENVS[name][0]
+    return registry.get_sized(key, FULL_HINT) if sized else registry.get(key)
+
+
+def full_kernel(name):
+    return f"K10-{FULL_LIB[name]}-full"
+
+
+def full_revenue(ffx, name):
+    """cpr_tpu's relative revenue of the main policy on the fixture's
+    lanes: the per-lane episode means (bench.py's), averaged."""
+    env = full_env(name)
+    i = env.scripted_policies.index(FULL_ENVS[name][1])
+    sums, nd = ffx[f"{name}_p{i}_sums"], ffx[f"{name}_p{i}_n_done"]
+    per = sums / np.maximum(nd, 1)[None, :]
+    a, d = float(per[0].mean()), float(per[1].mean())
+    return a / (a + d)
+
+
+def phase_k8_full(dev, ffx, report):
+    """K8-full's check kernel (both full modes) against `script_plain` at
+    main shapes (a capacity that holds every append) and against the JAX
+    fixture's scripts."""
+    from cpr_tpu_torch.core import dag as D
+    k8 = report["K8-full"]
+    err, walks = 0.0, {}
+    for lift in (False, True):
+        ops, args, fargs = D.make_script(5 + int(lift), K8F_LANES, K8F_OPS,
+                                         K8F_PARENTS, ops=D.FULL_OPS,
+                                         lift=lift)
+        a, f = torch.from_numpy(args).to(dev), torch.from_numpy(fargs).to(dev)
+
+        def fresh(L, W, P):
+            return D.empty(L, W, P, lift=lift, device=dev)
+
+        dk, rk, ok = D.dag_script(fresh(K8F_LANES, K8F_CAP, K8F_PARENTS), ops,
+                                  a, f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp, rp, op = D.script_plain(fresh(K8F_LANES, K8F_CAP, K8F_PARENTS),
+                                    ops, a, f)
+        torch.cuda.synchronize()
+        if not lift:
+            k8["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        what = f"K8-full{' lifted' if lift else ''}"
+        check(torch.equal(ok, op), f"{what} script results differ from plain")
+        check(torch.equal(rk, rp), f"{what} registers differ from plain")
+        err = max(err, compare_dag_state(dk, dp, f"{what} vs plain"))
+        check(not bool(dk.overflow.any()), f"{what}: the script overflowed")
+        walks[what] = int(np.isin(ops, (D.OP_RELEASE_CHAIN,
+                                        D.OP_RELEASE_CLOSURE,
+                                        D.OP_BLOCK_AT_HEIGHT,
+                                        D.OP_CA_HEIGHT)).sum())
+        # against jax (committed fixture)
+        pre = "k8lift" if lift else "k8full"
+        L = ffx[f"{pre}_args"].shape[1]
+        W = ffx[f"{pre}_dag.height"].shape[1]
+        P = ffx[f"{pre}_dag.parents"].shape[0]
+        dj, rj, oj = D.dag_script(fresh(L, W, P), ffx[f"{pre}_ops"],
+                                  torch.from_numpy(ffx[f"{pre}_args"]).to(dev),
+                                  torch.from_numpy(ffx[f"{pre}_fargs"]).to(dev))
+        check(np.array_equal(oj.cpu().numpy(), ffx[f"{pre}_out"])
+              and np.array_equal(rj.cpu().numpy(), ffx[f"{pre}_regs"]),
+              f"{what} script differs from jax")
+        check(np.array_equal(torch.stack(dj.parents).cpu().numpy(),
+                             ffx[f"{pre}_dag.parents"]),
+              f"{what} parents differ from jax")
+        for g in D.FIELDS[1:]:
+            check(np.array_equal(getattr(dj, g).cpu().numpy(),
+                                 ffx[f"{pre}_dag.{g}"]),
+                  f"{what} {g} differs from jax")
+    k8["max_abs_err"] = err
+    say("k8_full", lanes=K8F_LANES, ops=K8F_OPS, capacity=K8F_CAP,
+        parents=K8F_PARENTS, walk_ops=json.dumps(walks),
+        fixture_lanes=int(ffx["k8full_args"].shape[1]), max_abs_err=err,
+        ok=True)
+
+
+def phase_k9_full(dev, ffx, report):
+    """K9-full's check kernel against `check_plain` on FULL_LANES lanes of
+    each vote env's full-mode plain stream carry (every policy on its
+    share of the lanes, K9F_STEPS steps into episodes of K9F_MAX_STEPS)
+    and against the fixture's carries and inputs (jax's outputs).
+    Returns the carries."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs import quorum as Q
+    from cpr_tpu_torch.kernels import _CHECK_CFG
+    from cpr_tpu_torch.params import make_params
+    carries = {}
+    for name in ("ts", "stree"):
+        env = full_env(name)
+        n = FULL_LANES
+        group = -(-n // len(env.scripted_policies))
+        params = make_params(alpha=0.35, gamma=0.5, max_steps=K9F_MAX_STEPS)
+        _, carry = dag_plain_stats(env, rnd.split(rnd.PRNGKey(31, dev), n),
+                                   params, mixed_policy(env, group),
+                                   K9F_STEPS)
+        carries[name] = carry
+        state = carry[0]
+        check(not bool(state.dag.overflow.any()), f"K9-full {name} overflow")
+        inputs = {k: v.contiguous() for k, v in
+                  Q.check_inputs(env, state).items()}
+        cfg = Q.check_cfg(env)
+        got = Q.quorum_check(state.dag, inputs, cfg)
+        want = Q.check_plain(state.dag, inputs, cfg)
+        for k, w in want.items():
+            check(torch.equal(got[k], w),
+                  f"K9-full {name} {k} differs from plain")
+        fcfg = {f: int(v) for f, v in zip(_CHECK_CFG,
+                                           ffx[f"k9_{name}_cfg"])}
+        fstate = fixture_dag_state(ffx, f"k9_{name}_state_", env, dev)
+        fin = {f: torch.from_numpy(ffx[f"k9_{name}_in_{f}"]).to(dev)
+               for f in ("cand", "own", "seen", "score", "stale", "pub",
+                         "priv")}
+        fout = Q.quorum_check(fstate.dag, fin, fcfg)
+        for k, v in fout.items():
+            check(np.array_equal(v.cpu().numpy(), ffx[f"k9_{name}_out_{k}"]),
+                  f"K9-full {name} {k} differs from jax")
+        say(f"k9_full_{name}", lanes=n, capacity=env.capacity, C=cfg["C"],
+            found=json.dumps(want["found"].sum(1).tolist()),
+            release_flips=int(want["rfound"].sum()),
+            framed=int(want["cvalid"].sum()),
+            fixture_lanes=int(fin["pub"].shape[0]), ok=True)
+    report["K9-full"]["max_abs_err"] = 0.0  # integers and bools only
+    return carries
+
+
+def phase_full_lanes(dev, ffx, report):
+    """Each K10-<env>-full step_lanes against its plain version over
+    seeded actions and admit and step masks, then the fixture's tick
+    trace (jax's)."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs.base import INFO_KEYS
+    from cpr_tpu_torch.params import make_params
+    for name in FULL_ENVS:
+        env = full_env(name)
+        k10 = report[full_kernel(name)]
+        lanes = FULL_CHECK_LANES
+        params = make_params(alpha=0.35, gamma=0.5,
+                             max_steps=FULL_CHECK_MAX_STEPS)
+        rng = np.random.default_rng(2)
+        carry = env.init_lanes(rnd.split(rnd.PRNGKey(11, dev), lanes), params)
+        fresh = env.init_lanes(rnd.split(rnd.PRNGKey(12, dev), lanes), params)
+        s_plain, o_plain = env._stream_init(
+            rnd.split(rnd.PRNGKey(11, dev), lanes), params)
+        err = compare_dag_state(carry[0], s_plain, f"{name} full init_lanes")
+        plain = clone_carry(carry)
+        n_done = 0
+        for t in range(FULL_CHECK_TICKS):
+            actions = torch.from_numpy(rng.integers(
+                0, env.n_actions, lanes).astype(np.int32)).to(dev)
+            admit = torch.from_numpy(rng.random(lanes) < 0.05).to(dev)
+            step = torch.from_numpy(rng.random(lanes) < 0.8).to(dev)
+            _, out = env.step_lanes(carry, actions, admit, fresh, step,
+                                    params)
+            _, out_p = env.step_lanes_plain(plain, actions, admit, fresh,
+                                            step, params)
+            err = max(err, compare_outputs(out, out_p,
+                                           f"{name} full tick {t}"))
+            n_done += int(out[2].sum())
+        err = max(err, compare_dag_state(carry[0], plain[0],
+                                         f"{name} full ticks"))
+        check(float((carry[1] - plain[1]).abs().max()) <= 1e-6,
+              f"{name} full carry obs")
+        check(n_done > 0, f"{name} full step_lanes check reset no lane")
+        # against jax (committed fixture)
+        p3 = make_params(alpha=0.35, gamma=0.5, max_steps=12)
+        carry = env.init_lanes(rnd.from_numpy_words(
+            ffx[f"{name}_sl_keys"], dev), p3)
+        fresh = env.init_lanes(rnd.from_numpy_words(
+            ffx[f"{name}_sl_fresh_keys"], dev), p3)
+        cvt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        for t in range(ffx[f"{name}_sl_actions"].shape[0]):
+            _, out = env.step_lanes(carry, cvt(ffx[f"{name}_sl_actions"][t]),
+                                    cvt(ffx[f"{name}_sl_admit"][t]), fresh,
+                                    cvt(ffx[f"{name}_sl_step"][t]), p3)
+            want = (cvt(ffx[f"{name}_sl_out_obs"][t]),
+                    cvt(ffx[f"{name}_sl_out_reward"][t]),
+                    cvt(ffx[f"{name}_sl_out_done"][t]),
+                    {k: cvt(ffx[f"{name}_sl_out_info"][t][i])
+                     for i, k in enumerate(INFO_KEYS)})
+            compare_outputs(out, want, f"{name} full step_lanes vs jax "
+                            f"tick {t}")
+        compare_dag_state(carry[0], fixture_dag_state(
+            ffx, f"{name}_sl_final_", env, dev), f"{name} full step_lanes "
+            "vs jax")
+        k10["max_abs_err"] = max(k10["max_abs_err"], err)
+        say(f"{name}_full_lanes", kernel=full_kernel(name),
+            capacity=env.capacity, lanes=lanes, ticks=FULL_CHECK_TICKS,
+            episodes_ended=n_done, max_abs_err=err, ok=True)
+
+
+def phase_full_streams(dev, ffx, report):
+    """Each env's full-mode stream path (`registry.get(key)`: no window,
+    the default sizing) at FULL_LANES x FULL_STEPS in chunks of
+    FULL_CHUNK under the main policy, its launch counts and revenue
+    guard, every policy on the first FULL_REF_LANES lanes over
+    FULL_REPLAY_STEPS steps against one batched plain replay (its time is
+    the row's plain time), and every policy on the fixture's keys against jax
+    (the main policy's whole final carry at the fixture's sizing).
+    Returns the paths' launch counts and each env's plain chunk ms."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs.base import EPISODE_KEYS
+    from cpr_tpu_torch.params import make_params
+    counts_all, plain_ms = [], {}
+    for name in FULL_ENVS:
+        env, fenv = full_env(name, sized=False), full_env(name)
+        main = FULL_ENVS[name][1]
+        k10n = full_kernel(name)
+        k10 = report[k10n]
+        check(not env.ring and env.kernel_name == k10n,
+              f"{name}: registry.get gives {env.kernel_name}")
+        params = make_params(alpha=0.35, gamma=0.5, max_steps=FULL_MAX_STEPS)
+        kernels.reset_launches()
+        keys = rnd.split(rnd.PRNGKey(0, dev), FULL_LANES)
+        fn = env.make_episode_stats_fn(params, env.policies[main], FULL_STEPS,
+                                       chunk=FULL_CHUNK)
+        stats = fn(keys)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = fn(keys)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        path_launches(counts, ("K1", k10n), f"{name} full")
+        counts_all.append(counts)
+        check(all(torch.isfinite(stats[k]).all() for k in EPISODE_KEYS),
+              f"{name} full: non-finite stats")
+        short = (stats["episode_n_steps"] < FULL_MAX_STEPS) \
+            & (stats["n_episodes"] > 0)
+        check(not bool(short.any()), f"{name} full: an episode overflowed")
+        atk = float(stats["episode_reward_attacker"].mean())
+        dfn = float(stats["episode_reward_defender"].mean())
+        rel, ref = atk / (atk + dfn), full_revenue(ffx, name)
+        check(abs(rel - ref) < VOTE_GUARD,
+              f"{name} full relative revenue {rel} outside {ref} +- "
+              f"{VOTE_GUARD}")
+        # every policy on the first lanes against one batched plain replay
+        n, n_pol = FULL_REF_LANES, len(env.scripted_policies)
+        want, _, chunk_s = dag_plain_stats(
+            env, keys[:n].repeat(n_pol, 1), params, mixed_policy(env, n),
+            FULL_REPLAY_STEPS, timed=True)
+        plain_ms[name] = chunk_s[0] * 1e3
+        err = 0.0
+        for i, pol in enumerate(env.scripted_policies):
+            sl = slice(i * n, (i + 1) * n)
+            w = {k: v[sl] for k, v in want.items()}
+            got = env.make_episode_stats_fn(params, env.policies[pol],
+                                            FULL_REPLAY_STEPS)(keys[:n])
+            err = max(err, compare_stats(got, w, f"{k10n} {pol} vs plain"))
+        # against jax (committed fixture)
+        fkeys = rnd.from_numpy_words(ffx[f"{name}_keys"], dev)
+        for i, pol in enumerate(fenv.scripted_policies):
+            carry, sums, nd, _ = fenv._stream(None, fkeys, 1, FULL_STEPS, params,
+                                              pol, True)
+            check(np.array_equal(nd.cpu().numpy(), ffx[f"{name}_p{i}_n_done"]),
+                  f"{name} full {pol} episodes differ from jax")
+            ws = ffx[f"{name}_p{i}_sums"]
+            for j, k in enumerate(EPISODE_KEYS):
+                g = sums[j].cpu().numpy()
+                if "time" in k:
+                    check(bool((np.abs(g - ws[j]) <= 1e-5 * np.abs(ws[j]))
+                               .all()), f"{name} full {pol} {k} vs jax")
+                else:
+                    check(np.array_equal(g, ws[j]),
+                          f"{name} full {pol} {k} differs from jax")
+            check(float(np.abs(carry[1].cpu().numpy()
+                               - ffx[f"{name}_p{i}_obs"]).max()) <= 1e-6,
+                  f"{name} full {pol} obs vs jax")
+            if pol == main:
+                compare_dag_state(carry[0], fixture_dag_state(
+                    ffx, f"{name}_final_", fenv, dev),
+                    f"{name} full {pol} vs jax")
+        k10["max_abs_err"] = max(k10["max_abs_err"], err)
+        say(f"{name}_full", kernel=k10n, capacity=env.capacity,
+            lanes=FULL_LANES, steps=FULL_STEPS, chunk=FULL_CHUNK,
+            rel_revenue=rel, ref_revenue=ref,
+            episodes=int(stats["n_episodes"].sum()),
+            env_steps_per_s=FULL_LANES * FULL_STEPS / secs, call_s=secs,
+            plain_lanes=n * n_pol, plain_chunk_ms=plain_ms[name],
+            fixture_policies=n_pol, max_abs_err=err,
+            launches=json.dumps(counts), ok=True)
+    return counts_all, plain_ms
+
+
+def phase_full_gym(dev, report):
+    """`cpr-tailstorm-torch-v0` at its defaults on the card: the env its
+    factory builds (gym.env_fn: Tailstorm k=8, discount, heuristic,
+    `get_sized` to episode_len 128, alpha 0.45 at the schedule's default),
+    one resident lane as gym.envs.Core steps it (K1 splits its key),
+    FULL_GYM_TICKS ticks of K10-ts-full; launch counts. Returns them."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs import registry
+    from cpr_tpu_torch.params import make_params
+    env = registry.get_sized("tailstorm", 128, k=8,
+                             incentive_scheme="discount",
+                             subblock_selection="heuristic")
+    check(not env.ring and env.kernel_name == "K10-ts-full",
+          f"the gym's env runs {env.kernel_name}")
+    params = make_params(alpha=0.45, gamma=0.5, max_steps=128)
+    pol = env.policies["get-ahead"]
+    kernels.reset_launches()
+    k = rnd.split(rnd.PRNGKey(0, dev))[1][None]
+    fresh = env.reset_lanes(k, params)
+    carry = env.reset_lanes(k, params)
+    no_admit = torch.zeros(1, dtype=torch.bool, device=dev)
+    step_all = torch.ones(1, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    episodes, reward = 0, 0.0
+    for _ in range(FULL_GYM_TICKS):
+        _, (obs, r, done, _) = env.step_lanes(carry, pol(carry[1]), no_admit,
+                                              fresh, step_all, params)
+        episodes += int(done[0])
+        reward += float(r[0])
+    tick_s = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K1", "K10-ts-full"), "gym full")
+    check(counts["K10-ts-full"] == FULL_GYM_TICKS + 2,
+          f"K10-ts-full launched {counts['K10-ts-full']} times for "
+          f"{FULL_GYM_TICKS} ticks and two resets")
+    check(bool(torch.isfinite(obs).all()) and np.isfinite(reward),
+          "gym full: non-finite obs or reward")
+    say("gym_full", id="cpr-tailstorm-torch-v0", capacity=env.capacity,
+        ticks=FULL_GYM_TICKS, ticks_per_s=FULL_GYM_TICKS / tick_s,
+        episodes_ended=episodes, launches=json.dumps(counts), ok=True)
+    return counts
+
+
+def phase_full_times(dev, report, k9_carries, plain_ms):
+    """Each K10-<env>-full's device time per FULL_CHUNK-step launch at the
+    stream path's shape and per step_lanes tick, and the bound (as
+    phase_dag_times counts it; the Stree row's numbers are Stree's,
+    TailstormJune's are printed beside them), with the plain version's
+    time of FULL_REPLAY_STEPS (= FULL_CHUNK) steps at its replay's lanes
+    (`plain_ms`, phase_full_streams); K8-full's and K9-full's check
+    kernels at main shapes."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.core import dag as D
+    from cpr_tpu_torch.envs import quorum as Q
+    from cpr_tpu_torch.params import make_params
+    times = {}
+    for name in FULL_ENVS:
+        env = full_env(name, sized=False)
+        env_kind = ENV_KINDS[FULL_LIB[name]]
+        row = f"{full_kernel(name)}" + (" june" if name == "june" else "")
+        L, T = FULL_LANES, FULL_CHUNK
+        params = make_params(alpha=0.35, gamma=0.5, max_steps=FULL_MAX_STEPS)
+        pol = FULL_ENVS[name][1]
+        pid = env.scripted_policy_id(pol)
+        keys = rnd.split(rnd.PRNGKey(0, dev), L)
+        carry = env._empty_carry(L, dev)
+        t = {}
+        t["ms"] = device_ms(lambda: env._kernel_stream(
+            carry, keys, 1, T, params, pid, True, False), 3,
+            ("dag_stream_kernel", env_kind))
+        sums, n_done, _ = env._kernel_stream(carry, keys, 1, T, params, pid,
+                                             True, False)
+        resets = int(n_done.sum())
+        state_b = carry_bytes(carry)
+        k10_bytes = L * 8 + 2 * state_b + L * (7 * 4 + 4)
+        if FULL_LIB[name] in MINE5_ENVS:
+            mines = int(sums[6].sum()) + int(carry[0].n_activations.sum())
+            k10_ops = THREEFRY_OPS * (MINE_THREEFRY5 * mines + L)
+        else:
+            k10_ops = THREEFRY_OPS * (MINE_THREEFRY * (L * T + L + resets)
+                                      + L)
+        t["bound_ms"], t["bound_by"] = bound_ms(k10_bytes, k10_ops)
+        t["state_bytes"] = state_b
+        t["plain_ms"] = plain_ms[name]
+        c2 = env.reset_lanes(keys, params)
+        fresh = env.reset_lanes(rnd.split(rnd.PRNGKey(3, dev), L), params)
+        actions = env.policies[pol](c2[1])
+        no_admit = torch.zeros(L, dtype=torch.bool, device=dev)
+        step_all = torch.ones(L, dtype=torch.bool, device=dev)
+        t["step_lanes_ms"] = device_ms(lambda: env.step_lanes(
+            c2, actions, no_admit, fresh, step_all, params), 20,
+            ("dag_step_lanes_kernel", env_kind))
+        t["capacity"] = env.capacity
+        times[row] = t
+        if name != "june":
+            r = report[full_kernel(name)]
+            r.update({f: t[f] for f in ("ms", "bound_ms", "bound_by",
+                                        "plain_ms")})
+            r["library_ms"] = None  # no PyTorch call computes an env step
+    # K8-full: the non-lifted script at main shapes
+    ops, args, fargs = D.make_script(5, K8F_LANES, K8F_OPS, K8F_PARENTS,
+                                     ops=D.FULL_OPS)
+    a, f = torch.from_numpy(args).to(dev), torch.from_numpy(fargs).to(dev)
+    dag = D.empty(K8F_LANES, K8F_CAP, K8F_PARENTS, device=dev)
+    k8 = report["K8-full"]
+    k8["ms"] = device_ms(lambda: D.dag_script(dag, ops, a, f), 3,
+                         "dag_script_kernel")
+    dag_b = carry_bytes((dag, torch.empty(0)))
+    k8["bound_ms"], k8["bound_by"] = bound_ms(
+        2 * dag_b + a.nbytes + f.nbytes + K8F_OPS * K8F_LANES * 16
+        + K8F_LANES * 32, 0)
+    k8["library_ms"] = None
+    # K9-full on the Tailstorm carries of phase_k9_full
+    env = full_env("ts")
+    state = k9_carries["ts"][0]
+    inputs = {k: v.contiguous() for k, v in
+              Q.check_inputs(env, state).items()}
+    cfg = Q.check_cfg(env)
+    k9 = report["K9-full"]
+    k9["ms"] = device_ms(lambda: Q.quorum_check(state.dag, inputs, cfg), 3,
+                         "quorum_check_kernel")
+    out = Q.quorum_check(state.dag, inputs, cfg)
+    Q.check_plain(state.dag, inputs, cfg)
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Q.check_plain(state.dag, inputs, cfg)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    k9["plain_ms"] = sorted(secs)[1] * 1e3
+    k9["bound_ms"], k9["bound_by"] = bound_ms(
+        k9_full_bytes(state.dag, inputs, cfg, out), 0)
+    k9["library_ms"] = None
+    for k in ("K8-full", "K9-full"):
+        times[k] = {f: report[k][f] for f in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by")}
+    say("full_times", **{k: json.dumps(v) for k, v in times.items()})
+
+
+def k9_full_bytes(dag, inputs, cfg, out):
+    """The bytes K9-full's check must move on these lanes: the per-slot
+    planes it scans whole (signer, kind, vis_d and the inputs cand and
+    stale), for each framed candidate its parent slot, the kind of that
+    parent and its gathered values (aux, own, seen, score), the height
+    (and for Tailstorm the auxg) of each release position and of `pub`,
+    for each of the first R withheld its block's STALE_WALK steps of the
+    previous-block pointer, the lane scalars, and every output written
+    once; counted at this run's data."""
+    from cpr_tpu_torch.envs import quorum as Q
+    L, W = dag.height.shape
+    framed = int((out["cidx"] >= 0).sum())
+    cands = dag.exists() & ~dag.vis_d & ~inputs["stale"]
+    positions = int(cands.sum(1).clamp(max=cfg["R"]).sum()) + L
+    per_pos = 4 + (4 if cfg["env"] == 0 else 0)
+    withheld = dag.exists() & ~dag.vis_d & ~inputs["stale"]
+    walked = int(withheld.sum(1).clamp(max=cfg["R"]).sum())
+    return (L * W * (4 + 4 + 1 + 1 + 1) + framed * (4 + 4 + 4 + 1 + 4 + 4)
+            + positions * per_pos + walked * 4 * (1 + Q.STALE_WALK)
+            + L * (4 + 1 + 4 + 4) + sum(v.nbytes for v in out.values()))
+
+
 # -- the PPO slice (K11) --------------------------------------------------------
 
 def make_net(obs_dim, n_actions, hidden, seed, dev):
@@ -3073,52 +3626,50 @@ TRAIN_YAMLS = {
 }
 
 
-def config_ring_case(name, cfg, net, env, dev):
+def config_full_case(name, cfg, net, env, dev):
     """A DAG config's env (Tailstorm, Spar, Sdag) as `build_env` makes it
-    on the card (a 128-slot ring; the reference sizes it for the episode)
+    on the card (full mode at the reference's sizing: K10-<env>-full)
     under the trained net at the config's widths (hidden 96,
     AssumptionEnv, its lane alphas, episode_len 128): `net_stream_case`
-    over its lanes for CONFIG_RING_STEPS steps from a raw reset, so every
-    lane runs a whole episode, with the first CONFIG_FULL_LANES lanes
-    replayed through the full-mode env too; no episode may end by
-    evicting a live block."""
+    over its lanes for CONFIG_FULL_STEPS steps from a raw reset, so every
+    lane runs a whole episode; no episode may fill the capacity."""
     from cpr_tpu_torch import random as rnd
     from cpr_tpu_torch.train import driver
     params = driver._stack_params(cfg.lane_alphas(cfg.n_envs), cfg.gamma,
                                   cfg.episode_len)
-    full = driver.build_env(cfg, "cpu")
     episodes, e, below, rings = net_stream_case(
         env, params, net, rnd.split(rnd.PRNGKey(80, dev), cfg.n_envs),
-        CONFIG_RING_STEPS, rnd.PRNGKey(81, dev), f"{name} config ring",
-        full_env=full, full_lanes=CONFIG_FULL_LANES)
+        CONFIG_FULL_STEPS, rnd.PRNGKey(81, dev), f"{name} config full")
+    check(not env.inner.ring, f"{name} config: not in full mode")
     check(rings["episodes_overflowed"] == 0,
-          f"{name} config: {rings['episodes_overflowed']} episodes "
-          f"overflowed the {env.inner.capacity}-slot ring")
+          f"{name} config: {rings['episodes_overflowed']} episodes filled "
+          f"the {env.inner.capacity}-slot DAG")
     check(episodes >= cfg.n_envs, f"{name} config: an episode unfinished")
-    say("config_ring", config=name, lanes=cfg.n_envs,
-        steps=CONFIG_RING_STEPS, hidden=net.hidden[0],
-        window=env.inner.capacity, full_capacity=full.inner.capacity,
-        full_mode_lanes=CONFIG_FULL_LANES, episodes=episodes,
-        max_abs_err=e, lanes_below_margin=below, **rings, ok=True)
+    say("config_full", config=name, lanes=cfg.n_envs,
+        steps=CONFIG_FULL_STEPS, hidden=net.hidden[0],
+        capacity=env.inner.capacity, episodes=episodes, max_abs_err=e,
+        lanes_below_margin=below, peak_n_max=rings["ring_peak_max"],
+        ok=True)
 
 
 def phase_config_path(dev, report, tmp):
     """The config path: `train_from_config(TrainConfig.from_dict(...))`
     on the shipped nakamoto.yaml for 3 updates and tailstorm-8-
     discount.yaml, spar-8.yaml and sdag-8-discount.yaml (hidden 96, 512
-    lanes x 64 steps; 128-slot ring) for 2 each, with eval.freq 1 and
+    lanes x 64 steps; full mode, K10-<env>-full) for 2 each, with eval.freq
+    1 and
     start_at_iteration 0 so that the eval and the checkpoints run; launch
     counts per config; eval rows finite, relative reward in [0, 1]; then
     a policy snapshot exported and reloaded gives the same greedy
-    actions; for the DAG configs `config_ring_case` with the trained
+    actions; for the DAG configs `config_full_case` with the trained
     net."""
     from cpr_tpu_torch import kernels
     from cpr_tpu_torch.train import config, driver
     counts_all = []
     for name, ran, n_updates in (("nakamoto", ("K1", "K2"), 3),
-                                 ("tailstorm", ("K1", "K10-ts"), 2),
-                                 ("spar", ("K1", "K10-spar"), 2),
-                                 ("sdag", ("K1", "K10-sdag"), 2)):
+                                 ("tailstorm", ("K1", "K10-ts-full"), 2),
+                                 ("spar", ("K1", "K10-spar-full"), 2),
+                                 ("sdag", ("K1", "K10-sdag-full"), 2)):
         d = dict(TRAIN_YAMLS[name])
         d["eval"] = dict(d["eval"], freq=1, start_at_iteration=0)
         cfg = config.TrainConfig.from_dict(d)
@@ -3157,7 +3708,7 @@ def phase_config_path(dev, report, tmp):
         check(torch.equal(a0, a1) and torch.equal(net.flat, policy.net.flat),
               f"{name}: the reloaded snapshot acts otherwise")
         if name != "nakamoto":
-            config_ring_case(name, cfg, net, env, dev)
+            config_full_case(name, cfg, net, env, dev)
         last = history[-1]
         say("config_path", config=name, eval_freq=1, start_at_iteration=0,
             updates=n_updates, seconds=secs,
@@ -4084,6 +4635,87 @@ def replay_burst(eng, carry0, exp0, pol, live, regs, what):
     return err, below, low
 
 
+def plain_splice(eng, carry, exp, lane_seeds):
+    """The engine's admission on the plain path, over copies: the fresh
+    states of `init_lanes` (the stream prologue's plain version) spliced
+    over the given lanes by `step_lanes_plain`, then the rings' re-key
+    (`exp`, or None). Returns the admitted lanes' observations."""
+    from cpr_tpu_torch.serve.engine import _lane_keys
+    n, dev = carry[1].shape[0], carry[1].device
+    seeds, mask = np.zeros(n, np.uint32), np.zeros(n, bool)
+    for ln, sd in lane_seeds.items():
+        seeds[ln], mask[ln] = sd, True
+    fresh = eng.env._stream_init(_lane_keys(seeds, dev), eng.params)
+    zero_m = torch.zeros(n, dtype=torch.bool, device=dev)
+    _, (obs, _, _, _) = eng.env.step_lanes_plain(
+        carry, torch.zeros(n, dtype=torch.int32, device=dev),
+        torch.from_numpy(mask).to(dev), fresh, zero_m, eng.params)
+    if exp is not None:
+        kept = eng._exp
+        eng._exp = exp
+        eng._rekey(lane_seeds)
+        eng._exp = kept
+    return obs.cpu().numpy()
+
+
+def hold_admission(eng, lane_policy, seed, what):
+    """K14's admission and the card's splice against the plain path:
+    from copies of the engine's carry (and rings), a numpy-seeded eighth
+    of the lanes admitted with a burst over a seeded seven eighths (so
+    some admitted lanes run and some are held), held to `plain_splice`
+    then the plain burst; then a splice on the card held to
+    `plain_splice`. Returns (largest float error, admitted lanes run,
+    admitted lanes held)."""
+    L, dev = eng.n_lanes, eng._carry[1].device
+    rng = np.random.default_rng(seed)
+    lanes = rng.choice(L, L // 8, replace=False)
+    admit = dict(zip(lanes.tolist(),
+                     rng.integers(1, 1 << 31, len(lanes)).tolist()))
+    live_np = rng.random(L) < 7 / 8
+    burst_policy = {ln: p for ln, p in lane_policy.items() if live_np[ln]}
+    pol = torch.tensor([lane_policy[ln] for ln in range(L)],
+                       dtype=torch.int32, device=dev)
+    live = torch.from_numpy(live_np).to(dev)
+    carry0 = clone_carry(eng._carry)
+    exp0 = None if eng._exp is None else exp_clone(eng._exp)
+    regs = eng.burst_run(burst_policy, admit=admit)
+    carry_p = clone_carry(carry0)
+    exp_p = None if exp0 is None else exp_clone(exp0)
+    plain_splice(eng, carry_p, exp_p, admit)
+    if exp0 is not None:
+        err = replay_burst(eng, carry_p, exp_p, pol, live, regs, what)[0]
+    else:
+        regs_p = eng._burst_plain(carry_p, None, pol, live)
+        for k, v in regs_p.items():
+            check(np.array_equal(regs[k], v.cpu().numpy()),
+                  f"{what}: register {k} differs")
+        err = compare_state(eng._carry[0], carry_p[0], f"{what} carry")
+        d = float((eng._carry[1] - carry_p[1]).abs().max())
+        check(d <= 1e-6, f"{what}: obs differs")
+        err = max(err, d)
+    # the card's splice (K2's prologue, then K3) over other lanes
+    more = dict(zip(rng.choice(L, L // 8, replace=False).tolist(),
+                    rng.integers(1, 1 << 31, L // 8).tolist()))
+    carry_p = clone_carry(eng._carry)
+    exp_p = None if eng._exp is None else exp_clone(eng._exp)
+    got = eng.splice(more)
+    want = plain_splice(eng, carry_p, exp_p, more)
+    d = max(float(np.abs(got[ln] - want[ln]).max()) for ln in more)
+    check(d <= 1e-6, f"{what}: splice obs differs")
+    err = max(err, d, compare_state(eng._carry[0], carry_p[0],
+                                    f"{what} splice carry"))
+    check(float((eng._carry[1] - carry_p[1]).abs().max()) <= 1e-6,
+          f"{what}: splice carry obs differs")
+    if exp_p is not None:
+        for k in exp_p:
+            check(torch.equal(eng._exp[k], exp_p[k]),
+                  f"{what}: splice rings' {k} differs")
+    run = sum(bool(live_np[ln]) for ln in admit)
+    check(0 < run < len(admit), f"{what}: {run} of {len(admit)} admitted "
+          "lanes run")
+    return err, run, len(admit) - run
+
+
 def phase_serve_full(dev, report):
     """Phase 51: the serve engine at the main path's width, SM1 on every
     lane, rings off then on; each run its own launch counts."""
@@ -4165,6 +4797,12 @@ def phase_serve_full(dev, report):
             compare_state(eng._carry[0], carry_p[0], "K14 rings off carry")
             check(float((eng._carry[1] - carry_p[1]).abs().max()) <= 1e-6,
                   "K14 rings off: obs differs")
+        err, run, held = hold_admission(eng, lane_policy, 510 + cap,
+                                        f"K14 admission, rings {cap}")
+        report["K14"]["max_abs_err"] = max(
+            report["K14"].get("max_abs_err", 0.0), err)
+        say("serve_admission", lanes=L, rings=cap, admitted_run=run,
+            admitted_held=held, max_abs_err=err, ok=True)
     # the K2 stream over the same lanes and steps, for the ratio
     fn = env.make_episode_stats_fn(params, "sapirshtein-2016-sm1",
                                    B * SERVE_BURSTS)
@@ -4317,19 +4955,17 @@ def phase_exp_check(dev, report):
         eng.start()
         eng.splice({ln: ln for ln in range(L)})
         sm1 = eng.policy_ids["sapirshtein-2016-sm1"]
-        pol = torch.full((L,), sm1, dtype=torch.int32, device=dev)
-        live1 = torch.ones(L, dtype=torch.bool, device=dev)
-
-        ended = torch.zeros((), dtype=torch.int64, device=dev)
-        calls = [0]
+        lanes, pids = np.arange(L), np.full(L, sm1, np.int32)
+        ended, calls = [0], [0]
 
         def burst():
             calls[0] += 1
-            ended.add_(eng._burst(pol, live1, {sm1})["done"].sum())
+            ended[0] += int(eng._burst_staged(lanes, pids, {sm1})["done"]
+                            .sum())
 
         out[cap] = device_ms(burst, 9, "burst_kernel")
         if cap:  # episodes end at most once a lane a burst here
-            resets = int(ended) / calls[0]
+            resets = ended[0] / calls[0]
     k14 = report["K14"]
     k14["ms"] = out[C]
     # per lane: the state and obs read and written, policy, live and the
@@ -4469,10 +5105,20 @@ def phase_wire(dev, report, tmp):
         with ThreadPoolExecutor(WIRE_CLIENTS) as pool:
             kinds = list(pool.map(client, range(WIRE_CLIENTS)))
         wall = time.perf_counter() - t0
+        flood = wire_flood(port)
     finally:
         counts = stop_child(proc, tmp, "wire",
                             ("K2", "K3", "K14", "K11-act", "K12-scan"),
                             ("K1",))
+    base_sps = rollout_baseline(dev)
+    serve_sps = flood["steps_per_busy_s"]
+    frac = serve_sps / base_sps
+    # printed beside the reference's floor, not held: the port's serve
+    # path measured 0.67-1.27 of the rollout on an H100 (ROADMAP §3.4)
+    say("wire_flood", episodes=FLOOD_EPISODES, clients=FLOOD_CLIENTS,
+        rollout_steps_per_s=base_sps, serve_rollout_frac=frac,
+        reference_floor=SERVE_MIN_FRAC,
+        meets_floor=frac >= SERVE_MIN_FRAC, **flood)
     reports = serve_events(tmp, "wire", "report")
     check(len(reports) == 1, "no drain report")
     rep = reports[0]["detail"]
@@ -4482,15 +5128,115 @@ def phase_wire(dev, report, tmp):
         kinds=json.dumps({k: kinds.count(k) for k in set(kinds)}),
         wall_s=wall, p50_s=rep["p50_s"], p99_s=rep["p99_s"],
         steps=rep["steps"], episodes=rep["episodes"],
-        launches=json.dumps(counts))
+        serve_rollout_frac=frac, launches=json.dumps(counts))
     return counts
+
+
+FLOOD_MAIN = """
+import asyncio, os, sys
+os.nice(19)  # load generators yield the host's cores to the server
+from cpr_tpu_torch.serve.protocol import pack_frame, read_frame
+port, first, per, n, timeout = map(int, sys.argv[1:6])
+bad = []
+async def main():
+    conns = [await asyncio.open_connection("127.0.0.1", port)
+             for _ in range(n)]
+    print("READY", flush=True)  # imported and connected: wait for go
+    await asyncio.get_running_loop().run_in_executor(None,
+                                                     sys.stdin.readline)
+    async def worker(w):
+        reader, writer = conns[w]
+        for sd in range(first + w * per, first + (w + 1) * per):
+            writer.write(pack_frame(dict(op="episode.run", policy="honest",
+                                         seed=sd)))
+            r = await asyncio.wait_for(read_frame(reader), timeout)
+            if not (r or {}).get("ok"):
+                bad.append((sd, r))
+        writer.close()
+    await asyncio.gather(*(worker(w) for w in range(n)))
+asyncio.run(main())
+print("FLOOD", "OK" if not bad else bad[:3], flush=True)
+sys.exit(1 if bad else 0)
+"""
+
+
+def wire_flood(port):
+    """tools/serve_smoke.py's flood: FLOOD_CLIENTS persistent connections
+    (FLOOD_PROCS asyncio processes) each running its share of
+    FLOOD_EPISODES seeded honest episodes, so every burst backfills from
+    a non-empty queue; the sustained device throughput is the server's
+    stats delta, steps over busy dispatch seconds. Returns it with the
+    flood's bursts, admissions and mean occupancy (the stats deltas)."""
+    import os
+    from cpr_tpu_torch.serve.protocol import ServeClient
+
+    def stats():
+        with ServeClient("127.0.0.1", port, timeout=CHILD_STOP_S) as c:
+            r = c.request("stats")
+            check(r.get("ok"), f"stats: {r}")
+            return dict(r["report"], latencies={
+                k: v for k, v in r["latencies"].items()
+                if k.startswith("device.")})
+
+    per = FLOOD_EPISODES // FLOOD_CLIENTS
+    threads = FLOOD_CLIENTS // FLOOD_PROCS
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", FLOOD_MAIN, str(port),
+         str(1000 + i * threads * per), str(per), str(threads),
+         str(int(CHILD_STOP_S))], cwd=ROOT, env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(FLOOD_PROCS)]
+    for p in procs:  # every client imported and connected before the window
+        line = p.stdout.readline()
+        check(line.strip() == "READY", f"flood client not ready: {line}")
+    before = stats()
+    for p in procs:
+        p.stdin.write("go\n")
+        p.stdin.flush()
+    for p in procs:
+        out, _ = p.communicate(timeout=CHILD_STOP_S * 4)
+        check(p.returncode == 0, f"flood client failed: {out[-2000:]}")
+    after = stats()
+    d = {k: after[k] - before[k] for k in ("steps", "busy_s", "bursts",
+                                            "admitted")}
+    check(d["steps"] > 0 and d["busy_s"] > 0,
+          f"flood measured nothing ({d['steps']} steps, {d['busy_s']} s)")
+    occ = (after["occupancy"] * after["bursts"]
+           - before["occupancy"] * before["bursts"]) / max(d["bursts"], 1)
+    return dict(steps_per_busy_s=d["steps"] / d["busy_s"], occupancy=occ,
+                device_latencies=json.dumps(after["latencies"]), **d)
+
+
+def rollout_baseline(dev):
+    """tools/serve_smoke.py's baseline: a batch `rollout()` at the
+    server's defaults (its lanes, max_steps and alpha; honest), the best
+    of three timed calls, in env-steps/s."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs import registry
+    from cpr_tpu_torch.params import make_params
+    env = registry.get_sized("nakamoto", WIRE_MAX_STEPS)
+    params = make_params(alpha=0.25, gamma=0.5, max_steps=WIRE_MAX_STEPS)
+    policy = env.policies["honest"]
+    keys = rnd.split(rnd.PRNGKey(0, dev), WIRE_LANES)
+    env.rollout(keys, params, policy, WIRE_MAX_STEPS)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        env.rollout(keys, params, policy, WIRE_MAX_STEPS)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return WIRE_LANES * WIRE_MAX_STEPS / best
 
 
 def phase_learn_loop(dev, report, tmp):
     """Phase 55: learner child + server child with --learner and
     --learn-watch at tools/learn_smoke.py's shape; flood until the
     fingerprint in the replies has rotated through LEARN_MIN_SWAPS
-    published swaps; both children exit 0 on SIGTERM."""
+    published swaps and the LEARN_TAIL newest greedy episodes, all after
+    a swap, beat the untrained baseline by LEARN_MIN_GAIN (the
+    reference's floor); both children exit 0 on SIGTERM."""
     from cpr_tpu_torch.serve.protocol import ServeClient
     pub = Path(tmp) / "published"
     lready, sready = (str(Path(tmp) / "learner-ready.json"),
@@ -4532,19 +5278,29 @@ def phase_learn_loop(dev, report, tmp):
                 return [x for j in jobs for x in j.result()]
 
         t0 = time.perf_counter()
-        measured = wave(("ppo",) * 2)
+        measured = wave(("ppo",) * LEARN_BASE_EPISODES)
         base_fp = measured[0][0]
         base = [r for fp, r in measured if fp == base_fp]
         waves = 0
-        while len({fp for fp, _ in measured}) < LEARN_MIN_SWAPS + 1:
+
+        def improved():
+            tail = measured[-LEARN_TAIL:]
+            return (len({fp for fp, _ in measured}) >= LEARN_MIN_SWAPS + 1
+                    and len(tail) >= LEARN_TAIL
+                    and all(fp != base_fp for fp, _ in tail)
+                    and np.mean([r for _, r in tail])
+                    >= np.mean(base) + LEARN_MIN_GAIN)
+
+        while not improved():
             check(waves < LEARN_MAX_WAVES
                   and time.perf_counter() - t0 < LEARN_WALL_S,
-                  f"{LEARN_MIN_SWAPS} swaps not seen in {waves} waves")
+                  f"no {LEARN_MIN_SWAPS} swaps with a greedy gain of "
+                  f"{LEARN_MIN_GAIN} over {np.mean(base)} in {waves} waves")
             measured.extend(wave(("ppo#sample", "honest", "ppo",
                                   "ppo#sample")))
             waves += 1
         fps = list(dict.fromkeys(fp for fp, _ in measured))
-        tail = [r for fp, r in measured if fp == fps[-1]]
+        tail = [r for _, r in measured[-LEARN_TAIL:]]
         wall = time.perf_counter() - t0
     finally:
         try:
@@ -4563,7 +5319,7 @@ def phase_learn_loop(dev, report, tmp):
         wall_s=wall, fingerprints=len(fps), swaps=rep["learn"]["swaps"],
         samples=rep["learn"]["samples"],
         greedy_rel_before=float(np.mean(base)),
-        greedy_rel_after=float(np.mean(tail)),
+        greedy_rel_after=float(np.mean(tail)), min_gain=LEARN_MIN_GAIN,
         launches=json.dumps(counts))
     return counts
 
@@ -4630,6 +5386,8 @@ def main() -> int:
         sfx = {k: f[k] for k in f.files}
     with np.load(PROTO_FIXTURE) as f:
         prfx = {k: f[k] for k in f.files}
+    with np.load(FULL_FIXTURE) as f:
+        ffx = {k: f[k] for k in f.files}
     for name in ("spar", "sdag"):  # the paths' reference revenues
         VOTE_REVENUE[name] = float(sfx[f"{name}_ref_revenue"])
     csrc = "cpr_tpu_torch/csrc"
@@ -4701,6 +5459,41 @@ def main() -> int:
                          route="cuda", source=f"{csrc}/sdag_stream.cu",
                          replaces="cpr_tpu/envs/sdag.py:201",
                          max_abs_err=0.0),
+        # full mode: K8-full and K9-full are device functions of the
+        # K10-<env>-full launches, as K8 and K9 of the ring's
+        "K8-full": dict(name="K8-full block-DAG primitives in full mode, "
+                        "lifted or not: the walks, binary lifting, chain "
+                        "and closure releases (device functions run inside "
+                        "every K10-<env>-full, launches theirs; ms, plain_ms "
+                        "and bound_ms are its check kernel "
+                        "dag_script_kernel's)", route="cuda",
+                        source=f"{csrc}/dag.cuh",
+                        replaces="cpr_tpu/core/dag.py:596"),
+        "K9-full": dict(name="K9-full vote quorums without planes: the "
+                        "log-doubling frame, the release prefixes and the "
+                        "stale walk (device functions inside "
+                        "K10-ts-full/-stree-full/-sdag-full, launches "
+                        "theirs; ms, plain_ms and bound_ms are its check "
+                        "kernel quorum_check_kernel's)", route="cuda",
+                        source=f"{csrc}/quorum.cuh",
+                        replaces="cpr_tpu/envs/quorum.py:124"),
+        **{f"K10-{lib}-full": dict(
+            name=f"K10-{lib}-full {what} withholding stream and step_lanes "
+                 "in full mode (registry.get's default sizing)",
+            route="cuda", source=f"{csrc}/{src}", replaces=at,
+            max_abs_err=0.0)
+           for lib, what, src, at in (
+               ("bk", "Bk", "bk_stream.cu", "cpr_tpu/envs/bk.py:336"),
+               ("eth", "Ethereum (lifted)", "ethereum_stream.cu",
+                "cpr_tpu/envs/ethereum.py:294"),
+               ("ts", "Tailstorm", "tailstorm_stream.cu",
+                "cpr_tpu/envs/tailstorm.py:206"),
+               ("stree", "Stree and TailstormJune", "stree_stream.cu",
+                "cpr_tpu/envs/stree.py:167"),
+               ("spar", "Spar", "spar_stream.cu",
+                "cpr_tpu/envs/spar.py:140"),
+               ("sdag", "Sdag", "sdag_stream.cu",
+                "cpr_tpu/envs/sdag.py:155"))},
         # device functions that K2/K10 run inside their launches with
         # the net: its launches are theirs, its ms, plain and bound its
         # check kernel's (4096 lanes, warp mode)
@@ -4803,6 +5596,11 @@ def main() -> int:
     phase_vote_variants(dev, report, PAR_VARIANTS)
     spar_counts, spar_gym = phase_dag_path(dev, report, "spar")
     sdag_counts, sdag_gym = phase_dag_path(dev, report, "sdag")
+    phase_k8_full(dev, ffx, report)
+    k9_full_carries = phase_k9_full(dev, ffx, report)
+    phase_full_lanes(dev, ffx, report)
+    full_counts, full_plain_ms = phase_full_streams(dev, ffx, report)
+    full_gym = phase_full_gym(dev, report)
     phase_k11_act(dev, report)
     phase_net_streams(dev, report)
     phase_k11_update(dev, report)
@@ -4820,11 +5618,18 @@ def main() -> int:
                                            ts_gym, stree_counts, stree_gym,
                                            spar_counts, spar_gym,
                                            sdag_counts, sdag_gym,
+                                           *full_counts, full_gym,
                                            ppo_counts, *config_counts))
     report["K8"]["launches"] = sum(report[k]["launches"] for k in (
         "K10-bk", "K10-eth", "K10-ts", "K10-stree", "K10-spar", "K10-sdag"))
     report["K9"]["launches"] = sum(report[k]["launches"] for k in (
         "K10-ts", "K10-stree", "K10-sdag"))
+    report["K8-full"]["launches"] = sum(
+        report[f"K10-{lib}-full"]["launches"]
+        for lib in ("bk", "eth", "ts", "stree", "spar", "sdag"))
+    report["K9-full"]["launches"] = sum(
+        report[f"K10-{lib}-full"]["launches"]
+        for lib in ("ts", "stree", "sdag"))
     phase_times(dev, report, main_episodes)
     phase_mdp_times(dev, report, table, policy)
     phase_grid_rtdp_times(dev, report, grid_table, probs)
@@ -4832,6 +5637,7 @@ def main() -> int:
     phase_dag_times(dev, report, vote)
     phase_dag_times(dev, report, par)
     phase_k9_times(dev, report, k9_carries)
+    phase_full_times(dev, report, k9_full_carries, full_plain_ms)
     phase_k11_times(dev, report, bench_carry)
     phase_k1_f64(dev, nfx, report)
     phase_k12_scan(dev, nfx, report)

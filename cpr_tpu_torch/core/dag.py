@@ -422,6 +422,17 @@ def release(dag: Dag, mask, time) -> Dag:
 
 
 # -- walk-based queries (full mode) ------------------------------------------
+#
+# The reference's walks are unbounded while loops. A DAG that filled its
+# capacity pins its appends to the last slot, which can close a parent
+# cycle there, and a walk on it never ends. Here every walk stops after
+# `walk_bound` iterations, which no walk of a DAG without a cycle reaches
+# (K8's walks stop at the same bound).
+
+def walk_bound(dag: Dag) -> int:
+    """The iteration bound of every walk: two per slot, and two more."""
+    return 2 * dag.capacity + 2
+
 
 def release_chain(dag: Dag, tip, time) -> Dag:
     """Release `tip`, its parent row, and walk down the precursor chain
@@ -433,7 +444,7 @@ def release_chain(dag: Dag, tip, time) -> Dag:
     vis_d, since = dag.vis_d, dag.vis_d_since
     t = tip.clone()
     t_vis = at(vis_d, tip.clamp(min=0))
-    while True:
+    for _ in range(walk_bound(dag)):
         live = (t >= 0) & ~t_vis
         if not bool(live.any()):
             break
@@ -492,10 +503,10 @@ def walk_back(dag: Dag, tip, stop_fn):
     def ok(j):
         return (j >= 0) & ~stop_fn(dag, j.clamp(min=0))
 
-    while True:
+    for _ in range(walk_bound(dag)):
         live = ok(i)
         if not bool(live.any()):
-            return i
+            break
         ii = i.clamp(min=0)
         nxt = at(dag.parent0, ii)
         if dag.lifted:
@@ -503,6 +514,7 @@ def walk_back(dag: Dag, tip, stop_fn):
                 j = at(plane, ii)
                 nxt = where(ok(j), j, nxt)
         i = where(live, nxt, i)
+    return i
 
 
 def block_at_height(dag: Dag, tip, target_height, is_block_fn=None):
@@ -518,11 +530,12 @@ def block_at_height(dag: Dag, tip, target_height, is_block_fn=None):
 
     if is_block_fn is not None and dag.lifted:
         i = tip.clone()
-        while True:
+        for _ in range(walk_bound(dag)):
             live = (i >= 0) & ~stop(dag, i.clamp(min=0))
             if not bool(live.any()):
-                return i
+                break
             i = where(live, at(dag.parent0, i.clamp(min=0)), i)
+        return i
     return walk_back(dag, tip, stop)
 
 
@@ -531,10 +544,10 @@ def common_ancestor_by_height(dag: Dag, a, b):
     (dag.py:751-817); binary-lifting LCA on a lifted DAG."""
     x, y = a.clone(), b.clone()
     p0 = dag.parent0
-    while True:
+    for _ in range(walk_bound(dag)):
         live = (x != y) & (x >= 0) & (y >= 0)
         if not bool(live.any()):
-            return x
+            break
         xi, yi = x.clamp(min=0), y.clamp(min=0)
         hx, hy = at(dag.height, xi), at(dag.height, yi)
         if dag.lifted:
@@ -560,6 +573,7 @@ def common_ancestor_by_height(dag: Dag, a, b):
             nx = where(hx >= hy, at(p0, xi), x)
             ny = where(hy >= hx, at(p0, yi), y)
         x, y = where(live, nx, x), where(live, ny, y)
+    return x
 
 
 # -- masks and selection --------------------------------------------------------

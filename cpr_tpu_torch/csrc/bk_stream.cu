@@ -1,5 +1,8 @@
 // Kernel K10-bk: the Bₖ withholding env's fused episode stream and its
-// one-tick step_lanes, one warp per lane over K8's DAG (csrc/dag.cuh).
+// one-tick step_lanes, one warp per lane over K8's DAG (csrc/dag.cuh), in
+// the DAG mode of its compilation: the ring (K10-bk) or full capacity
+// (K10-bk-full: the height walks and the chain release of bk.py:336-338,
+// 470-474, 505-508, no retirement).
 //
 // Replaces: cpr_tpu/envs/bk.py:340-572 — `_advance` (340-419), `observe`
 // (421-447), `_apply` (449-528), `step` with the ring retirement
@@ -226,7 +229,7 @@ __device__ void apply(LaneDag& g, Scal& s, int action, const EnvConfig& c) {
   if (is_release) {
     const int32_t tgt_h = is_override && nv_pub >= k ? h_pub + 1 : h_pub;
     const int tgt_v = is_match ? nv_pub : (nv_pub >= k ? 0 : nv_pub + 1);
-    int32_t blk = g.chain_first_at_most(s.priv, g.d->height, tgt_h);
+    int32_t blk = g.chain_at_height(s.priv, tgt_h);
     blk = blk < 0 ? 0 : blk;
     const Mask child_blocks = g.children0(blk) & g.kind_is(kBlock);
     const bool has_prop = mask_any(child_blocks);
@@ -244,7 +247,10 @@ __device__ void apply(LaneDag& g, Scal& s, int action, const EnvConfig& c) {
       for (int i = 0; i < c.ctk; ++i) valid[i] = valid[i] && i < rel_votes_n;
       vote_mask = g.mask_of(idx, valid, c.ctk);
     }
-    g.release_masked(rel_block, s.time);
+    if (cpr::kRing)
+      g.release_masked(rel_block, s.time);
+    else
+      g.release_chain(rel_block, s.time);
     g.release(vote_mask, s.time);
     const int32_t x = rel_block;
     const int32_t last = g.at(g.d->kind, x) == kBlock ? x : g.at(g.d->parents[0], x);
@@ -285,8 +291,10 @@ struct BkEnv {
     apply(g, s, action, c);
     advance(g, s, p, c);
     s.steps += 1;
-    const int32_t ca = g.common_ancestor(s.pub, s.priv);
-    g.retire_below(g.at(g.d->gid, ca < 0 ? 0 : ca));
+    if (cpr::kRing) {  // bk.py:544: the ring's retirement
+      const int32_t ca = g.common_ancestor(s.pub, s.priv);
+      g.retire_below(g.at(g.d->gid, ca < 0 ? 0 : ca));
+    }
     const int n_pub = mask_count(votes_on(g, s.pub));
     const int n_priv = mask_count(votes_on(g, s.priv));
     const int32_t hp = g.at(g.d->height, s.pub), hv = g.at(g.d->height, s.priv);

@@ -78,6 +78,7 @@ struct EnvConfig {
   int32_t whitepaper;  // eth: the whitepaper preset's policy fields
   int32_t strict;      // eth: strict_match
   int32_t scheme;      // tailstorm, stree, sdag: constant | discount | punish | hybrid
+                       // (| block: 4, TailstormJune on K10-stree)
   int32_t selection;   // tailstorm, stree, sdag: altruistic | heuristic | optimal
   int32_t cmax;        // tailstorm, stree, sdag: quorum candidate frame C
   int32_t rscan;       // tailstorm, stree, sdag: release scan R

@@ -1,8 +1,11 @@
 // K8's check kernel: the register-machine script of
 // cpr_tpu_torch/core/dag.py (`make_script`, `script_plain`) over K8's
-// device functions (csrc/dag.cuh), one warp per lane, ring windows with
-// ancestry planes. It exists to hold K8 against its plain twin and the
-// JAX package's core/dag.py apart from the env kernels that run it.
+// device functions (csrc/dag.cuh), one warp per lane, in the DAG mode of
+// its compilation (`CPR_DAG_MODE`: the ring ops `RING_OPS_Q` on ring
+// windows with ancestry planes, the full ops `FULL_OPS` with the walks in
+// full mode, lifted or not). It exists to hold K8 against its plain twin
+// and the JAX package's core/dag.py apart from the env kernels that run
+// it.
 //
 // Bound: as K8 — warp-collective latency; the script's ops are a handful
 // of plane scans and one or two reductions each.
@@ -25,7 +28,8 @@ using cpr::mask_count;
 constexpr int kRegs = 8, kTopK = 5, kOut = 4;
 enum Op {
   kAppend = 0, kReleaseMasked, kSelectVis, kReleaseTopK, kRetire, kCa,
-  kChainFirst, kFirstByAge, kTopKOp, kCounts, kLastByAge = 14, kDescendants
+  kChainFirst, kFirstByAge, kTopKOp, kCounts, kReleaseChain, kReleaseClosure,
+  kBlockAtHeight, kCaHeight, kLastByAge, kDescendants
 };
 
 __global__ void __launch_bounds__(128)
@@ -77,12 +81,26 @@ dag_script_kernel(const __grid_constant__ cpr::DagPtrs dp,
         break;
       }
       case kReleaseMasked:
-        g.release_masked(x, f[0]);
+        if (cpr::kRing) g.release_masked(x, f[0]);
         o[0] = visible();
         break;
       case kSelectVis:
-        if (a[1] != 0) g.release_masked(x, f[0]);
+        if (cpr::kRing && a[1] != 0) g.release_masked(x, f[0]);
         o[0] = visible();
+        break;
+      case kReleaseChain:
+        if (!cpr::kRing) g.release_chain(x, f[0]);
+        o[0] = visible();
+        break;
+      case kReleaseClosure:
+        if (!cpr::kRing) g.release_closure(x, f[0]);
+        o[0] = visible();
+        break;
+      case kBlockAtHeight:
+        o[0] = regs[a[2]] = g.block_at_height(x, hreg(x) - a[1]);
+        break;
+      case kCaHeight:
+        o[0] = regs[a[2]] = g.common_ancestor_by_height(x, reg(a[1]));
         break;
       case kReleaseTopK: {
         int32_t idx[cpr::kMaxTopK];
@@ -99,7 +117,7 @@ dag_script_kernel(const __grid_constant__ cpr::DagPtrs dp,
         break;
       }
       case kRetire: {
-        g.retire_below(x >= 0 ? g.at(g.d->gid, x) : 0);
+        if (cpr::kRing) g.retire_below(x >= 0 ? g.at(g.d->gid, x) : 0);
         const int32_t r = a[1] < 0 ? 0 : a[1];
         regs[r] = g.drop_if_retired(reg(a[1]));
         o[0] = g.live_floor;
@@ -107,10 +125,12 @@ dag_script_kernel(const __grid_constant__ cpr::DagPtrs dp,
         break;
       }
       case kCa:
-        o[0] = regs[a[2]] = g.common_ancestor(x, reg(a[1]));
+        if (cpr::kRing) o[0] = regs[a[2]] = g.common_ancestor_masked(x, reg(a[1]));
         break;
       case kChainFirst:
-        o[0] = regs[a[2]] = g.chain_first_at_most(x, g.d->height, hreg(x) - a[1]);
+        if (cpr::kRing)
+          o[0] = regs[a[2]] =
+              g.chain_first_at_most(x, g.d->height, hreg(x) - a[1]);
         break;
       case kFirstByAge:
         o[0] = regs[a[2]] = g.first_by_age(g.children0(x) & g.kind_is(a[1]));
@@ -132,7 +152,7 @@ dag_script_kernel(const __grid_constant__ cpr::DagPtrs dp,
         o[0] = regs[a[2]] = g.last_by_age(g.children0(x) & g.kind_is(a[1]));
         break;
       case kDescendants: {
-        const Mask m = g.descendants(x);
+        const Mask m = cpr::kRing ? g.descendants(x) : 0u;
         o[0] = mask_count(m);
         o[1] = g.last_by_age(m);
         o[2] = g.first_by_age(m);

@@ -1,6 +1,9 @@
 // Kernel K10-eth: the Ethereum uncle-withholding env's fused episode
 // stream and its one-tick step_lanes, one warp per lane over K8's DAG
-// (csrc/dag.cuh).
+// (csrc/dag.cuh), in the DAG mode of its compilation: the ring (K10-eth)
+// or full capacity with lifting (K10-eth-full: the lifted walk, the
+// closure release and the lifted LCA of ethereum.py:294-296, 384-387,
+// 424-427, no retirement, no ring guards in the uncle window).
 //
 // Replaces: cpr_tpu/envs/ethereum.py:327-522 — `_mine` (327-367),
 // `_release_upto` (369-388), `_apply` (390-451), `observe` (453-482),
@@ -72,10 +75,11 @@ __device__ void chain_window(const LaneDag& g, int32_t head, Window& w) {
     const bool has = b >= 0 && p0 >= 0;
     w.anc[i] = has ? p0 : -1;
     if (has) {
-      const int32_t gb = g.at(g.d->gid, bi);
+      const int32_t gb = cpr::kRing ? g.at(g.d->gid, bi) : 0;
       for (int q = 0; q < g.P; ++q) {
         const int32_t v = g.at(g.d->parents[q], bi);
-        if (v >= 0 && (v & 31) == g.t && g.at(g.d->gid, v) <= gb)
+        if (v >= 0 && (v & 31) == g.t &&
+            (!cpr::kRing || g.at(g.d->gid, v) <= gb))
           w.in_chain |= 1u << (v >> 5);
       }
     }
@@ -88,14 +92,14 @@ __device__ Mask uncle_candidates(const LaneDag& g, const Window& w, Mask view,
                                  Mask filter) {
   int32_t ga[kUncleWindow];
   for (int i = 0; i < kUncleWindow; ++i)
-    ga[i] = g.at(g.d->gid, w.anc[i] < 0 ? 0 : w.anc[i]);
+    ga[i] = cpr::kRing ? g.at(g.d->gid, w.anc[i] < 0 ? 0 : w.anc[i]) : -1;
   Mask m = 0;
-#pragma unroll
+CPR_SLOT_LOOP
   for (int j = 0; j < cpr::kNS; ++j) {
     if (!g.in(j)) continue;
     const int s = g.slot(j);
     const int32_t p0 = g.d->parents[0][g.o(s)];
-    const int32_t gs = g.d->gid[g.o(s)];
+    const int32_t gs = cpr::kRing ? g.d->gid[g.o(s)] : 0;
     bool on = false;
     for (int i = 0; i < kUncleWindow; ++i)
       on = on || (p0 == w.anc[i] && w.anc[i] >= 0 && gs > ga[i]);
@@ -116,7 +120,7 @@ __device__ int32_t make_block(LaneDag& g, const EnvConfig& c, int32_t head,
   bool uvalid[kMaxTopK];
   float score[cpr::kNS];
   const int32_t* pp = pref_plane(g, c);
-#pragma unroll
+CPR_SLOT_LOOP
   for (int j = 0; j < cpr::kNS; ++j) {
     if (!g.in(j)) {
       score[j] = 0.f;
@@ -218,9 +222,18 @@ __device__ void apply(LaneDag& g, Scal& s, int action, const EnvConfig& c) {
         int32_t ca = g.common_ancestor(s.pub, s.priv);
         target = pref(g, c, ca < 0 ? 0 : ca) + 1;
       }
-      tip = g.chain_first_at_most(s.priv, pref_plane(g, c), target);
+      if (cpr::kRing) {
+        tip = g.chain_first_at_most(s.priv, pref_plane(g, c), target);
+      } else {  // ethereum.py:294-296: the (lifted) walk
+        const int32_t* pp = pref_plane(g, c);
+        tip = g.walk_back(s.priv,
+                          [&](int32_t i) { return g.at(pp, i) <= target; });
+      }
     }
-    g.release_masked(tip, s.time);
+    if (cpr::kRing)
+      g.release_masked(tip, s.time);
+    else  // ethereum.py:424-427
+      g.release_closure(tip, s.time);
     const int32_t rt = tip < 0 ? 0 : tip;
     s.pub = update_head(g, c, s.pub, rt);
     bool tie = tip >= 0 && pref(g, c, rt) == pref(g, c, s.pub) && rt != s.pub;
@@ -255,12 +268,14 @@ struct EthEnv {
     apply(g, s, action, c);
     mine(g, s, p, c);
     s.steps += 1;
-    int32_t ca = g.common_ancestor(s.pub, s.priv);
-    ca = ca < 0 ? 0 : ca;
-    const int32_t anchor = g.chain_first_at_most(
-        ca, g.d->height, g.at(g.d->height, ca) - kUncleWindow - 1);
-    g.retire_below(anchor >= 0 ? g.at(g.d->gid, anchor) : 0);
-    s.x = g.drop_if_retired(s.x);
+    if (cpr::kRing) {  // ethereum.py:490: the ring's retirement
+      int32_t ca = g.common_ancestor(s.pub, s.priv);
+      ca = ca < 0 ? 0 : ca;
+      const int32_t anchor = g.chain_first_at_most(
+          ca, g.d->height, g.at(g.d->height, ca) - kUncleWindow - 1);
+      g.retire_below(anchor >= 0 ? g.at(g.d->gid, anchor) : 0);
+      s.x = g.drop_if_retired(s.x);
+    }
     const bool pub_better = pref(g, c, s.pub) > pref(g, c, s.priv);
     const int32_t head = pub_better ? s.pub : s.priv;
     const int32_t* prog = c.prog_work ? g.d->aux : g.d->height;

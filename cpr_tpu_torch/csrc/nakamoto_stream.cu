@@ -136,6 +136,11 @@ struct BurstArgs {
   int32_t arg[kBurstTable];
   int32_t smem_floats;  // the slots' weights, 0 without nets
   int32_t burst;
+  // admissions before the burst (null: none): a lane where admit[i]
+  // first takes the fresh state of `init_lanes` from admit_keys[i], as
+  // the engine's splice (K2's prologue, then K3's admission) gives it
+  const bool* admit;
+  const uint2* admit_keys;
 };
 
 }  // namespace cpr
@@ -476,7 +481,9 @@ step_lanes_kernel(StatePtrs st, float* __restrict__ obs,
 // K14: `b.burst` steps of every live lane under its table entry, the
 // carry (`st`, `obs` [L, 4]) updated in place, the first-done registers
 // written for every lane (false/0 where not live), and with `e.obs` set
-// every live step recorded into the rings (K15).
+// every live step recorded into the rings (K15). With `b.admit` the
+// admitted lanes first take their fresh state (the engine's admission of
+// policy sessions: the splice in the same launch).
 template <bool NET>
 __global__ void __launch_bounds__(kThreads)
 burst_kernel(StatePtrs st, float* __restrict__ obs, int64_t n_lanes,
@@ -494,6 +501,14 @@ burst_kernel(StatePtrs st, float* __restrict__ obs, int64_t n_lanes,
   }
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (i >= n_lanes) return;
+  const bool admitted = b.admit != nullptr && b.admit[i];
+  if (admitted && !b.live[i]) {  // admitted but held: the splice alone
+    const Params p = cpr::load_params<Params>(pp, i);
+    Lane s;
+    reset(s, cpr::split_key(b.admit_keys[i], 1u), p);
+    store(st, i, s);
+    *reinterpret_cast<float4*>(obs + i * 4) = observe(s, unit);
+  }
   if (!b.live[i]) {  // held: registers zero, carry and rings untouched
     b.got[i] = false;
     b.done_step[i] = 0;
@@ -515,8 +530,15 @@ burst_kernel(StatePtrs st, float* __restrict__ obs, int64_t n_lanes,
   }
   const Params p = cpr::load_params<Params>(pp, i);
   const bool rec = e.obs != nullptr;
-  Lane s = load(st, i);
-  float4 o = *reinterpret_cast<const float4*>(obs + i * 4);
+  Lane s;
+  float4 o;
+  if (admitted) {
+    reset(s, cpr::split_key(b.admit_keys[i], 1u), p);
+    o = observe(s, unit);
+  } else {
+    s = load(st, i);
+    o = *reinterpret_cast<const float4*>(obs + i * 4);
+  }
   int32_t cursor = 0, t = 0;
   uint2 ekey = make_uint2(0u, 0u);
   if (rec) {
@@ -684,6 +706,31 @@ cudaError_t cpr_k14_burst(const StatePtrs* st, void* obs, int64_t n_lanes,
         unit_obs != 0, *b, ex);
   }
   return cudaGetLastError();
+}
+
+// K14 with a resident engine's host traffic in the same call: `in_bytes`
+// from the pinned host buffer `h_in` to `d_in` (the launch's policy ids,
+// live mask and admissions), the launch, `out_bytes` from `d_out` (its
+// registers) to the pinned `h_out`, and the wait for the stream.
+cudaError_t cpr_k14_burst_staged(const StatePtrs* st, void* obs,
+                                 int64_t n_lanes, const ParamPtrs* p,
+                                 int strict_match, int unit_obs,
+                                 const BurstArgs* b, const ExpPtrs* e,
+                                 const void* h_in, void* d_in,
+                                 int64_t in_bytes, const void* d_out,
+                                 void* h_out, int64_t out_bytes,
+                                 void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemcpyAsync(d_in, h_in, (size_t)in_bytes,
+                                    cudaMemcpyHostToDevice, s);
+  if (err != cudaSuccess) return err;
+  err = cpr_k14_burst(st, obs, n_lanes, p, strict_match, unit_obs, b, e,
+                      stream);
+  if (err != cudaSuccess) return err;
+  err = cudaMemcpyAsync(h_out, d_out, (size_t)out_bytes,
+                        cudaMemcpyDeviceToHost, s);
+  if (err != cudaSuccess) return err;
+  return cudaStreamSynchronize(s);
 }
 
 const char* cpr_k23_error_string(int err) {

@@ -1,13 +1,18 @@
 // Kernel K9: the vote quorums of the parallel-PoW envs as device
-// functions, one warp per lane, over K8's ring DAG with ancestry planes.
+// functions, one warp per lane, over K8's DAG in the mode of the
+// compilation (csrc/dag.cuh `CPR_DAG_MODE`): a ring with ancestry planes,
+// or full capacity (K9-full).
 //
 // Replaces: cpr_tpu/envs/quorum.py:56-471 — `last_of_kind_all` (56),
-// `candidate_frame` (65-138, the ancestry-plane branch), the selectors
+// `candidate_frame` (65-150: the ancestry-plane branch in a ring, the
+// parent matches, escapes and log-doubling closure without planes,
+// 124-150), the selectors
 // `quorum_heuristic` (153), `quorum_altruistic` (182), `quorum_optimal`
 // and its fallback (253-340) over the `optimal_combos` table (239, here
 // unranked on the fly in the same order), `leaves_to_row` (343),
-// `prefix_release_sets` (352) and `stale_after_adopt` (443, the plane
-// branch). Plain twin: cpr_tpu_torch/envs/quorum.py. Its own check kernel
+// `prefix_release_sets` (352, the ring guards at 394 off in full mode) and
+// `stale_after_adopt` (443: the plane branch in a ring, the walk of the
+// compacted withheld set at 460 in full mode). Plain twin: cpr_tpu_torch/envs/quorum.py. Its own check kernel
 // is csrc/quorum_check.cu; on the main path it runs inside K10-ts,
 // K10-stree and K10-sdag (csrc/{tailstorm,stree,sdag}_stream.cu).
 //
@@ -17,7 +22,10 @@
 // The frame's slots and closure rows, and the age-ordered release
 // positions, live in a per-warp scratch in shared memory (`QScratch`).
 // Compaction by age uses the ring's invariant that the live gids are the
-// last W appended, one per slot: a live slot's age rank is gid - (n - W).
+// last W appended, one per slot: a live slot's age rank is gid - (n - W);
+// in full mode a slot's age is its index. Without planes the frame's
+// closure is the reference's log-doubling product of the parent matrix,
+// here a bit-matrix OR-AND product over 64-bit rows, round for round.
 //
 // Parity rules: a gather of a candidate value reads 0 where the value is
 // not finite or the candidate lies outside the frame (the one-hot matmuls
@@ -39,17 +47,19 @@
 namespace cpr {
 
 constexpr int kQMaxC = 64;    // candidate frame, C = 4k + 16 (k <= 12)
-constexpr int kQMaxR = 128;   // release scan and slots (W <= 128)
+constexpr int kQMaxR = 128;   // release scan
+constexpr int kQSlots = kMaxSlots < kQMaxR ? kQMaxR : kMaxSlots;
 constexpr int kQWarps = 4;    // warps per block of the kernels that use K9
+constexpr int kStaleWalk = 4;  // the envs' STALE_WALK (full mode)
 
 struct QScratch {
   int32_t cidx[kQMaxC];    // the frame's slots, age order
   uint64_t abits[kQMaxC];  // closure rows over candidates
   float f[kQMaxC];         // per-candidate float scratch
   int32_t d[kQMaxC];       // per-candidate int scratch
-  int32_t pos[kQMaxR];     // age-ordered slots
-  int32_t a[kQMaxR];       // per-position / per-slot scratch
-  int32_t cnt[kQMaxR];     // per-slot scratch
+  int32_t pos[kQSlots];    // age-ordered slots
+  int32_t a[kQSlots];      // per-position / per-slot scratch
+  int32_t cnt[kQSlots];    // per-slot scratch
 };
 
 // This warp's scratch (static shared memory of the calling kernel).
@@ -85,11 +95,25 @@ __device__ __forceinline__ float finite_or0(float v) {
 __device__ int compact_by_age(const LaneDag& g, Mask m, int cap, int32_t* out,
                               int32_t* tmp) {
   const int W = g.W, t = g.t;
+  if (!kRing) {  // slot order: j-major over the warp's ballots
+    __syncwarp();  // the scratch's last readers are done
+    int base = 0;
+CPR_SLOT_LOOP
+    for (int j = 0; j < kNS; ++j) {
+      const bool on = (m >> j) & 1u;
+      const unsigned b = __ballot_sync(kFull, on);
+      const int p = base + __popc(b & ((1u << t) - 1u));
+      if (on && p < cap) out[p] = g.slot(j);
+      base += __popc(b);
+    }
+    __syncwarp();
+    return base;
+  }
   const int32_t lo = g.n > W ? g.n - W : 0;
   __syncwarp();  // the scratch's last readers are done
   for (int p = t; p < W; p += 32) tmp[p] = kNone;
   __syncwarp();
-#pragma unroll
+CPR_SLOT_LOOP
   for (int j = 0; j < kNS; ++j) {
     if (!((m >> j) & 1u)) continue;
     const int s = g.slot(j);
@@ -129,21 +153,97 @@ __device__ __forceinline__ int32_t last_of_kind(const LaneDag& g, int32_t x,
   return g.at(g.d->kind, x) == kind ? x : g.at(g.d->signer, x);
 }
 
-// quorum.py:65-138 in ring mode with ancestry planes.
+// quorum.py:124-150 (no planes): candidate i's first `max_vote_parents`
+// parent slots that are votes; a vote parent outside the frame escapes.
+// reach = adj | I, then max(1, bit_length(C - 1)) rounds of reach |=
+// reach . reach (every row from the previous round's matrix); a
+// candidate reaching an escaped one is invalid, and its row cleared.
+__device__ void frame_closure_walk(const LaneDag& g, QScratch& q, QFrame& f,
+                                   int vote_kind, int max_vote_parents) {
+  const int t = g.t, C = f.C;
+  // q.cnt[slot]: the slot's frame position, NONE outside the frame
+  for (int p = t; p < g.W; p += 32) q.cnt[p] = kNone;
+  __syncwarp();
+  for (int i = t; i < f.nC; i += 32) q.cnt[q.cidx[i]] = i;
+  __syncwarp();
+  uint64_t row[2] = {0ull, 0ull}, esc = 0ull;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = t + 32 * h;
+    if (i >= C) continue;
+    row[h] = 1ull << i;
+    if (i >= f.nC) continue;
+    const int32_t x = q.cidx[i];
+    for (int p = 0; p < max_vote_parents; ++p) {
+      const int32_t v = g.at(g.d->parents[p], x);
+      if (v < 0 || g.at(g.d->kind, v) != vote_kind) continue;
+      const int32_t c = q.cnt[v];
+      if (c >= 0)
+        row[h] |= 1ull << c;
+      else
+        esc |= 1ull << i;
+    }
+  }
+  const uint64_t escaped = warp_or64(esc);
+  int rounds = 0;
+  for (int v = C - 1; v > 0; v >>= 1) ++rounds;
+  rounds = rounds > 1 ? rounds : 1;
+  for (int r = 0; r < rounds; ++r) {
+    __syncwarp();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (t + 32 * h < C) q.abits[t + 32 * h] = row[h];
+    __syncwarp();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (t + 32 * h >= C) continue;
+      uint64_t acc = row[h], m = row[h];
+      while (m) {
+        const int k = __ffsll((long long)m) - 1;
+        m &= m - 1;
+        acc |= q.abits[k];
+      }
+      row[h] = acc;
+    }
+  }
+  uint64_t valid = 0ull;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = t + 32 * h;
+    if (i < C && (f.gvalid >> i & 1ull) && !(row[h] & escaped))
+      valid |= 1ull << i;
+  }
+  f.cvalid = warp_or64(valid);
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = t + 32 * h;
+    if (i < C) q.abits[i] = bit(f.cvalid, i) ? row[h] : 0ull;
+  }
+  __syncwarp();
+}
+
+// quorum.py:65-150: in a ring with ancestry planes (65-138), the closure
+// rows of the planes; in full mode `frame_closure_walk`.
 __device__ QFrame candidate_frame(const LaneDag& g, QScratch& q, Mask cand,
-                                  int C, int vote_kind) {
+                                  int C, int vote_kind,
+                                  int max_vote_parents = 1) {
   QFrame f;
   const int t = g.t;
   f.C = C;
   f.nC = min(compact_by_age(g, cand, C, q.cidx, q.pos), C);
   f.gvalid = low_bits(f.nC);
+  if (!kRing) {
+    frame_closure_walk(g, q, f, vote_kind, max_vote_parents);
+    return f;
+  }
   for (int p = t; p < g.W; p += 32) q.cnt[p] = kNone;
   __syncwarp();
   for (int i = t; i < f.nC; i += 32) q.cnt[q.cidx[i]] = i;
   __syncwarp();
   const Mask votes = g.kind_is(vote_kind);
   int32_t gid_s[kNS], sig_s[kNS], cpos[kNS];
-#pragma unroll
+CPR_SLOT_LOOP
   for (int j = 0; j < kNS; ++j) {
     const bool ok = g.in(j);
     const int s = g.slot(j);
@@ -160,7 +260,7 @@ __device__ QFrame candidate_frame(const LaneDag& g, QScratch& q, Mask cand,
     const bool* r = g.row(g.d->closure, x);
     uint64_t bits = 0;
     bool esc = false;
-#pragma unroll
+CPR_SLOT_LOOP
     for (int j = 0; j < kNS; ++j) {
       if (!g.in(j)) continue;
       const int s = g.slot(j);
@@ -414,7 +514,7 @@ __device__ void leaves_to_row(const LaneDag& g, const QScratch& q,
                               int width, int32_t* row) {
   const Mask m = cand_mask(g, q, leaves & f.cvalid);
   float sc[kNS];
-#pragma unroll
+CPR_SLOT_LOOP
   for (int j = 0; j < kNS; ++j)
     sc[j] = ((m >> j) & 1u) ? -score(g.slot(j)) : 0.f;
   int32_t idx[kMaxTopK];
@@ -446,12 +546,13 @@ __device__ Release prefix_release_sets(const LaneDag& g, QScratch& q,
   __syncwarp();
   const Mask conf = g.exists() & g.bools(g.d->vis_d) &
                     g.where(g.d->signer, [](int32_t v) { return v >= 0; });
-#pragma unroll
+CPR_SLOT_LOOP
   for (int j = 0; j < kNS; ++j) {
     if (!((conf >> j) & 1u)) continue;
     const int s = g.slot(j);
     const int32_t b = g.d->signer[g.o(s)];
-    if (b < W && g.d->gid[g.o(s)] > g.at(g.d->gid, b)) atomicAdd(&q.cnt[b], 1);
+    if (b < W && (!kRing || g.d->gid[g.o(s)] > g.at(g.d->gid, b)))
+      atomicAdd(&q.cnt[b], 1);
   }
   __syncwarp();
   // per position j = 4t + u: block, signer of candidate votes
@@ -530,7 +631,7 @@ __device__ Release prefix_release_sets(const LaneDag& g, QScratch& q,
   }
   __syncwarp();
   Mask ovr = 0, mat = 0;
-#pragma unroll
+CPR_SLOT_LOOP
   for (int j = 0; j < kNS; ++j) {
     if (!g.in(j)) continue;
     const int v = q.cnt[g.slot(j)];
@@ -554,11 +655,37 @@ __device__ Release prefix_release_sets(const LaneDag& g, QScratch& q,
   return out;
 }
 
-// quorum.py:443-471 (the plane branch): `stale` after an Adopt to `pub`.
-__device__ __forceinline__ Mask stale_after_adopt(const LaneDag& g, int32_t pub,
-                                                  Mask stale) {
+// quorum.py:443-471: `stale` after an Adopt to `pub`. In a ring the
+// withheld vertices that do not descend from `pub` by the chain plane; in
+// full mode those of the first R withheld (by age) whose block (that of
+// kind `block_kind`, `last_of_kind`) does not reach `pub` within `walk`
+// steps of `prev` (the env's previous-block plane), and every withheld
+// vertex past the first R.
+__device__ Mask stale_after_adopt(const LaneDag& g, QScratch& q, int32_t pub,
+                                  Mask stale, int R, int walk, int block_kind,
+                                  const int32_t* prev) {
   const Mask withheld = ~g.bools(g.d->vis_d) & g.exists() & ~stale;
-  return stale | (withheld & ~g.descendants(pub));
+  if (kRing) return stale | (withheld & ~g.descendants(pub));
+  const int nw = min(compact_by_age(g, withheld, R, q.pos, q.a), R);
+  for (int p = g.t; p < g.W; p += 32) q.cnt[p] = 0;
+  __syncwarp();
+  for (int p = g.t; p < nw; p += 32) {
+    const int32_t x = q.pos[p];
+    int32_t cur = last_of_kind(g, x, block_kind);
+    bool keep = false;
+    for (int w = 0; w < walk; ++w) {
+      keep = keep || cur == pub;
+      cur = cur >= 0 ? g.at(prev, cur) : kNone;
+    }
+    if (keep) q.cnt[x] = 1;
+  }
+  __syncwarp();
+  Mask kept = 0;
+CPR_SLOT_LOOP
+  for (int j = 0; j < kNS; ++j)
+    if (g.in(j) && q.cnt[g.slot(j)]) kept |= 1u << j;
+  __syncwarp();
+  return stale | (withheld & ~kept);
 }
 
 }  // namespace cpr

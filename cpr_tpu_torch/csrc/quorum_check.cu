@@ -1,6 +1,7 @@
 // K9's check kernel: every function of K9 (csrc/quorum.cuh) on a batch of
 // lane DAGs and selector inputs, one warp per lane, its outputs written
-// out whole. It exists to hold K9 against its plain twin
+// out whole, in the DAG mode of its compilation (a ring with ancestry
+// planes, or full mode: K9-full). It exists to hold K9 against its plain twin
 // (cpr_tpu_torch/envs/quorum.py `check_plain`) and the JAX package's
 // envs/quorum.py apart from the env kernels that run it.
 //
@@ -10,7 +11,8 @@
 // the withheld non-stale vertices against (pub, priv) under the env's
 // preference (Tailstorm: (height, votes, the defender's own reward) with
 // auxg as the tiebreak; Stree: (height, votes)); the stale plane after an
-// Adopt to pub.
+// Adopt to pub (full mode: the withheld set's walk over the previous
+// summary, aux2, under Tailstorm, the precursor under Stree).
 //
 // Bound: as K9 — warp-collective latency.
 
@@ -119,8 +121,9 @@ quorum_check_kernel(const __grid_constant__ DagPtrs dp, CheckIn in,
         return env == 0 ? cmp_summaries(g, priv, pub, filter, kDef)
                         : cmp_blocks(g, priv, pub, filter);
       });
-  const Mask st = stale_after_adopt(g, pub, stale);
-#pragma unroll
+  const Mask st = stale_after_adopt(g, q, pub, stale, cfg.R, kStaleWalk, 0,
+                                    env == 0 ? g.d->aux2 : g.d->parents[0]);
+CPR_SLOT_LOOP
   for (int j = 0; j < kNS; ++j) {
     if (!g.in(j)) continue;
     const int64_t o = lane * W + g.slot(j);

@@ -1,7 +1,10 @@
 // Kernel K10-sdag: the Sdag withholding env's fused episode stream and its
 // one-tick step_lanes, one warp per lane over K8's DAG (csrc/dag.cuh) and
 // K9's candidate frame, altruistic selection, release prefixes and stale
-// plane (csrc/quorum.cuh).
+// plane (csrc/quorum.cuh), in the DAG mode of its compilation: the ring
+// (K10-sdag) or full capacity (K10-sdag-full: the block LCA walk over
+// aux2 of sdag.py:155-170, K9-full's frame over every parent slot of the
+// multi-parent votes, the stale walk, no retirement).
 //
 // Replaces: cpr_tpu/envs/sdag.py:201-477 — the reward-density heuristic
 // `_select_heuristic` (201), `select` over the frame of multi-parent votes
@@ -53,7 +56,7 @@ constexpr int kSchemeDiscount = 1;
 
 // sdag.py:177-184: vote number desc, then insertion order
 __device__ __forceinline__ float vote_score(const LaneDag& g, int32_t s) {
-  const float age = (float)(g.at(g.d->gid, s) - g.live_floor);
+  const float age = (float)(g.age(s) - g.live_floor);
   return __fsub_rn((float)g.at(g.d->aux, s), __fdiv_rn(age, (float)g.W));
 }
 
@@ -153,7 +156,7 @@ __device__ int32_t mine_one(LaneDag& g, QScratch& q, int32_t head, Mask view,
   const int qn = c.k - 1;
   const QFrame f =
       candidate_frame(g, q, confirming(g, head) & filter & view, c.cmax,
-                      kVote);
+                      kVote, g.P);
   const uint64_t own = cminer(g, q, f, miner);
   uint64_t S;
   int n;
@@ -260,7 +263,8 @@ __device__ void apply(LaneDag& g, QScratch& q, Scal& s, Mask& stale,
   }
   if (is_adopt) {
     s.priv = s.pub;
-    stale = stale_after_adopt(g, s.pub, stale);
+    stale = stale_after_adopt(g, q, s.pub, stale, c.rscan, cpr::kStaleWalk,
+                              kBlock, g.d->aux2);
     s.x = kNone;
   }
   s.own = action < 4;
@@ -288,8 +292,8 @@ struct SdagEnv {
     store_mask(g, stale_plane, stale);
   }
 
-  // sdag.py:445-475; the block chain rides the chain plane, so the
-  // block LCA is the masked common ancestor
+  // sdag.py:445-475; the block chain rides the chain plane in a ring, so
+  // the block LCA is the masked common ancestor there
   __device__ static void step(LaneDag& g, Scal& s, int action,
                               const EnvParams& p, const EnvConfig& c,
                               bool* stale_plane, StepOut& o) {
@@ -298,9 +302,11 @@ struct SdagEnv {
     apply(g, q, s, stale, action, c);
     mine(g, q, s, stale, p, c);
     s.steps += 1;
-    const int32_t ca = g.common_ancestor(s.pub, s.priv);
-    g.retire_below(g.at(g.d->gid, ca < 0 ? 0 : ca));
-    s.x = g.drop_if_retired(s.x);
+    if (kRing) {  // sdag.py:451: the ring's retirement
+      const int32_t ca = lca_over_prev(g, s.pub, s.priv);
+      g.retire_below(g.at(g.d->gid, ca));
+      s.x = g.drop_if_retired(s.x);
+    }
     store_mask(g, stale_plane, stale);
     const int n_pub = mask_count(confirming(g, s.pub));
     const int n_priv = mask_count(confirming(g, s.priv));
@@ -315,8 +321,7 @@ struct SdagEnv {
   // sdag.py:384-402
   __device__ static void obs_ints(const LaneDag& g, const Scal& s,
                                   const EnvConfig& c, int32_t* v) {
-    int32_t ca = g.common_ancestor(s.pub, s.priv);
-    ca = ca < 0 ? 0 : ca;
+    const int32_t ca = lca_over_prev(g, s.pub, s.priv);
     const Mask inc = confirming(g, s.priv);
     const int32_t hp = g.at(g.d->height, s.pub), hv = g.at(g.d->height, s.priv);
     const int32_t hc = g.at(g.d->height, ca);

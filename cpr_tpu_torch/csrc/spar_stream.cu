@@ -1,5 +1,8 @@
 // Kernel K10-spar: the Spar withholding env's fused episode stream and its
-// one-tick step_lanes, one warp per lane over K8's DAG (csrc/dag.cuh).
+// one-tick step_lanes, one warp per lane over K8's DAG (csrc/dag.cuh), in
+// the DAG mode of its compilation: the ring (K10-spar) or full capacity
+// (K10-spar-full: the height walks and the chain release of spar.py:
+// 140-142, 323-327, 354-357, no retirement).
 //
 // Replaces: cpr_tpu/envs/spar.py:215-414 — `reset` (215), `_mine` (236: one
 // mining draw, the gamma race), `observe` (282), `_apply` with the release
@@ -88,13 +91,13 @@ __device__ int32_t mine_one(LaneDag& g, int32_t head, Mask view, Mask filter,
   Block b;
   if (make_block) {
     float horizon = -f_inf();
-#pragma unroll
+CPR_SLOT_LOOP
     for (int j = 0; j < kNS; ++j)
       if (g.in(j)) horizon = fmaxf(horizon, g.d->born_at[g.o(g.slot(j))]);
     horizon = __fadd_rn(warp_max_f(horizon), 1.f);
     const float* seen = miner == kAtt ? g.d->born_at : g.d->vis_d_since;
     float sc[kNS];
-#pragma unroll
+CPR_SLOT_LOOP
     for (int j = 0; j < kNS; ++j) {
       sc[j] = 0.f;
       if (!g.in(j)) continue;
@@ -182,7 +185,7 @@ __device__ void apply(LaneDag& g, Scal& s, int action, const EnvConfig& c) {
     const int nv_pub = mask_count(confirming(g, s.pub) & g.bools(g.d->vis_d));
     const int32_t tgt_h = is_override && nv_pub >= k ? h_pub + 1 : h_pub;
     const int tgt_v = is_match ? nv_pub : (nv_pub >= k ? 0 : nv_pub + 1);
-    int32_t blk = g.chain_first_at_most(s.priv, g.d->height, tgt_h);
+    int32_t blk = g.chain_at_height(s.priv, tgt_h);
     blk = blk < 0 ? 0 : blk;
     // the proposal fast path: the first block child by age
     const Mask child_blocks = g.children0(blk) & g.kind_is(kBlock);
@@ -206,7 +209,10 @@ __device__ void apply(LaneDag& g, Scal& s, int action, const EnvConfig& c) {
         vote_mask = g.mask_of(idx, valid, rel_votes_n);
       }
     }
-    g.release_masked(rel, s.time);
+    if (cpr::kRing)
+      g.release_masked(rel, s.time);
+    else  // spar.py:354-357
+      g.release_chain(rel, s.time);
     g.release(vote_mask, s.time);
     // deliver to the simulated defender; a tie arms the gamma race
     const int32_t rb = last_block(g, rel);
@@ -256,9 +262,11 @@ struct SparEnv {
     apply(g, s, action, c);
     mine(g, s, p, c);
     s.steps += 1;
-    const int32_t ca = g.common_ancestor(s.pub, s.priv);
-    g.retire_below(g.at(g.d->gid, ca < 0 ? 0 : ca));
-    s.x = g.drop_if_retired(s.x);
+    if (cpr::kRing) {  // spar.py:385: the ring's retirement
+      const int32_t ca = g.common_ancestor(s.pub, s.priv);
+      g.retire_below(g.at(g.d->gid, ca < 0 ? 0 : ca));
+      s.x = g.drop_if_retired(s.x);
+    }
     const int n_pub = mask_count(confirming(g, s.pub));
     const int n_priv = mask_count(confirming(g, s.priv));
     const int32_t hp = g.at(g.d->height, s.pub), hv = g.at(g.d->height, s.priv);

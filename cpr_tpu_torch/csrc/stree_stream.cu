@@ -1,6 +1,9 @@
 // Kernel K10-stree: the Stree withholding env's fused episode stream and
 // its one-tick step_lanes, one warp per lane over K8's DAG
-// (csrc/dag.cuh) and K9's quorums (csrc/quorum.cuh).
+// (csrc/dag.cuh) and K9's quorums (csrc/quorum.cuh), in the DAG mode of
+// its compilation: the ring (K10-stree) or full capacity (K10-stree-full:
+// the height walk of stree.py:167-169, K9-full, no retirement; also
+// TailstormJune, cpr_tpu/envs/tailstorm_june.py, with its `block` scheme).
 //
 // Replaces: cpr_tpu/envs/stree.py:283-452 — `reset` (283), `_mine` (305:
 // one mining draw, a block where a k-1 quorum exists, else a vote),
@@ -34,18 +37,26 @@ using namespace cpr;
 
 constexpr int kBlock = 0, kVote = 1;
 constexpr int kEvPow = 0, kEvNetwork = 1;
+constexpr int kSchemeBlock = 4;  // EnvConfig.scheme of TailstormJune's block
 constexpr int kWaitProceed = 7, kAdoptProceed = 4, kOverrideProceed = 5,
               kMatchProceed = 6;
 
 // stree.py:171-180: depth desc, then insertion order
 __device__ __forceinline__ float vote_score(const LaneDag& g, int32_t s) {
-  const float age = (float)(g.at(g.d->gid, s) - g.live_floor);
+  const float age = (float)(g.age(s) - g.live_floor);
   return __fsub_rn((float)g.at(g.d->aux, s), __fdiv_rn(age, (float)g.W));
 }
 
-// stree.py:226-246: the block and its confirmed vote closure each earn r
+// stree.py:226-246: the block and its confirmed vote closure each earn r;
+// TailstormJune's `block` scheme (tailstorm_june.py:42-51, stream option
+// kSchemeBlock) pays the whole k to the block's miner
 __device__ void block_reward(const LaneDag& g, const Row& row, int32_t miner,
                              const EnvConfig& c, float& atk, float& dfn) {
+  if (c.scheme == kSchemeBlock) {
+    atk = miner == kAtt ? (float)c.k : 0.f;
+    dfn = miner == kDef ? (float)c.k : 0.f;
+    return;
+  }
   const int qn = c.k - 1;
   const int n_leaves = scheme_punish(c) ? 1 : qn;
   Mask closure = 0;
@@ -174,7 +185,8 @@ __device__ void apply(LaneDag& g, QScratch& q, Scal& s, Mask& stale,
   }
   if (is_adopt) {
     s.priv = s.pub;
-    stale = stale_after_adopt(g, s.pub, stale);
+    stale = stale_after_adopt(g, q, s.pub, stale, c.rscan, cpr::kStaleWalk,
+                              kBlock, g.d->parents[0]);
     s.x = kNone;
   }
   s.own = action < 4;
@@ -211,9 +223,11 @@ struct StreeEnv {
     apply(g, q, s, stale, action, c);
     mine(g, q, s, stale, p, c);
     s.steps += 1;
-    const int32_t ca = g.common_ancestor(s.pub, s.priv);
-    g.retire_below(g.at(g.d->gid, ca < 0 ? 0 : ca));
-    s.x = g.drop_if_retired(s.x);
+    if (cpr::kRing) {  // stree.py:426: the ring's retirement
+      const int32_t ca = g.common_ancestor(s.pub, s.priv);
+      g.retire_below(g.at(g.d->gid, ca < 0 ? 0 : ca));
+      s.x = g.drop_if_retired(s.x);
+    }
     store_mask(g, stale_plane, stale);
     const int n_pub = mask_count(confirming(g, s.pub));
     const int n_priv = mask_count(confirming(g, s.priv));

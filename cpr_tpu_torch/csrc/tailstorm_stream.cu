@@ -1,6 +1,9 @@
 // Kernel K10-ts: the Tailstorm withholding env's fused episode stream and
 // its one-tick step_lanes, one warp per lane over K8's DAG
-// (csrc/dag.cuh) and K9's quorums (csrc/quorum.cuh).
+// (csrc/dag.cuh) and K9's quorums (csrc/quorum.cuh), in the DAG mode of
+// its compilation: the ring (K10-ts) or full capacity (K10-ts-full: the
+// summary LCA walk over aux2 of tailstorm.py:206-225, K9-full's frame and
+// stale walk, no retirement).
 //
 // Replaces: cpr_tpu/envs/tailstorm.py:417-675 — `reset` (417), `_advance`
 // (443-536: the pending self-append, the defender's summary with its
@@ -237,7 +240,8 @@ __device__ void apply(LaneDag& g, QScratch& q, Scal& s, Mask& stale,
   }
   if (is_adopt) {
     s.priv = s.pub;
-    stale = stale_after_adopt(g, s.pub, stale);
+    stale = stale_after_adopt(g, q, s.pub, stale, c.rscan, cpr::kStaleWalk,
+                              kSummary, g.d->aux2);
     s.y = kNone;
   }
   const Mask filter =
@@ -285,12 +289,13 @@ struct TailstormEnv {
     apply(g, q, s, stale, action, c);
     advance(g, q, s, stale, p, c);
     s.steps += 1;
-    int32_t lca = g.common_ancestor(s.pub, s.priv);
-    lca = lca < 0 ? 0 : lca;
-    const int32_t prev = g.at(g.d->aux2, lca);
-    const int32_t anchor = prev >= 0 ? prev : lca;
-    g.retire_below(g.at(g.d->gid, anchor));
-    s.y = g.drop_if_retired(s.y);
+    if (kRing) {  // tailstorm.py:641: the ring's retirement
+      const int32_t lca = lca_over_prev(g, s.pub, s.priv);
+      const int32_t prev = g.at(g.d->aux2, lca);
+      const int32_t anchor = prev >= 0 ? prev : lca;
+      g.retire_below(g.at(g.d->gid, anchor));
+      s.y = g.drop_if_retired(s.y);
+    }
     store_mask(g, stale_plane, stale);
     const int n_pub = mask_count(confirming(g, s.pub));
     const int n_priv = mask_count(confirming(g, s.priv));
@@ -305,8 +310,7 @@ struct TailstormEnv {
   // tailstorm.py:538-562
   __device__ static void obs_ints(const LaneDag& g, const Scal& s,
                                   const EnvConfig& c, int32_t* v) {
-    int32_t ca = g.common_ancestor(s.pub, s.priv);
-    ca = ca < 0 ? 0 : ca;
+    const int32_t ca = lca_over_prev(g, s.pub, s.priv);
     const Mask pub = confirming(g, s.pub) & g.bools(g.d->vis_d);
     const Mask inc = confirming(g, s.priv);
     const Mask exc =

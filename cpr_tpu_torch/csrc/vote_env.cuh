@@ -37,6 +37,32 @@ __device__ __forceinline__ Mask confirming(const LaneDag& g, int32_t s) {
          g.newer_than(s);
 }
 
+// tailstorm.py:206-225 (`summary_lca`), sdag.py:155-170 (`block_lca`):
+// the common ancestor of two tips along the previous-summary/-block
+// pointers `prev` (aux2): the chain planes' intersection in a ring (whose
+// chain rows follow those pointers), else the height-synchronized walk,
+// bounded as K8's; NONE reads as slot 0.
+__device__ __forceinline__ int32_t lca_over_prev(const LaneDag& g, int32_t a,
+                                                 int32_t b) {
+  int32_t x;
+  if (kRing) {
+    x = g.common_ancestor_masked(a, b);
+  } else {
+    const int32_t* prev = g.d->aux2;
+    x = a;
+    int32_t y = b;
+    for (int it = 0; it < g.walk_bound() && x != y && x >= 0 && y >= 0;
+         ++it) {
+      const int32_t hx = g.at(g.d->height, x), hy = g.at(g.d->height, y);
+      const int32_t nx = hx >= hy ? g.at(prev, x) : x;
+      const int32_t ny = hy >= hx ? g.at(prev, y) : y;
+      x = nx;
+      y = ny;
+    }
+  }
+  return x < 0 ? 0 : x;
+}
+
 // x strictly preferred over y: by height, then by the votes confirming
 // each in `filter`, then, where `own` is given, by own[x] > own[y]
 __device__ bool prefers(const LaneDag& g, int32_t x, int32_t y, Mask filter,
@@ -75,7 +101,7 @@ __device__ __forceinline__ int32_t warp_max_i(int32_t v) {
 __device__ __forceinline__ int32_t max_where(const LaneDag& g,
                                              const int32_t* plane, Mask m) {
   int32_t v = 0;
-#pragma unroll
+CPR_SLOT_LOOP
   for (int j = 0; j < kNS; ++j)
     if ((m >> j) & 1u) v = max(v, plane[g.o(g.slot(j))]);
   return warp_max_i(v);
@@ -88,7 +114,7 @@ __device__ __forceinline__ int32_t argmax_where(const LaneDag& g, Mask m,
                                                 Score score) {
   float k = -f_inf();
   int s = INT32_MAX;
-#pragma unroll
+CPR_SLOT_LOOP
   for (int j = 0; j < kNS; ++j) {
     if (!((m >> j) & 1u)) continue;
     const float v = score(g.slot(j));
@@ -104,7 +130,7 @@ __device__ __forceinline__ int32_t argmax_where(const LaneDag& g, Mask m,
 // the lowest slot of m, NONE when empty
 __device__ __forceinline__ int32_t first_slot(const LaneDag& g, Mask m) {
   int s = INT32_MAX;
-#pragma unroll
+CPR_SLOT_LOOP
   for (int j = 0; j < kNS; ++j)
     if ((m >> j) & 1u) s = min(s, g.slot(j));
 #pragma unroll
@@ -120,7 +146,7 @@ __device__ __forceinline__ Mask slot_bit(const LaneDag& g, int32_t s) {
 
 __device__ __forceinline__ void store_mask(const LaneDag& g, bool* plane,
                                            Mask m) {
-#pragma unroll
+CPR_SLOT_LOOP
   for (int j = 0; j < kNS; ++j)
     if (g.in(j)) plane[g.o(g.slot(j))] = (m >> j) & 1u;
   __syncwarp();

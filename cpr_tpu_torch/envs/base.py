@@ -367,8 +367,9 @@ class TorchEnv:
     # the serve engine's policy burst (K14) exists for this env on CUDA
     burst_kernel = False
 
-    def _kernel_burst(self, state, obs, params, policy, live, table, nets,
-                      length, exp):
+    def _kernel_burst_launcher(self, state, obs, params, policy, live,
+                               table, nets, length, exp, out, admit,
+                               staging):
         raise _no_kernel(f"{type(self).__name__} serve burst (K14-dag)",
                          "12")
 
@@ -547,17 +548,23 @@ class DagEnv(TorchEnv):
 
     A subclass sets `state_cls`, `int_fields`, `bool_fields` (its scalar
     fields besides the float32 ones and `key`), `plane_fields` (its
-    per-slot bool planes [L, B] outside the DAG), `kernel_name` (its launch
-    counter), `kernel_lib` (its K10 library's entry points,
-    `cpr_k10_<kernel_lib>_*`), `kernel_config()`, and the DAG modes
-    `capacity`, `max_parents`, `ring`, `anc_masks`, `lift`. The kernels'
-    limits are `kernels.check_dag_modes`'; full mode runs in the plain
-    version only."""
+    per-slot bool planes [L, B] outside the DAG), `kernel_family` (its
+    launch counter, `K10-<env>`; `kernel_name` adds "-full" in full
+    mode), `kernel_lib` (its K10 library's entry points,
+    `cpr_k10_<kernel_lib>_*`, one library for the ring and one for full
+    mode), `kernel_config()`, and the DAG modes `capacity`, `max_parents`,
+    `ring`, `anc_masks`, `lift`. The kernels' limits are
+    `kernels.check_dag_modes`'."""
 
     reset_dag_rows = 2
     kernel_item = "8c"
     bool_fields: tuple[str, ...] = ()
     plane_fields: tuple[str, ...] = ()
+
+    @property
+    def kernel_name(self) -> str:
+        """The launch counter of the env's K10 kernel in its DAG mode."""
+        return self.kernel_family + ("" if self.ring else "-full")
 
     def kernel_config(self) -> dict[str, int]:
         """The env's static options for its K10 kernel, by the field

@@ -101,7 +101,7 @@ class BkSSZ(DagEnv):
     scripted_policies = POLICY_NAMES
     state_cls = State
     int_fields = INT_FIELDS
-    kernel_name, kernel_lib = "K10-bk", "bk"
+    kernel_family, kernel_lib = "K10-bk", "bk"
 
     def __init__(self, k: int = 8, incentive_scheme: str = "constant",
                  unit_observation: bool = True, max_steps_hint: int = 256,

@@ -109,7 +109,7 @@ class EthereumSSZ(DagEnv):
     state_cls = State
     int_fields = INT_FIELDS
     bool_fields = BOOL_FIELDS
-    kernel_name, kernel_lib = "K10-eth", "eth"
+    kernel_family, kernel_lib = "K10-eth", "eth"
 
     def __init__(self, preset: str = "byzantium", *,
                  preference: str | None = None, progress: str | None = None,

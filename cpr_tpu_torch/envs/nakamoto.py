@@ -319,9 +319,9 @@ class NakamotoSSZ(TorchEnv):
         return out_obs, reward, done, {k: info[i]
                                        for i, k in enumerate(INFO_KEYS)}
 
-    def _kernel_burst(self, state, obs, params, policy, live, table, nets,
-                      length, exp):
+    def _kernel_burst_launcher(self, state, obs, params, policy, live, table,
+                               nets, length, exp, out, admit, staging):
         from cpr_tpu_torch import kernels
-        return kernels.burst(state, obs, params, self.strict_match,
-                             self.unit_observation, policy, live, table,
-                             nets, length, exp)
+        return kernels.burst_launcher(
+            state, obs, params, self.strict_match, self.unit_observation,
+            policy, live, table, nets, length, exp, out, admit, staging)

@@ -175,7 +175,7 @@ class SdagSSZ(DagEnv):
     int_fields = INT_FIELDS
     bool_fields = BOOL_FIELDS
     plane_fields = ("stale",)
-    kernel_name, kernel_lib = "K10-sdag", "sdag"
+    kernel_family, kernel_lib = "K10-sdag", "sdag"
 
     def __init__(self, k: int = 8, incentive_scheme: str = "constant",
                  subblock_selection: str = "heuristic",
@@ -233,14 +233,15 @@ class SdagSSZ(DagEnv):
         if dag.has_masks:
             return D.common_ancestor_masked(dag, a, b).clamp(min=0)
         x, y = a.clone(), b.clone()
-        while True:
+        for _ in range(D.walk_bound(dag)):  # bounded as core.dag's walks
             live = (x != y) & (x >= 0) & (y >= 0)
             if not bool(live.any()):
-                return x.clamp(min=0)
+                break
             hx, hy = _at(dag.height, x), _at(dag.height, y)
             nx = torch.where(hx >= hy, _at(dag.aux2, x), x)
             ny = torch.where(hy >= hx, _at(dag.aux2, y), y)
             x, y = torch.where(live, nx, x), torch.where(live, ny, y)
+        return x.clamp(min=0)
 
     def vote_score(self, dag):
         """compare_votes_in_block: vote number desc, then insertion order

@@ -103,7 +103,7 @@ class SparSSZ(DagEnv):
     state_cls = State
     int_fields = INT_FIELDS
     bool_fields = BOOL_FIELDS
-    kernel_name, kernel_lib = "K10-spar", "spar"
+    kernel_family, kernel_lib = "K10-spar", "spar"
 
     def __init__(self, k: int = 8, incentive_scheme: str = "constant",
                  unit_observation: bool = True, max_steps_hint: int = 256,

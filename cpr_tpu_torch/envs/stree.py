@@ -115,7 +115,7 @@ class StreeSSZ(DagEnv):
     int_fields = INT_FIELDS
     bool_fields = BOOL_FIELDS
     plane_fields = ("stale",)
-    kernel_name, kernel_lib = "K10-stree", "stree"
+    kernel_family, kernel_lib = "K10-stree", "stree"
 
     def __init__(self, k: int = 8, incentive_scheme: str = "constant",
                  subblock_selection: str = "heuristic",
@@ -487,9 +487,12 @@ class StreeSSZ(DagEnv):
 
     # -- kernel hooks (K10-stree) -------------------------------------------
 
+    @property
+    def kernel_scheme(self) -> int:
+        return INCENTIVE_SCHEMES.index(self.incentive_scheme)
+
     def kernel_config(self):
-        return dict(k=self.k,
-                    scheme=INCENTIVE_SCHEMES.index(self.incentive_scheme),
+        return dict(k=self.k, scheme=self.kernel_scheme,
                     selection=SUBBLOCK_SELECTIONS.index(
                         self.subblock_selection),
                     cmax=self.C_MAX, rscan=self.release_scan,

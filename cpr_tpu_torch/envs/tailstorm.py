@@ -122,7 +122,7 @@ class TailstormSSZ(DagEnv):
     int_fields = INT_FIELDS
     bool_fields = BOOL_FIELDS
     plane_fields = ("stale",)
-    kernel_name, kernel_lib = "K10-ts", "ts"
+    kernel_family, kernel_lib = "K10-ts", "ts"
 
     def __init__(self, k: int = 8, incentive_scheme: str = "discount",
                  subblock_selection: str = "heuristic",
@@ -195,14 +195,15 @@ class TailstormSSZ(DagEnv):
         if dag.has_masks:
             return D.common_ancestor_masked(dag, a, b).clamp(min=0)
         x, y = a.clone(), b.clone()
-        while True:
+        for _ in range(D.walk_bound(dag)):  # bounded as core.dag's walks
             live = (x != y) & (x >= 0) & (y >= 0)
             if not bool(live.any()):
-                return x.clamp(min=0)
+                break
             hx, hy = _at(dag.height, x), _at(dag.height, y)
             nx = torch.where(hx >= hy, self.prev_summary(dag, x), x)
             ny = torch.where(hy >= hx, self.prev_summary(dag, y), y)
             x, y = torch.where(live, nx, x), torch.where(live, ny, y)
+        return x.clamp(min=0)
 
     def vote_ancestors(self, dag, starts):
         """[L, C, D_MAX] vote paths (tailstorm.py:231-247): row i lists

@@ -6,8 +6,8 @@ tailstorm_june_ssz.ml. The protocol is Stree's structure with
 Tailstorm's reward menu plus a `block` scheme paying the whole k to the
 summary's miner (tailstorm_june.ml:176-205), the selection fixed to the
 heuristic quorum (282-350). As in the reference it takes no window: it
-runs in full mode only, which has no CUDA kernel yet (ROADMAP item 8c);
-the plain version runs it on the CPU.
+runs in full mode only, on the card as K10-stree-full with the `block`
+scheme as a stream option (`kernel_config`).
 """
 
 from __future__ import annotations
@@ -45,3 +45,11 @@ class TailstormJuneSSZ(StreeSSZ):
         zero = torch.zeros_like(k)
         return (torch.where(miner == D.ATTACKER, k, zero),
                 torch.where(miner == D.DEFENDER, k, zero))
+
+    @property
+    def kernel_scheme(self) -> int:
+        """K10-stree's scheme option: `block` is 4
+        (csrc/stree_stream.cu kSchemeBlock), the rest Stree's."""
+        if self.incentive_scheme == "block":
+            return 4
+        return super().kernel_scheme

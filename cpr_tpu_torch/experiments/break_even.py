@@ -6,9 +6,10 @@ attack's revenue over an alpha grid from one cached grid solve of the
 exact MDP (`cpr_tpu_torch.mdp.grid.solve_grid_cached`: one parametric
 compile, one grid VI on kernel K7, a sealed disk cache keyed by content
 fingerprint), and `_cached` memoizes any JSON-safe result in the same
-sealed format. The Monte-Carlo half (`revenue`, `break_even`) needs the
-DAG protocol environments and the experiments of ROADMAP item 9, and
-raises.
+sealed format. The Monte-Carlo half (`revenue`, `break_even`) runs the
+ported envs' stats drivers and needs no new kernel; it is part of the
+experiment drivers still to port (ROADMAP item 9, host half) and raises
+until then.
 """
 
 from __future__ import annotations

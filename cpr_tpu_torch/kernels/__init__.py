@@ -1,8 +1,8 @@
 """Build, load and launch the port's CUDA kernels.
 
 Each source under `cpr_tpu_torch/csrc/` (`*.cu`) is compiled by `nvcc`
-for sm_90a into its own shared library with a plain C interface, at
-first use, into `build/cpr_tpu_torch/` beside the package (or
+for sm_90a into its own shared library with a plain C interface (the
+DAG kernels once more for each full mode, `name.cu:mode`), at first use, into `build/cpr_tpu_torch/` beside the package (or
 `$CPR_TORCH_BUILD_DIR`). The file name carries a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
 All sources compile in parallel, one `nvcc` each. The libraries are
@@ -38,7 +38,14 @@ SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu", "rtdp.cu",
            "ppo_loss.cu", "adam.cu",
            "netsim_scan.cu", "netsim_event.cu", "netsim_attack.cu",
            "netsim_event_bk.cu", "netsim_event_eth.cu", "netsim_event_spar.cu",
-           "exp_check.cu")
+           "exp_check.cu", "dag_script.cu:full", "dag_script.cu:lift",
+           "quorum_check.cu:full", "bk_stream.cu:full",
+           "ethereum_stream.cu:lift", "tailstorm_stream.cu:full",
+           "stree_stream.cu:full", "spar_stream.cu:full",
+           "sdag_stream.cu:full")
+# A source `name.cu:mode` is name.cu compiled in a full DAG mode of
+# csrc/dag.cuh (`CPR_DAG_MODE`): full capacity, or full with lifting.
+DAG_MODES = {"ring": 0, "full": 1, "lift": 2}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +56,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # inside K2 and K10 too: a stream launch with the net adds one to it as
 # well as to its own kernel, and so does its check kernel
 # (csrc/actor_check.cu). K11-loss counts its forward and backward launches.
+# The full-mode DAG kernels count apart from the ring ones: K8-full and
+# K9-full their check kernels' launches in full mode (either lifting),
+# K10-<env>-full the env streams' launches in full mode.
 # K12-event-bk/-eth/-spar count the protocol kernels of the event engine
 # (csrc/netsim_event_{bk,eth,spar}.cu). K15 (csrc/exp_ring.cuh) runs
 # inside K14 too: a burst launch with the experience rings adds one to it
@@ -56,7 +66,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (csrc/exp_check.cu); a burst launch with a net adds one to K11-act.
 launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K8": 0, "K9": 0, "K10-bk": 0, "K10-eth": 0, "K10-ts": 0,
-            "K10-stree": 0, "K10-spar": 0, "K10-sdag": 0, "K11-act": 0,
+            "K10-stree": 0, "K10-spar": 0, "K10-sdag": 0, "K8-full": 0,
+            "K9-full": 0, "K10-bk-full": 0, "K10-eth-full": 0,
+            "K10-ts-full": 0, "K10-stree-full": 0, "K10-spar-full": 0,
+            "K10-sdag-full": 0, "K11-act": 0,
             "K11-gae": 0, "K11-loss": 0,
             "K11-adam": 0, "K12-scan": 0, "K12-event": 0, "K13": 0,
             "K12-event-bk": 0, "K12-event-eth": 0, "K12-event-spar": 0,
@@ -101,9 +114,20 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _source(src: str) -> tuple[str, str]:
+    """(file, DAG mode) of a SOURCES entry."""
+    name, _, mode = src.partition(":")
+    return name, mode or "ring"
+
+
 def library_paths() -> dict[str, Path]:
     d, tag = build_dir(), _digest()
-    return {src: d / f"lib{Path(src).stem}-{tag}.so" for src in SOURCES}
+    out = {}
+    for src in SOURCES:
+        name, mode = _source(src)
+        stem = Path(name).stem + ("" if mode == "ring" else f"_{mode}")
+        out[src] = d / f"lib{stem}-{tag}.so"
+    return out
 
 
 def build() -> dict[str, Path]:
@@ -120,7 +144,9 @@ def build() -> dict[str, Path]:
     for src, out in todo.items():
         tmp = out.with_suffix(f".tmp{os.getpid()}")
         log = open(out.with_suffix(".log"), "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        name, mode = _source(src)
+        cmd = [nvcc, *NVCC_FLAGS, f"-DCPR_DAG_MODE={DAG_MODES[mode]}", "-o",
+               str(tmp), str(CSRC / name)]
         procs[src] = (subprocess.Popen(cmd, stdout=log,
                                        stderr=subprocess.STDOUT), log, tmp)
     failed = []
@@ -174,7 +200,8 @@ class _BurstArgs(ctypes.Structure):  # csrc/nakamoto_stream.cu
                                                      "hidden",
                                                      "n_actions")] + [
         (f, ctypes.c_int32 * _BURST_TABLE) for f in ("kind", "arg")] + [
-        ("smem_floats", ctypes.c_int32), ("burst", ctypes.c_int32)]
+        ("smem_floats", ctypes.c_int32), ("burst", ctypes.c_int32),
+        ("admit", _p), ("admit_keys", _p)]
 
 
 EXP_FIELDS = ("obs", "action", "reward", "done", "era", "erd", "policy")
@@ -220,9 +247,12 @@ class _LoopCtl(ctypes.Structure):
                 ("stop_delta", ctypes.c_double), ("max_iter", _i64)]
 
 
-_MAX_WINDOW = 128  # csrc/dag.cuh kNS = 4 slots per thread of a warp
+_MAX_WINDOW = 128  # csrc/dag.cuh kNS = 4 slots per thread in a ring
+_MAX_FULL = 544    # kNS = 17 slots per thread in full mode
 _MAX_PARENTS = 17  # csrc/dag.cuh kDagMaxParents
-_DAG_PLANES = ("auxf", "auxg", "aux2", "gid", "live_floor", "chain",
+_LIFT_PLANES = ("anc2", "anc4", "anc8", "anc16")
+_DAG_PLANES = ("auxf", "auxg", "aux2", *_LIFT_PLANES, "gid", "live_floor",
+               "chain",
                "closure", "kind", "height", "aux", "pow_hash", "signer",
                "miner", "vis_a", "vis_d", "vis_d_since", "born_at",
                "cum_atk", "cum_def", "cum_prog", "n", "overflow")
@@ -324,10 +354,10 @@ def _load() -> dict[str, ctypes.CDLL]:
                                           pp, _int, _int, _int, _p, _p, _p,
                                           _p, _p]
         nak.cpr_k3_step_lanes.restype = _int
-        nak.cpr_k14_burst.argtypes = [sp, _p, _i64, pp, _int, _int,
-                                      ctypes.POINTER(_BurstArgs),
-                                      ctypes.POINTER(_ExpPtrs), _p]
-        nak.cpr_k14_burst.restype = _int
+        nak.cpr_k14_burst_staged.argtypes = [
+            sp, _p, _i64, pp, _int, _int, ctypes.POINTER(_BurstArgs),
+            ctypes.POINTER(_ExpPtrs), _p, _p, _i64, _p, _p, _i64, _p]
+        nak.cpr_k14_burst_staged.restype = _int
         nak.cpr_k23_error_string.argtypes = [_int]
         nak.cpr_k23_error_string.restype = ctypes.c_char_p
         mdp = ctypes.CDLL(str(paths["mdp_sweep.cu"]))
@@ -350,42 +380,8 @@ def _load() -> dict[str, ctypes.CDLL]:
         rt.cpr_k6_rtdp.restype = _int
         rt.cpr_k6_error_string.argtypes = [_int]
         rt.cpr_k6_error_string.restype = ctypes.c_char_p
-        dp, ep = ctypes.POINTER(_DagPtrs), ctypes.POINTER(_EnvPtrs)
-        cfg = ctypes.POINTER(_EnvConfig)
-        k8 = ctypes.CDLL(str(paths["dag_script.cu"]))
-        k8.cpr_k8_dag_script.argtypes = [dp, _p, _int, _p, _int, _p, _i64, _p,
-                                         _p, _p]
-        k8.cpr_k8_dag_script.restype = _int
-        k8.cpr_k8_error_string.argtypes = [_int]
-        k8.cpr_k8_error_string.restype = ctypes.c_char_p
-        k9 = ctypes.CDLL(str(paths["quorum_check.cu"]))
-        k9.cpr_k9_quorum_check.argtypes = [
-            dp, ctypes.POINTER(_CheckIn), ctypes.POINTER(_CheckCfg), _i64,
-            ctypes.POINTER(_CheckOut), _p]
-        k9.cpr_k9_quorum_check.restype = _int
-        k9.cpr_k9_error_string.argtypes = [_int]
-        k9.cpr_k9_error_string.restype = ctypes.c_char_p
-        _libs.update(random=rnd, nakamoto=nak, mdp=mdp, rtdp=rt, dag=k8,
-                     quorum=k9)
-        for name, src in (("bk", "bk_stream.cu"),
-                          ("eth", "ethereum_stream.cu"),
-                          ("ts", "tailstorm_stream.cu"),
-                          ("stree", "stree_stream.cu"),
-                          ("spar", "spar_stream.cu"),
-                          ("sdag", "sdag_stream.cu")):
-            lib = ctypes.CDLL(str(paths[src]))
-            stream_fn = getattr(lib, f"cpr_k10_{name}_stream")
-            stream_fn.argtypes = [dp, ep, _p, _p, _int, _i64, _int, pp, cfg,
-                                  _int, _int, _p, _p, _p, npp, _p]
-            stream_fn.restype = _int
-            lanes_fn = getattr(lib, f"cpr_k10_{name}_step_lanes")
-            lanes_fn.argtypes = [dp, ep, _p, _p, _p, dp, ep, _p, _p, _i64, pp,
-                                 cfg, _int, _p, _p, _p, _p, _p]
-            lanes_fn.restype = _int
-            err = f"cpr_k10_{name}_error_string"
-            getattr(lib, err).argtypes = [_int]
-            getattr(lib, err).restype = ctypes.c_char_p
-            _libs[f"k10_{name}"] = lib
+        _libs.update(random=rnd, nakamoto=nak, mdp=mdp, rtdp=rt)
+        _libs.update(_load_dag(paths))
         act = ctypes.CDLL(str(paths["actor_check.cu"]))
         act.cpr_k11_actor_check.argtypes = [npp, _p, _int, _p, _p, _i64,
                                             _int, _p, _p]
@@ -450,6 +446,59 @@ def _load() -> dict[str, ctypes.CDLL]:
             err.restype = ctypes.c_char_p
             _libs[f"netsim_event_{name}"] = lib
         return _libs
+
+
+K10_SOURCES = {"bk": "bk_stream.cu", "eth": "ethereum_stream.cu",
+               "ts": "tailstorm_stream.cu", "stree": "stree_stream.cu",
+               "spar": "spar_stream.cu", "sdag": "sdag_stream.cu"}
+
+
+def _load_dag(paths) -> dict[str, ctypes.CDLL]:
+    """The DAG kernels' libraries (K8, K9, K10), each DAG mode's: keys
+    `dag`, `quorum`, `k10_<env>` for the ring, `dag_full`, `dag_lift`,
+    `quorum_full`, `k10_<env>_full` for full mode."""
+    libs = {}
+    dp, ep = ctypes.POINTER(_DagPtrs), ctypes.POINTER(_EnvPtrs)
+    cfg, pp = ctypes.POINTER(_EnvConfig), ctypes.POINTER(_ParamPtrs)
+    npp = ctypes.POINTER(_NetArgs)
+
+    def errors(lib, fn):
+        getattr(lib, fn).argtypes = [_int]
+        getattr(lib, fn).restype = ctypes.c_char_p
+
+    for key, src in (("dag", "dag_script.cu"),
+                     ("dag_full", "dag_script.cu:full"),
+                     ("dag_lift", "dag_script.cu:lift")):
+        k8 = ctypes.CDLL(str(paths[src]))
+        k8.cpr_k8_dag_script.argtypes = [dp, _p, _int, _p, _int, _p, _i64,
+                                         _p, _p, _p]
+        k8.cpr_k8_dag_script.restype = _int
+        errors(k8, "cpr_k8_error_string")
+        libs[key] = k8
+    for key, src in (("quorum", "quorum_check.cu"),
+                     ("quorum_full", "quorum_check.cu:full")):
+        k9 = ctypes.CDLL(str(paths[src]))
+        k9.cpr_k9_quorum_check.argtypes = [
+            dp, ctypes.POINTER(_CheckIn), ctypes.POINTER(_CheckCfg), _i64,
+            ctypes.POINTER(_CheckOut), _p]
+        k9.cpr_k9_quorum_check.restype = _int
+        errors(k9, "cpr_k9_error_string")
+        libs[key] = k9
+    for name, src in K10_SOURCES.items():
+        full = f"{src}:{K10_FULL_MODE[name]}"
+        for key, lib_src in ((f"k10_{name}", src), (f"k10_{name}_full", full)):
+            lib = ctypes.CDLL(str(paths[lib_src]))
+            stream_fn = getattr(lib, f"cpr_k10_{name}_stream")
+            stream_fn.argtypes = [dp, ep, _p, _p, _int, _i64, _int, pp, cfg,
+                                  _int, _int, _p, _p, _p, npp, _p]
+            stream_fn.restype = _int
+            lanes_fn = getattr(lib, f"cpr_k10_{name}_step_lanes")
+            lanes_fn.argtypes = [dp, ep, _p, _p, _p, dp, ep, _p, _p, _i64, pp,
+                                 cfg, _int, _p, _p, _p, _p, _p]
+            lanes_fn.restype = _int
+            errors(lib, f"cpr_k10_{name}_error_string")
+            libs[key] = lib
+    return libs
 
 
 def _check(rc: int, lib, errfn: str, what: str) -> None:
@@ -718,8 +767,9 @@ def check_burst_nets(nets, n_actions: int) -> None:
                 f"{net.n_actions} actions")
 
 
-def burst(state, obs, params, strict_match: bool, unit_obs: bool, policy,
-          live, table, nets, length: int, exp: dict | None = None):
+def burst_launcher(state, obs, params, strict_match: bool, unit_obs: bool,
+                   policy, live, table, nets, length: int, exp: dict | None,
+                   out, admit, staging):
     """K14: `length` steps of every lane where `live` [L] bool, each
     under its entry `policy` [L] int32 of `table`, a list of (kind, arg):
     (BURST_SCRIPTED, scripted policy id), (BURST_GREEDY, net slot) or
@@ -730,9 +780,18 @@ def burst(state, obs, params, strict_match: bool, unit_obs: bool, policy,
     `obs` [L, 4]) and, given, `exp` (the rings of
     `learn.buffer.init_buffer`; a sampled net needs them) are updated IN
     PLACE; other lanes are held bit for bit. A lane may use a net
-    entry only where its slot is given. Returns (got [L] bool,
-    done_step [L] int32, caps [4, L] float32), the first-done registers
-    (zero where not live)."""
+    entry only where its slot is given. `admit` is (mask [L] bool, keys
+    [L, 2] int32): the masked lanes first take `init_lanes(keys)`'s fresh
+    state, as a splice gives it, in the same launch. The first-done
+    registers (got [L] bool, done_step [L] int32, caps [4, L] float32;
+    zero where not live) go to `out`, three such tensors on the card.
+    `staging` is (h_in, d_in, in_bytes, d_out, h_out, out_bytes), pinned
+    host and device buffers as data pointers: each launch copies the
+    inputs in, runs K14, copies the registers out and waits for them,
+    in one call. Checks every argument and returns `launch`: `launch()`
+    runs K14 on these tensors, whose contents the caller changes in
+    place between launches (a resident engine's carry and staging
+    buffers: the checks and the argument structs are made once)."""
     dev = obs.device
     if dev.type != "cuda":
         raise ValueError("K14 takes CUDA tensors")
@@ -776,29 +835,39 @@ def burst(state, obs, params, strict_match: bool, unit_obs: bool, policy,
                                        or nets[arg] is None):
             continue  # a net entry no lane of this launch may use
         args.kind[j], args.arg[j] = kind, arg
-    got = torch.empty((n,), dtype=torch.bool, device=dev)
-    done_step = torch.empty((n,), dtype=torch.int32, device=dev)
-    caps = torch.empty((4, n), dtype=torch.float32, device=dev)
+    got, done_step, caps = out
+    _want(got, "out got", torch.bool, (n,), dev, align=1)
+    _want(done_step, "out done_step", torch.int32, (n,), dev)
+    _want(caps, "out caps", torch.float32, (4, n), dev)
     args.policy, args.live = policy.data_ptr(), live.data_ptr()
     args.got, args.done_step, args.caps = (got.data_ptr(),
                                            done_step.data_ptr(),
                                            caps.data_ptr())
     args.smem_floats, args.burst = off, int(length)
-    ep = None if exp is None else ctypes.byref(_exp_ptrs(exp, n, dev))
-    p, _p_keep = _params(params, n, dev)
+    amask, akeys = admit
+    _want(amask, "admit mask", torch.bool, (n,), dev, align=1)
+    _want(akeys, "admit keys", torch.int32, (n, 2), dev, align=8)
+    args.admit, args.admit_keys = amask.data_ptr(), akeys.data_ptr()
+    ex = None if exp is None else _exp_ptrs(exp, n, dev)
+    ep = None if ex is None else ctypes.byref(ex)
+    p, p_keep = _params(params, n, dev)
     lib = _load()["nakamoto"]
-    with torch.cuda.device(dev):
-        rc = lib.cpr_k14_burst(ctypes.byref(sp), obs.data_ptr(), n,
-                               ctypes.byref(p), int(strict_match),
-                               int(unit_obs), ctypes.byref(args), ep,
-                               _stream(dev))
-    _check(rc, lib, "cpr_k23_error_string", "K14 burst")
-    launches["K14"] += 1
-    if exp is not None:
-        launches["K15"] += 1
-    if keep:
-        launches["K11-act"] += 1
-    return got, done_step, caps
+    refs = (ctypes.byref(sp), obs.data_ptr(), n, ctypes.byref(p),
+            int(strict_match), int(unit_obs), ctypes.byref(args), ep,
+            *staging)
+
+    def launch():
+        with torch.cuda.device(dev):
+            rc = lib.cpr_k14_burst_staged(*refs, _stream(dev))
+        _check(rc, lib, "cpr_k23_error_string", "K14 burst")
+        launches["K14"] += 1
+        if exp is not None:
+            launches["K15"] += 1
+        if keep:
+            launches["K11-act"] += 1
+
+    launch.keep_alive = (sp, p, p_keep, args, ex, keep)
+    return launch
 
 
 def exp_record(exp: dict, live, obs, action, reward, done, era, erd,
@@ -1044,20 +1113,40 @@ def rtdp_walkers(table, words, V, P, cdf, *, graph: bool, max_steps: int,
 
 # -- K8 / K10 -----------------------------------------------------------------
 
-def check_dag_modes(name, W, P, ring, masks, lifted) -> None:
+# the DAG mode of each env's full-mode K10 library: Ethereum's full mode
+# lifts (cpr_tpu/envs/ethereum.py:145), the others' does not
+K10_FULL_MODE = {"bk": "full", "eth": "lift", "ts": "full", "stree": "full",
+                 "spar": "full", "sdag": "full"}
+
+
+def dag_mode(ring, masks, lifted) -> str:
+    """The DAG kernels' mode of a DAG: "ring" (a ring window with ancestry
+    planes), "full" (full capacity, no planes) or "lift" (full capacity
+    with the binary-lifting planes); other combinations raise."""
+    if ring and masks and not lifted:
+        return "ring"
+    if not ring and not masks:
+        return "lift" if lifted else "full"
+    raise NotImplementedError(
+        "the DAG kernels run ring windows with ancestry planes and full "
+        "capacity without them (lifted or not); this DAG has "
+        f"ring={ring}, anc_masks={masks}, lift={lifted} (ROADMAP item 8c)")
+
+
+def check_dag_modes(name, W, P, ring, masks, lifted) -> str:
     """The DAG kernels' limits: ring windows of at most `_MAX_WINDOW`
-    slots with ancestry planes, no lifting, at most `_MAX_PARENTS`
-    parent slots."""
-    if not (ring and masks) or lifted:
+    slots with ancestry planes, full capacity (lifted or not) of at most
+    `_MAX_FULL` slots, at most `_MAX_PARENTS` parent slots. Returns the
+    mode (`dag_mode`)."""
+    mode = dag_mode(ring, masks, lifted)
+    limit = _MAX_WINDOW if mode == "ring" else _MAX_FULL
+    if not 0 < W <= limit or not 0 < P <= _MAX_PARENTS:
         raise NotImplementedError(
-            f"{name} in full mode (window=None) or without ancestry planes "
-            "has no CUDA kernel yet (ROADMAP item 8c); pass window=, or run "
-            "the plain version on the CPU")
-    if not 0 < W <= _MAX_WINDOW or not 0 < P <= _MAX_PARENTS:
-        raise NotImplementedError(
-            f"{name}: the DAG kernels hold windows of at most {_MAX_WINDOW} "
-            f"slots and at most {_MAX_PARENTS} parent slots, this one has "
-            f"{W} and {P} (ROADMAP item 8c)")
+            f"{name}: the DAG kernels hold at most {limit} slots in "
+            f"{'a ring window' if mode == 'ring' else 'full mode'} and at "
+            f"most {_MAX_PARENTS} parent slots, this one has {W} and {P} "
+            "(ROADMAP item 8c)")
+    return mode
 
 
 def check_quorum_modes(name, C, R, width) -> None:
@@ -1083,20 +1172,29 @@ def check_spar_modes(name, k) -> None:
             f"(k <= 8), this one has k = {k} (ROADMAP item 8c)")
 
 
-def _dag_ptrs(dag, dev, name) -> _DagPtrs:
-    """Check a lane-batched core.dag.Dag in ring mode with ancestry planes
-    for the DAG kernels and point a `_DagPtrs` at it."""
+def _dag_ptrs(dag, dev, name, mode=None) -> _DagPtrs:
+    """Check a lane-batched core.dag.Dag for the DAG kernels (in `mode`,
+    where given) and point a `_DagPtrs` at it; a plane the DAG's mode
+    lacks is empty and its pointer unused."""
     from cpr_tpu_torch.core.dag import PLANE_DTYPES
     L, W, P = dag.n_lanes, dag.capacity, dag.max_parents
-    check_dag_modes(name, W, P, dag.is_ring, dag.has_masks, dag.lifted)
+    got = check_dag_modes(name, W, P, dag.is_ring, dag.has_masks, dag.lifted)
+    if mode is not None and got != mode:
+        raise NotImplementedError(
+            f"{name}: a DAG in mode {got!r}, this kernel runs {mode!r} "
+            "(ROADMAP item 8c)")
     ptrs = _DagPtrs()
     for i, plane in enumerate(dag.parents):
         _want(plane, f"{name}.parents[{i}]", torch.int32, (L, W), dev)
         ptrs.parents[i] = plane.data_ptr()
+    RB, MB, LB = (W if dag.is_ring else 0, W if dag.has_masks else 0,
+                  W if dag.lifted else 0)
     for f in _DAG_PLANES:
         t = getattr(dag, f)
         shape = ((L,) if f in ("live_floor", "n", "overflow") else
-                 (L, W, W) if f in ("chain", "closure") else (L, W))
+                 (L, MB, MB) if f in ("chain", "closure") else
+                 (L, RB) if f == "gid" else
+                 (L, LB) if f in _LIFT_PLANES else (L, W))
         _want(t, f"{name}.{f}", PLANE_DTYPES[f], shape, dev,
               align=1 if PLANE_DTYPES[f] == torch.bool else 4)
         setattr(ptrs, f, t.data_ptr())
@@ -1140,9 +1238,14 @@ def _env_config(env) -> _EnvConfig:
 
 
 def _k10(env, entry: str):
-    """The env's K10 library (`env.kernel_lib`) and its `entry` point."""
-    lib = _load()[f"k10_{env.kernel_lib}"]
+    """The env's K10 library (`env.kernel_lib`, its full-mode build off a
+    ring) and its `entry` point."""
+    lib = _load()[f"k10_{env.kernel_lib}" + ("" if env.ring else "_full")]
     return lib, getattr(lib, f"cpr_k10_{env.kernel_lib}_{entry}")
+
+
+def _k10_mode(env) -> str:
+    return "ring" if env.ring else K10_FULL_MODE[env.kernel_lib]
 
 
 def dag_stream(env, state, obs, keys, init_mode: int, length: int, params,
@@ -1160,7 +1263,7 @@ def dag_stream(env, state, obs, keys, init_mode: int, length: int, params,
         raise ValueError(f"{env.kernel_name} takes CUDA tensors")
     n = obs.shape[0]
     F = env.observation_length + (2 if extend_obs else 0)
-    dp = _dag_ptrs(state.dag, dev, "state.dag")
+    dp = _dag_ptrs(state.dag, dev, "state.dag", _k10_mode(env))
     ep = _env_ptrs(env, state, n, dev, "state")
     _want(obs, "obs", torch.float32, (n, F), dev)
     kp = None
@@ -1213,9 +1316,9 @@ def dag_step_lanes(env, state, obs, actions, admit_mask, fresh_state,
         raise ValueError(f"{env.kernel_name} takes CUDA tensors")
     n = obs.shape[0]
     F = env.observation_length + (2 if extend_obs else 0)
-    dp = _dag_ptrs(state.dag, dev, "state.dag")
+    dp = _dag_ptrs(state.dag, dev, "state.dag", _k10_mode(env))
     ep = _env_ptrs(env, state, n, dev, "state")
-    fdp = _dag_ptrs(fresh_state.dag, dev, "fresh_state.dag")
+    fdp = _dag_ptrs(fresh_state.dag, dev, "fresh_state.dag", _k10_mode(env))
     fep = _env_ptrs(env, fresh_state, n, dev, "fresh_state")
     if fresh_state.dag.capacity != state.dag.capacity or \
             fresh_state.dag.max_parents != state.dag.max_parents:
@@ -1246,8 +1349,9 @@ def dag_step_lanes(env, state, obs, actions, admit_mask, fresh_state,
 
 
 def quorum_check(dag, inputs: dict, cfg: dict) -> dict:
-    """K9's check kernel (csrc/quorum_check.cu) on `dag` (ring window with
-    ancestry planes, on the card, read only). `inputs` as
+    """K9's check kernel (csrc/quorum_check.cu) on `dag` (a ring window
+    with ancestry planes, or full mode without lifting: K9-full; on the
+    card, read only). `inputs` as
     `envs.quorum.check_plain` takes them: cand, own [L, W] bool, seen,
     score [L, W] float32, stale [L, W] bool, pub, priv [L] int32; `cfg` its
     options (`_CHECK_CFG`). Returns the dict `check_plain` returns."""
@@ -1257,7 +1361,8 @@ def quorum_check(dag, inputs: dict, cfg: dict) -> dict:
     L, W = dag.n_lanes, dag.capacity
     C, width = int(cfg["C"]), int(cfg["width"])
     check_quorum_modes("K9 check", C, int(cfg["R"]), width)
-    dp = _dag_ptrs(dag, dev, "dag")
+    mode = "ring" if dag.is_ring else "full"
+    dp = _dag_ptrs(dag, dev, "dag", mode)
     for f, dt in (("cand", torch.bool), ("own", torch.bool),
                   ("seen", torch.float32), ("score", torch.float32),
                   ("stale", torch.bool)):
@@ -1282,46 +1387,51 @@ def quorum_check(dag, inputs: dict, cfg: dict) -> dict:
     cout = _CheckOut(*(out[f].data_ptr() for f in (
         "cidx", "cvalid", "abits", "found", "leaves", "row", "ovr", "mat",
         "rfound", "head", "stale")))
-    lib = _load()["quorum"]
+    lib = _load()["quorum" if mode == "ring" else "quorum_full"]
     with torch.cuda.device(dev):
         rc = lib.cpr_k9_quorum_check(ctypes.byref(dp), ctypes.byref(cin),
                                      ctypes.byref(ccfg), L,
                                      ctypes.byref(cout), _stream(dev))
     _check(rc, lib, "cpr_k9_error_string", "K9 quorum_check")
-    launches["K9"] += 1
+    launches["K9" if mode == "ring" else "K9-full"] += 1
     return out
 
 
 def dag_script(dag, ops, args, fargs):
     """K8's check kernel: the script of `core.dag.make_script` on `dag`
-    (ring window with ancestry planes, on the card), updated in place.
+    (a ring window with ancestry planes and the ops `RING_OPS_Q`, or full
+    mode, lifted or not, and the ops `FULL_OPS`: K8-full; on the card),
+    updated in place.
     `ops` [T] host int32; `args` [T, L, 8 + P] int32, `fargs` [T, L, 4]
     float32 on the card. Returns (regs [L, 8], out [T, L, 4])."""
-    from cpr_tpu_torch.core.dag import RING_OPS_Q, SCRIPT_OUT, SCRIPT_REGS
+    from cpr_tpu_torch.core.dag import (FULL_OPS, RING_OPS_Q, SCRIPT_OUT,
+                                        SCRIPT_REGS)
     dev = dag.device
     if dev.type != "cuda":
         raise ValueError("K8 takes CUDA tensors")
     L, P = dag.n_lanes, dag.max_parents
     dp = _dag_ptrs(dag, dev, "dag")
+    mode = dag_mode(dag.is_ring, dag.has_masks, dag.lifted)
     ops_t = torch.as_tensor(ops, dtype=torch.int32)
-    if not bool(torch.isin(ops_t, torch.tensor(RING_OPS_Q)).all()):
-        raise NotImplementedError(
-            "K8's check kernel runs the ring-window ops only; the walk-based "
-            "queries are full mode (ROADMAP item 8c)")
+    allowed = RING_OPS_Q if mode == "ring" else FULL_OPS
+    if not bool(torch.isin(ops_t, torch.tensor(allowed)).all()):
+        raise ValueError(
+            f"K8's check kernel runs the ops {allowed} in {mode} mode "
+            "(core.dag.RING_OPS_Q in a ring, FULL_OPS in full mode)")
     T = int(ops_t.shape[0])
     ops_d = ops_t.to(dev)
     _want(args, "args", torch.int32, (T, L, 8 + P), dev)
     _want(fargs, "fargs", torch.float32, (T, L, 4), dev)
     regs = torch.empty((L, SCRIPT_REGS), dtype=torch.int32, device=dev)
     out = torch.empty((T, L, SCRIPT_OUT), dtype=torch.int32, device=dev)
-    lib = _load()["dag"]
+    lib = _load()["dag" if mode == "ring" else f"dag_{mode}"]
     with torch.cuda.device(dev):
         rc = lib.cpr_k8_dag_script(ctypes.byref(dp), ops_d.data_ptr(), T,
                                    args.data_ptr(), 8 + P, fargs.data_ptr(),
                                    L, regs.data_ptr(), out.data_ptr(),
                                    _stream(dev))
     _check(rc, lib, "cpr_k8_error_string", "K8 dag_script")
-    launches["K8"] += 1
+    launches["K8" if mode == "ring" else "K8-full"] += 1
     return regs, out
 
 

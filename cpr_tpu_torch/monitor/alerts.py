@@ -29,7 +29,8 @@ samples live in bounded deques, a window evaluation is one pass.
 Breaches emit the typed v14 `alert` event (one call site,
 `emit_alert`, carrying every EVENT_FIELDS-declared field) and surface
 as an `alerts` block in heartbeat/stats/drain-report — the trigger
-surface ROADMAP item 3's autoscaler will subscribe to.
+surface for an autoscaler over the serve fleet (the fleet router,
+`serve/router.py`, is not ported yet: ROADMAP item 12).
 
 Re-fire is cooldown-gated per (signal, class, window): an alert
 re-emits at most once per window length while the breach persists, so

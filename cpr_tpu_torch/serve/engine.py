@@ -21,8 +21,9 @@ Owns the (state, obs) lane carry and two device entry points:
 Both paths advance lanes by the same `_lane_step` unit as `rollout`, and
 admission seeds lanes through `init_lanes` (the rollout stream
 prologue): a session admitted with seed S replays `rollout(PRNGKey(S))`.
-Where the reference donates the carry, the port updates its tensors in
-place.
+`burst_run(admit=)` admits policy sessions with the burst: on the card
+K14 takes their fresh states in its own launch. Where the reference
+donates the carry, the port updates its tensors in place.
 
 Always-on learning adds two planes, both fixed at construction:
 
@@ -72,6 +73,36 @@ BURST_FIELDS = ("done", "done_step") + CAPTURE_FIELDS
 def _not_ported(what, item):
     return NotImplementedError(
         f"{what} is not ported to cpr_tpu_torch yet (ROADMAP item {item})")
+
+
+class _Staging:
+    """One pinned host buffer and its device twin, carved into typed
+    views (`layout`: name -> (dtype, shape)), so that a dispatch's host
+    inputs go to the card in one copy and its outputs come back in
+    one: `views` the device tensors, `host` numpy arrays over the pinned
+    buffer, `raw` all of it as bytes."""
+
+    def __init__(self, layout: dict, dev):
+        self.views, self.host = {}, {}
+        off, spans = 0, {}
+        for name, (dt, shape) in layout.items():
+            size = torch.empty(shape, dtype=dt).nbytes
+            off = -(-off // 8) * 8
+            spans[name] = (off, size, dt, shape)
+            off += size
+        self._dev = torch.empty(off, dtype=torch.uint8, device=dev)
+        self._host = torch.empty(off, dtype=torch.uint8).pin_memory()
+        self.raw = self._host.numpy()
+        for name, (o, size, dt, shape) in spans.items():
+            self.views[name] = self._dev[o:o + size].view(dt).view(shape)
+            self.host[name] = self._host[o:o + size].view(dt).view(
+                shape).numpy()
+
+    @property
+    def ptrs(self) -> tuple:
+        """(host, device, bytes) of the whole buffer."""
+        return (self._host.data_ptr(), self._dev.data_ptr(),
+                self._dev.nbytes)
 
 
 def _lane_keys(seeds: np.ndarray, dev) -> torch.Tensor:
@@ -188,6 +219,10 @@ class ResidentEngine:
         self._exp = None
         self._carry = None
         self._fresh0 = None
+        # on the card: the burst's staging buffers, made once by start()
+        self._stage_burst = self._stage_regs = None
+        # the K14 launcher over them, and the net slots it was made for
+        self._launch = self._launch_key = None
 
         # host-side throughput ledger (report() / the serve perf rows)
         self.steps = 0
@@ -233,6 +268,16 @@ class ResidentEngine:
                              device=self.device)
         zero_m = torch.zeros(self.n_lanes, dtype=torch.bool,
                              device=self.device)
+        self._zero_a, self._zero_m = zero_a, zero_m
+        if self.on_card:
+            n, i32 = self.n_lanes, torch.int32
+            self._stage_burst = _Staging(
+                dict(keys=(i32, (n, 2)), policy=(i32, (n,)),
+                     live=(torch.bool, (n,)), admit=(torch.bool, (n,))),
+                self.device)
+            self._stage_regs = _Staging(
+                dict(done_step=(i32, (n,)), caps=(torch.float32, (4, n)),
+                     done=(torch.bool, (n,))), self.device)
         self.env.step_lanes(self._carry, zero_a, zero_m, self._fresh0,
                             zero_m, self.params)
         if self.experience:
@@ -243,7 +288,9 @@ class ResidentEngine:
             self._exp = buffer.init_buffer(
                 buffer.experience_stream(keys), self.experience,
                 self.env.observation_length)
-        self._burst(zero_a, zero_m, set())
+        if self.on_card:
+            self._burst_staged(np.zeros(0, np.int64), np.zeros(0, np.int32),
+                               set())
 
     # -- the three device entry points ------------------------------------
 
@@ -261,30 +308,31 @@ class ResidentEngine:
             admit[lane] = True
         fresh = self.env.init_lanes(_lane_keys(seeds, self.device),
                                     self.params)
-        hold = torch.zeros(self.n_lanes, dtype=torch.bool,
-                           device=self.device)
         _, (obs, _, _, _) = self.env.step_lanes(
-            self._carry, torch.zeros(self.n_lanes, dtype=torch.int32,
-                                     device=self.device),
-            torch.from_numpy(admit).to(self.device), fresh, hold,
+            self._carry, self._zero_a,
+            torch.from_numpy(admit).to(self.device), fresh, self._zero_m,
             self.params)
-        if self._exp is not None:
-            # re-key the admitted lanes' sampler streams from their
-            # session seeds and restart their write windows (a stale
-            # partial window must never be consolidated); the monotone
-            # counter `t` keeps running
-            from cpr_tpu_torch.learn import buffer
-            lanes = sorted(lane_seeds)
-            idx = torch.tensor(lanes, dtype=torch.int64, device=self.device)
-            nk = buffer.experience_stream(_lane_keys(
-                np.asarray([lane_seeds[lane] for lane in lanes], np.uint32),
-                self.device))
-            self._exp["key"][idx] = nk
-            self._exp["cursor"][idx] = 0
+        self._rekey(lane_seeds)
         obs = obs.cpu().numpy()
         self.admitted += len(lane_seeds)
         self.busy_s += telemetry.now() - t0
         return {lane: obs[lane] for lane in lane_seeds}
+
+    def _rekey(self, lane_seeds: dict[int, int]):
+        """With the rings: re-key the admitted lanes' sampler streams from
+        their session seeds and restart their write windows (a stale
+        partial window must never be consolidated); the monotone counter
+        `t` keeps running."""
+        if self._exp is None:
+            return
+        from cpr_tpu_torch.learn import buffer
+        lanes = sorted(lane_seeds)
+        idx = torch.tensor(lanes, dtype=torch.int64, device=self.device)
+        nk = buffer.experience_stream(_lane_keys(
+            np.asarray([lane_seeds[lane] for lane in lanes], np.uint32),
+            self.device))
+        self._exp["key"][idx] = nk
+        self._exp["cursor"][idx] = 0
 
     def tick(self, lane_actions: dict[int, int]) -> dict[int, dict]:
         """Advance exactly the given lanes by one step with the given
@@ -318,15 +366,22 @@ class ResidentEngine:
         }
 
     def burst_run(self, lane_policy: dict[int, int],
-                  occupancy: float | None = None) -> dict | None:
+                  occupancy: float | None = None,
+                  admit: dict[int, int] | None = None) -> dict | None:
         """Advance every policy-driven lane by `burst` steps in one
         launch (actions from the policy table); non-listed lanes hold
         bit-exactly. Returns the per-lane BURST_FIELDS first-done
         registers as (n_lanes,) numpy arrays, or None when no lane is
         policy-driven. `occupancy` is the scheduler's assigned-lane
-        fraction (defaults to the live fraction)."""
+        fraction (defaults to the live fraction). `admit` ({lane: seed})
+        admits those sessions first, as `splice` does: on the card inside
+        the burst's own launch (K14's admission), on the CPU by `splice`."""
         if not lane_policy:
+            if admit:
+                self.splice(admit)
             return None
+        if admit and not self.on_card:
+            self.splice(admit)
         t0 = telemetry.now()
         n = len(lane_policy)
         lanes = np.fromiter(lane_policy.keys(), np.int64, n)
@@ -335,15 +390,22 @@ class ResidentEngine:
         if used[0] < 0 or used[-1] >= len(self._entries):
             raise ValueError(f"policy ids {used.tolist()} outside "
                              f"0..{len(self._entries) - 1}")
-        pol = np.zeros(self.n_lanes, np.int32)
-        live = np.zeros(self.n_lanes, bool)
-        pol[lanes] = pids
-        live[lanes] = True
+        used = set(used.tolist())
         occ = (n / self.n_lanes if occupancy is None else float(occupancy))
-        regs = self._burst(torch.from_numpy(pol).to(self.device),
-                           torch.from_numpy(live).to(self.device),
-                           set(used.tolist()))
-        host = {k: v.cpu().numpy() for k, v in regs.items()}
+        if self.on_card:
+            if admit:
+                self._rekey(admit)
+                self.admitted += len(admit)
+            host = self._burst_staged(lanes, pids, used, admit)
+        else:
+            pol = np.zeros(self.n_lanes, np.int32)
+            live = np.zeros(self.n_lanes, bool)
+            pol[lanes] = pids
+            live[lanes] = True
+            regs = self._burst_plain(self._carry, self._exp,
+                                     torch.from_numpy(pol),
+                                     torch.from_numpy(live))
+            host = {k: v.numpy() for k, v in regs.items()}
         dur = telemetry.now() - t0
         self.bursts += 1
         self.steps += len(lane_policy) * self.burst
@@ -354,23 +416,54 @@ class ResidentEngine:
 
     # -- the burst: K14 on the card, the plain twin on the CPU -------------
 
-    def _burst(self, policy, live, used: set) -> dict:
-        """One burst over the carry (and the rings), in place; `used`
-        the table ids the live lanes hold. Returns the BURST_FIELDS
-        registers as tensors."""
-        if not self.on_card:
-            return self._burst_plain(self._carry, self._exp, policy, live)
+    def _burst_staged(self, lanes, pids, used: set,
+                      admit: dict | None = None) -> dict:
+        """K14 on the card with the dispatch's host traffic in one copy
+        each way, inside the launch's own call: the policy ids, the live
+        mask and the admissions ({lane: seed}, or None) in, the registers
+        out, through the pinned staging buffers. Returns the BURST_FIELDS
+        registers as numpy arrays."""
+        sb, sr = self._stage_burst, self._stage_regs
+        h = sb.host
+        sb.raw.fill(0)  # policy 0, nothing live, nothing admitted
+        h["policy"][lanes] = pids
+        h["live"][lanes] = True
+        if admit:
+            # PRNGKey(seed): the words (0, seed)
+            idx = np.fromiter(admit.keys(), np.int64, len(admit))
+            h["keys"].view(np.uint32)[idx, 1] = np.fromiter(
+                admit.values(), np.uint32, len(admit))
+            h["admit"][idx] = True
         slots = {self._entries[i][1] for i in used
                  if self._entries[i][0] != _SCRIPTED}
-        nets = [tuple(s) if j in slots else None
-                for j, s in enumerate(self._slots)]
-        state, obs = self._carry
-        got, done_step, caps = self.env._kernel_burst(
-            state, obs, self.params, policy, live,
-            [(k, 0 if a is None else a) for k, a, _ in self._entries],
-            nets, self.burst, self._exp)
-        return dict(done=got, done_step=done_step,
-                    **{k: caps[j] for j, k in enumerate(CAPTURE_FIELDS)})
+        # one launcher a set of net slots (their weights' tensors: a swap
+        # makes new ones), carry and rings (a caller may swap `_carry` or
+        # `_exp` for copies); every other pointer is the engine's own
+        key = tuple(s[1] for j, s in enumerate(self._slots) if j in slots)
+        made = self._launch_key
+        if (made is None or made[1] is not self._carry
+                or made[2] is not self._exp or len(made[0]) != len(key)
+                or any(a is not b for a, b in zip(made[0], key))):
+            state, obs = self._carry
+            nets = [tuple(s) if j in slots else None
+                    for j, s in enumerate(self._slots)]
+            out = sr.views
+            (h_in, d_in, n_in), (h_out, d_out, n_out) = sb.ptrs, sr.ptrs
+            self._launch = self.env._kernel_burst_launcher(
+                state, obs, self.params, sb.views["policy"],
+                sb.views["live"],
+                [(k, 0 if a is None else a) for k, a, _ in self._entries],
+                nets, self.burst, self._exp,
+                (out["done"], out["done_step"], out["caps"]),
+                (sb.views["admit"], sb.views["keys"]),
+                (h_in, d_in, n_in, d_out, h_out, n_out))
+            self._launch_key = (key, self._carry, self._exp)
+        # the inputs in, K14, the registers out, in one call
+        self._launch()
+        caps = sr.host["caps"].copy()
+        return dict(done=sr.host["done"].copy(),
+                    done_step=sr.host["done_step"].copy(),
+                    **dict(zip(CAPTURE_FIELDS, caps)))
 
     def _actions_plain(self, state, obs, policy, live, exp):
         """Each lane's action for this step from its table entry."""

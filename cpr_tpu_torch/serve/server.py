@@ -331,23 +331,30 @@ class ServeServer:
 
     def _tick_once(self) -> bool:
         progressed = False
-        # 1. admissions: backfill freed lanes from the queue; one
-        # splice dispatch seeds every admission this tick
+        # 1. admissions: backfill freed lanes from the queue. Interactive
+        # sessions get their first observation from one splice dispatch
+        # now; policy sessions are spliced by the burst below (inside its
+        # launch on the card)
         placed = self.sched.place()
+        admits = {}
         if placed:
+            interactive = {lane: s.seed for lane, s in placed
+                           if s.kind == "interactive"}
             t0 = telemetry.now()
-            obs_rows = self.engine.splice(
-                {lane: s.seed for lane, s in placed})
+            obs_rows = self.engine.splice(interactive) if interactive else {}
             t1 = telemetry.now()
-            self.latency.observe("device.splice", t1 - t0)
+            if interactive:
+                self.latency.observe("device.splice", t1 - t0)
             for lane, s in placed:
                 s.lane = lane
                 s.t_admit = t1
-                s.splice_s = t1 - t0
+                s.splice_s = t1 - t0 if lane in interactive else 0.0
                 _serve_event("admit", s.sid, lane=lane, seed=s.seed,
                              kind=s.kind)
                 if s.kind == "interactive" and not s.future.done():
                     s.future.set_result(obs_rows[lane])
+                elif s.kind != "interactive":
+                    admits[lane] = s.seed
             progressed = True
         # 2. interactive lanes with a pending client action
         if self._pending:
@@ -401,7 +408,7 @@ class ServeServer:
                 out = self.engine.burst_run(
                     {lane: s.policy_id
                      for lane, s in policy_lanes.items()},
-                    occupancy=self.sched.occupancy())
+                    occupancy=self.sched.occupancy(), admit=admits)
                 t1 = telemetry.now()
                 self.latency.observe("device.burst", t1 - t0)
                 for lane, s in policy_lanes.items():
@@ -1061,11 +1068,11 @@ class ServeServer:
 
     def _break_even_exact(self, req: dict, op: str) -> dict:
         """`mode: "exact"` break-even queries ride solve_grid_cached
-        (ROADMAP item 3): the optimal-attack revenue curve / break-even
-        alpha from one fingerprint-cached exact grid solve — a repeat
-        query for the same protocol/cutoff/grid is a disk-cache hit,
-        surfaced by the `cached` flag in the reply (no `policy` field:
-        the exact path optimizes over all policies)."""
+        (`mdp.grid`, kernel K7): the optimal-attack revenue curve /
+        break-even alpha from one fingerprint-cached exact grid solve — a
+        repeat query for the same protocol/cutoff/grid is a disk-cache
+        hit, surfaced by the `cached` flag in the reply (no `policy`
+        field: the exact path optimizes over all policies)."""
         from cpr_tpu_torch.experiments.break_even import (break_even_exact,
                                                     exact_revenue_curve)
 

@@ -42,11 +42,6 @@ from cpr_tpu_torch.train.ppo import (ActorCritic, NetPolicy, PPOConfig,
 # driver.py:36-43)
 DENSE_RUNAWAY_FACTOR = 4
 
-# the DAG kernels hold ring windows of at most this many slots
-# (kernels._MAX_WINDOW); a DAG env trains on CUDA in that ring
-CUDA_DAG_WINDOW = 128
-
-
 def _stack_params(alphas, gamma, episode_len, *, dense=False):
     if dense:
         return stack_params([dict(alpha=float(a), gamma=gamma,
@@ -118,19 +113,14 @@ def ppo_config(cfg: TrainConfig) -> PPOConfig:
 
 
 def build_env(cfg: TrainConfig, device=None):
-    """The config's env, wrapped in `AssumptionEnv` when alpha is
-    scheduled. On the CPU a DAG env is sized for the episodes (the
-    reference's full mode); on CUDA its kernels hold rings of at most
-    CUDA_DAG_WINDOW slots, so there it gets that window. A ring episode
-    equals the full-mode one unless it evicts a live block, which ends
-    the episode (`DagState.overflow`, the reference's ring semantics)."""
+    """The config's env, sized for its episodes as the reference's driver
+    sizes it (a DAG env in full mode, which K10-<env>-full runs on CUDA),
+    wrapped in `AssumptionEnv` when alpha is scheduled. The env is the
+    same on every device; `device` is taken for the callers' symmetry."""
+    del device
     hint = cfg.episode_len * (
         DENSE_RUNAWAY_FACTOR if cfg.reward == "dense_per_progress" else 1)
-    kw = {}
-    if (_device.resolve(device).type == "cuda"
-            and cfg.protocol.split("-")[0] != "nakamoto"):
-        kw["window"] = CUDA_DAG_WINDOW
-    env = get_sized(cfg.protocol, hint, **kw)
+    env = get_sized(cfg.protocol, hint)
     if cfg.alpha_is_scheduled():
         env = AssumptionEnv(env)
     return env

@@ -383,9 +383,12 @@ def test_registry_keys_and_gym_core():
 
 
 def test_kernels_take_ring_windows_only():
-    """Full mode and windows beyond 128 slots raise on CUDA, naming what
-    is queued, before any launch (the check runs on the host)."""
-    for env, match in ((TEnv(k=2), "full mode .* item 8c"),
+    """Ring windows of at most 128 slots and full mode (K10-bk-full) of
+    at most 544 take the kernels; beyond them the check raises on CUDA,
+    naming what is queued, before any launch (it runs on the host)."""
+    for env, match in ((TEnv(k=2), None),
+                       (TEnv(k=2, max_steps_hint=300),
+                        "at most 544 slots in full mode .* item 8c"),
                        (TEnv(k=2, window=256), "at most 128 slots"),
                        (TEnv(k=2, window=64, anc_masks=True), None)):
         if match is None:

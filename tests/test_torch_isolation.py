@@ -243,8 +243,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from cpr_tpu_torch.learn import buffer
     zi = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.burst(state, obs, params, True, True, zi, mask,
-                      [(kernels.BURST_SCRIPTED, 0)], [], 8)
+        kernels.burst_launcher(state, obs, params, True, True, zi, mask,
+                               [(kernels.BURST_SCRIPTED, 0)], [], 8, None,
+                               None, None, None)
     exp = buffer.init_buffer(keys, 8, 4)
     zf = torch.zeros(4)
     with pytest.raises(ValueError, match="CUDA"):

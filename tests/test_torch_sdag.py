@@ -314,9 +314,12 @@ def test_registry_keys():
 
 
 def test_kernels_take_ring_windows_only():
-    """Full mode and frames beyond 64 candidates raise on CUDA, naming
-    what is queued, before any launch."""
-    for env, match in ((TEnv(k=4), "full mode .* item 8c"),
+    """Ring windows and full mode (K10-sdag-full) of at most 544 slots
+    take the kernels; full mode beyond it and frames beyond 64 candidates
+    raise on CUDA, naming what is queued, before any launch."""
+    for env, match in ((TEnv(k=4), None),
+                       (TEnv(k=4, max_steps_hint=600),
+                        "at most 544 slots in full mode .* item 8c"),
                        (TEnv(k=13, window=128),
                         "candidate frames of at most"),
                        (TEnv(k=8, window=128), None)):
@@ -329,9 +332,8 @@ def test_kernels_take_ring_windows_only():
 
 def test_shipped_config_builds_and_trains():
     """The shipped sdag-8-discount.yaml: build_env sizes full mode as
-    cpr_tpu does on the CPU and gives the kernels' 128-slot ring on the
-    card; a small run of its config trains on the CPU with finite
-    metrics."""
+    cpr_tpu does on the CPU and on the card (K10-sdag-full takes it); a
+    small run of its config trains on the CPU with finite metrics."""
     from pathlib import Path
 
     from cpr_tpu.train import config as jconfig
@@ -341,12 +343,13 @@ def test_shipped_config_builds_and_trains():
     path = Path(jconfig.__file__).parent / "configs" / "sdag-8-discount.yaml"
     cfg = tconfig.TrainConfig.from_yaml(str(path))
     jenv = jdriver.build_env(jconfig.TrainConfig.from_yaml(str(path))).inner
-    full, ring = (tdriver.build_env(cfg, d).inner for d in ("cpu", "cuda"))
+    full, card = (tdriver.build_env(cfg, d).inner for d in ("cpu", "cuda"))
     assert isinstance(full, TEnv) and not full.ring
     assert full.capacity == jenv.capacity == 136
     assert (full.incentive_scheme, full.subblock_selection) == (
         "discount", "heuristic")
-    assert ring.ring and ring.capacity == tdriver.CUDA_DAG_WINDOW
+    assert not card.ring and card.capacity == full.capacity
+    card._check_kernel()
     small = tconfig.TrainConfig.from_dict(dict(
         protocol=cfg.protocol, alpha=dict(min=0.15, max=0.45), gamma=0.5,
         episode_len=16, n_envs=8, reward=cfg.reward,

@@ -223,6 +223,43 @@ def test_schedule_matches_reference(envs, capsys):
         print(f"\n[serve engine] smallest sampled-action margin {margin:.3g}")
 
 
+def test_burst_admission_matches_reference(envs):
+    """`burst_run(admit=)`, the server's admission of policy sessions with
+    their first burst (some admitted lanes run, some are held), against
+    the reference's `splice` then `burst_run`: registers, drained rings,
+    carry and counters."""
+    je, te = engine_pair(envs)
+    rng = np.random.default_rng(77)
+    names = te.policy_names
+    running, seed = {}, 300
+    for rnd_i in range(8):
+        admit = {}
+        for ln in range(N_LANES):
+            if ln not in running and rng.random() < 0.8:
+                admit[ln], seed = seed, seed + 1
+                if rng.random() < 0.75:
+                    running[ln] = int(rng.integers(len(names)))
+        je.splice(admit)
+        bj = je.burst_run(dict(running))
+        bt = te.burst_run(dict(running), admit=admit)
+        if running:
+            assert_regs(bt, bj, f"round {rnd_i} burst")
+            for ln in [ln for ln in running if bj["done"][ln]]:
+                del running[ln]
+        else:
+            assert bj is None and bt is None
+        assert_batch(te.drain_experience(), je.drain_experience(),
+                     f"round {rnd_i} drain")
+        assert_obs(te._carry[1], je._carry[1], f"round {rnd_i} carry obs")
+        for f in ("a", "h", "event", "match_h", "steps", "n_activations"):
+            np.testing.assert_array_equal(
+                getattr(te._carry[0], f).numpy(),
+                np.asarray(getattr(je._carry[0], f)), err_msg=f)
+    rj, rt = je.report(), te.report()
+    for k in ("steps", "episodes", "bursts", "admitted", "samples"):
+        assert rt[k] == rj[k], k
+
+
 def test_burst_replays_rollout(envs):
     """A spliced lane's first completed episode in the burst carries the
     aggregates of `rollout(PRNGKey(S))`, in both packages."""

@@ -242,9 +242,12 @@ def test_registry_keys():
 
 
 def test_kernels_take_ring_windows_only():
-    """Full mode, windows beyond 128 slots and k + 8 > 16 raise on CUDA,
-    naming what is queued, before any launch."""
-    for env, match in ((TEnv(k=4), "full mode .* item 8c"),
+    """Full mode (K10-spar-full) up to 544 slots and ring windows up to
+    128 take the kernels; beyond them, and k + 8 > 16, the check raises
+    on CUDA, naming what is queued, before any launch."""
+    for env, match in ((TEnv(k=4), None),
+                       (TEnv(k=4, max_steps_hint=600),
+                        "at most 544 slots in full mode .* item 8c"),
                        (TEnv(k=4, window=256), "at most 128 slots"),
                        (TEnv(k=9, window=128), "k \\+ 8 <= 16 .* item 8c"),
                        (TEnv(k=8, window=128), None)):
@@ -257,7 +260,7 @@ def test_kernels_take_ring_windows_only():
 
 def test_shipped_config_builds_and_trains():
     """The shipped spar-8.yaml: build_env sizes full mode as cpr_tpu does
-    on the CPU and gives the kernels' 128-slot ring on the card; a small
+    on the CPU and on the card (K10-spar-full takes it); a small
     run of its config trains on the CPU with finite metrics."""
     from pathlib import Path
 
@@ -268,10 +271,11 @@ def test_shipped_config_builds_and_trains():
     path = Path(jconfig.__file__).parent / "configs" / "spar-8.yaml"
     cfg = tconfig.TrainConfig.from_yaml(str(path))
     jenv = jdriver.build_env(jconfig.TrainConfig.from_yaml(str(path))).inner
-    full, ring = (tdriver.build_env(cfg, d).inner for d in ("cpu", "cuda"))
+    full, card = (tdriver.build_env(cfg, d).inner for d in ("cpu", "cuda"))
     assert isinstance(full, TEnv) and not full.ring
     assert full.capacity == jenv.capacity == 136
-    assert ring.ring and ring.capacity == tdriver.CUDA_DAG_WINDOW
+    assert not card.ring and card.capacity == full.capacity
+    card._check_kernel()
     small = tconfig.TrainConfig.from_dict(dict(
         protocol=cfg.protocol, alpha=dict(min=0.15, max=0.45), gamma=0.5,
         episode_len=16, n_envs=8, reward=cfg.reward,

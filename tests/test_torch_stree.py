@@ -185,10 +185,14 @@ def test_registry_keys():
 
 
 def test_kernels_take_ring_windows_only():
-    """Full mode (TailstormJune always) and frames beyond 64 candidates
-    raise on CUDA, naming what is queued, before any launch."""
-    for env, match in ((TJune(k=3), "full mode .* item 8c"),
-                       (TEnv(k=3), "full mode .* item 8c"),
+    """Full mode (TailstormJune always; K10-stree-full) up to 544 slots
+    and ring windows take the kernels; full mode beyond it and frames
+    beyond 64 candidates raise on CUDA, naming what is queued, before any
+    launch."""
+    for env, match in ((TJune(k=3), None),
+                       (TEnv(k=3), None),
+                       (TJune(k=3, max_steps_hint=600),
+                        "at most 544 slots in full mode .* item 8c"),
                        (TEnv(k=13, window=128), "candidate frames of at most"),
                        (TEnv(k=8, window=128), None)):
         if match is None:

@@ -241,9 +241,12 @@ def test_vote_paths_match_reference():
 
 
 def test_kernels_take_ring_windows_only():
-    """Full mode, windows beyond 128 slots and frames beyond 64 candidates
-    raise on CUDA, naming what is queued, before any launch."""
-    for env, match in ((TEnv(k=2), "full mode .* item 8c"),
+    """Full mode (K10-ts-full) up to 544 slots and ring windows up to 128
+    take the kernels; beyond them, and frames beyond 64 candidates, the
+    check raises on CUDA, naming what is queued, before any launch."""
+    for env, match in ((TEnv(k=2), None),
+                       (TEnv(k=2, max_steps_hint=300),
+                        "at most 544 slots in full mode .* item 8c"),
                        (TEnv(k=2, window=256), "at most 128 slots"),
                        (TEnv(k=13, window=128), "candidate frames of at most"),
                        (TEnv(k=8, window=128), None)):

@@ -263,15 +263,16 @@ def test_driver_refuses_what_is_not_ported():
 
 
 def test_build_env_windows_dag_envs_on_request():
-    """build_env sizes a DAG env for the episodes on the CPU (the
-    reference's full mode) and gives it the kernels' ring when the card
-    is requested; Nakamoto has no DAG."""
+    """build_env sizes a DAG env for the episodes (the reference's full
+    mode) whatever the device, the card included, where K10-ts-full
+    takes it; Nakamoto has no DAG."""
     d = dict(SMALL, protocol="tailstorm-8-discount-heuristic", alpha=0.3)
     tc = tconfig.TrainConfig.from_dict(d)
     full = tdriver.build_env(tc, "cpu")
     assert not full.ring and full.capacity >= 2 * 16 + 8
-    ring = tdriver.build_env(tc, "cuda")
-    assert ring.ring and ring.capacity == tdriver.CUDA_DAG_WINDOW
+    card = tdriver.build_env(tc, "cuda")
+    assert not card.ring and card.capacity == full.capacity
+    card._check_kernel()
     nak = tdriver.build_env(tconfig.TrainConfig.from_dict(
         dict(SMALL, alpha=0.3)), "cuda")
     assert not hasattr(nak, "capacity")
