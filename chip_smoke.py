@@ -5,7 +5,11 @@
 
 Phases, one line each; any failure raises and the exit code is not 0:
   0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. build the kernels from `cpr_tpu_torch/csrc/` (nvcc, sm_90a), timed;
+  1. build the kernels from `cpr_tpu_torch/csrc/` (nvcc, sm_90a), timed:
+     K1 first, then the rest while a child process runs the netsim
+     kernels' plain replays of phases 35, 37 and 48 on the idle card
+     (`plain_ahead`: CUDA graphs of small launches, bound by the card's
+     latency; their plain times are taken there);
   2. K1 (threefry) against its plain version on the card and against the
      committed JAX fixture (tests/fixtures/torch_port_golden.npz);
   3. K3 (step_lanes) against its plain version: 4096 lanes, 128 ticks of
@@ -38,8 +42,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
      (alpha 0.3, gamma 0.5, PT horizon 100), each compiled here and held
      to the fixture's table digest; value iteration while and chunked
      (accel_m 0 and 3), float32 and float64; policy evaluation;
-  8. the exact-analysis main path, with its own launch counts (K4 and
-     K5 only): the capstone GhostDAG compile at MDP_CUTOFF, ptmdp,
+  8. (phases 8-12 run after 46, while their host compiles finish beside
+     the card's work) the exact-analysis main path, with its own launch
+     counts (K4 and K5 only): the capstone GhostDAG compile at
+     MDP_CUTOFF (run on the host from the build's end), ptmdp,
      .tensor() on the card, value_iteration (while), vi_chunked with
      Anderson mixing, policy evaluation of the VI policy; the revenue
      held to MDP_REVENUE, the impls and PE to each other; one timed
@@ -225,7 +231,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
      attacker's relative revenue at alpha 0.33 inside ATK_GUARD, no drop
      at a queue of ATK_QUEUE_CAP entries (the JAX package's default of
      256 overflows at alpha 0.45 under SM1, in both packages: the drops
-     at that size are printed); then 4096 lanes x 2000, its launches
+     at that size are printed); then 4096 lanes x 1000, its launches
      counted with the path's, every lane held to the plain version;
  40. K12-scan, K12-event and K13 device times at the paths' bench
      shapes, the shapes of the plain replays in 35, 37 and 38 whose times
@@ -270,8 +276,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
      flooding), the engine's sizes held to the fixture's;
  48. each against its plain version, exactly, on the sweep's five lanes
      (seed 0, activation delays 30 to 600): its first configuration (Bk
-     k=8 constant, the whitepaper, Spar k=4 constant) at the full 10 000
-     activations, the others at HN_PLAIN_ACTS; then flooding on
+     k=8 constant, the whitepaper, Spar k=4 constant) at the path's
+     HN_ACTS activations, the others at HN_PLAIN_ACTS; then flooding on
      random_regular(13, 4) with exponential delays (NET_FLOOD_LANES x
      NET_FLOOD_ACTS);
  49. the honest-network sweep on the card (`experiments.honest_net_rows`,
@@ -370,6 +376,53 @@ Phases, one line each; any failure raises and the exit code is not 0:
  61. each K10-<env>-full's device time per 128-step launch at the
      stream path's shape and per step_lanes tick, the plain versions'
      times and the bounds; K8-full's and K9-full's check kernels.
+ 62. (after 55; its cases in child processes beside 63's)
+     K14-dag, the serve burst over the DAG envs, against the
+     plain splice and `_burst_plain` on the card: every DAG env (bk,
+     Ethereum lifted, Tailstorm, Stree, Spar, Sdag, TailstormJune) in
+     full mode at `get_sized(key, 64)` and every K10 library's build in
+     the 128-slot ring (bk, Ethereum, Tailstorm, Stree, Spar, Sdag),
+     512 lanes, burst 64, max_steps 64, a numpy-seeded table
+     cycling every scripted policy; two bursts back to back from copies
+     of the carry, each admitting a seeded eighth of the lanes (some
+     live, some held) and holding a seeded eighth: registers, obs and
+     the whole carry (every DAG plane, stale rows included) equal; then
+     the committed JAX fixture's bursts
+     (tests/fixtures/torch_port_serve_dag_golden.npz) held the same way;
+ 63. the mixed table on Tailstorm at the server's sizing
+     (`get_sized("tailstorm-8-discount-heuristic", 256)`: 520 slots),
+     4096 lanes, burst 256, the rings on: the seven scripted policies, a
+     loaded greedy net, `ppo` and `ppo#sample` ((64, 64), seeded), two
+     bursts, the first drained into `Learner.ingest`, its own launch
+     counts (K1, K10-ts-full, K14-dag-ts-full, K15, K11-*); each burst
+     held to the plain version as in 52 (draws below NET_MARGIN counted)
+     in a child process of its own that runs the same seeded engine to
+     it, its registers, carry and rings first equal to this run's; then a
+     mid-run swap, after which the scripted lanes are bit for bit those
+     of an unswapped engine;
+ 64. the DAG serve path at full width, in two runs each with its own
+     launch counts: `ResidentEngine` over that env, 4096 lanes (BASELINE
+     config 4's), alpha 0.35, gamma 0.5, max_steps 256, every lane
+     spliced with its own seed, DAG_SERVE_BURSTS bursts of 256 under
+     get-ahead (K10-ts-full, K14-dag-ts-full; with the rings at capacity
+     256 also K1 and K15); ms a burst and env-steps/s; each lane's
+     first-done registers equal to the first episode of the K10 stream
+     (`rollout`) from its seed; the relative revenue within VOTE_GUARD
+     of the K10 stream's over the same lanes and steps, and the ratio
+     of the two times;
+ 65. the wire on a DAG protocol: `python -m cpr_tpu_torch.serve.server
+     --protocol tailstorm-8-discount-heuristic` as a child at its
+     defaults with a seeded net's policy snapshot exported under that
+     protocol; 16 concurrent clients (scripted and `ppo` episode.run,
+     interactive episodes stepped to their end), every reply ok;
+     SIGTERM: a drain report with 0 < p50 <= p99 < the traffic's wall,
+     exit 0; the child's launch counts (K10-ts-full, K14-dag-ts-full,
+     K11-act, and K1 allowed);
+ 66. K14-dag's device ms per 256-step burst at 64's shape, rings off and
+     on, the L2 scrubbed, its bound (the carry read and written once,
+     the ring rows, the threefry work of the steps and resets), the
+     plain version's time of one such burst, and every phase 62 case's
+     device ms a burst at its shape.
 Then the kernels line (JSON: launches summed over the main paths, the
 error of the main-shape comparison, the times and the bound) and the
 last line {"ok": true, "device": {...}}.
@@ -407,6 +460,7 @@ action, whose progress differs).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -642,7 +696,7 @@ NET_EVENT_GAP, NET_TIME_RTOL = 0.02, 1e-9
 ATK_NODES, ATK_LANES, ATK_ACTS, ATK_GUARD = 4, 64, 1500, (0.28, 0.39)
 ATK_ALPHAS = (0.15, 0.25, 0.33, 0.45)
 ATK_POLICIES = ("honest", "sapirshtein-2016-sm1")
-ATK_SWEEP_LANES, ATK_SWEEP_ACTS = 4096, 2000
+ATK_SWEEP_LANES, ATK_SWEEP_ACTS = 4096, 1000
 # a release puts 3 entries a withheld block into clique-4's queue; at
 # alpha 0.45 SM1 withholds chains of over 100 blocks (351 entries at once
 # in the JAX package's run of seed 7, 1500 activations), beyond its
@@ -656,16 +710,17 @@ ATK_EXTRA_ACTS, ATK_EXTRA_LANES = 300, 16
 # at the five activation delays, the 8 default protocols), then Spar k=4
 # under both schemes at the same shape (the Spar config of
 # tests/test_netsim.py:416-420). Each kernel is held to its plain version
-# on the sweep's five lanes: its first configuration at the full 10 000
-# activations, the others at HN_PLAIN_ACTS; and to every case of its JAX
-# fixture.
+# on the sweep's five lanes: its first configuration at the path's
+# HN_ACTS activations, the others at HN_PLAIN_ACTS; and to every case of
+# its JAX fixture. The plain replays run ahead, during the build
+# (`plain_ahead`).
 PROTO_FIXTURE = ROOT / "tests" / "fixtures" / \
     "torch_port_netsim_protocols_golden.npz"
 HN_NODES, HN_ACTS, HN_PROP, HN_SEED = 10, 10000, 1.0, 0
 HN_DELAYS = (30.0, 60.0, 120.0, 300.0, 600.0)
 HN_SPAR = (("spar", {"k": 4, "scheme": "constant"}),
            ("spar", {"k": 4, "scheme": "block"}))
-HN_PLAIN_ACTS = 2000
+HN_PLAIN_ACTS = 250
 PROTO_CONFIGS = {
     "K12-event-bk": (("bk", 8, "constant"), ("bk", 4, "constant"),
                      ("bk", 8, "block")),
@@ -701,9 +756,41 @@ LEARN_MIN_GAIN, LEARN_TAIL, LEARN_BASE_EPISODES = 0.01, 32, 6
 # against a batch rollout() at the server's width: printed beside the
 # reference's floor SERVE_MIN_FRAC, which the port meets in some runs and
 # not in others (ROADMAP §3.4)
-FLOOD_EPISODES, FLOOD_CLIENTS, FLOOD_PROCS = 4096, 128, 2
+FLOOD_EPISODES, FLOOD_CLIENTS, FLOOD_PROCS = 2048, 128, 2
 SERVE_MIN_FRAC = 0.8
 CHILD_READY_S, CHILD_STOP_S = 180.0, 120.0
+# K14-dag (phases 62-66). Phase 62: every DAG env in full mode at the
+# engine's sizing for DAGB_MAX_STEPS and Tailstorm in the 128-slot ring,
+# the kernel against the plain splice and burst, then the committed JAX
+# fixture's bursts (tests/test_torch_serve_dag_a.py writes it at its
+# shape, DAGB_FX_*). Phases 63-66: Tailstorm at the server's sizing
+# (`get_sized(key, 256)`: 520 slots), the protocol of cpr_tpu/train/
+# configs/tailstorm-8-discount.yaml, at BASELINE config 4's 4096 lanes:
+# the mixed table (phase 52's shape), the serve path, the wire at the
+# server's defaults, and the times.
+DAGB_LANES, DAGB_BURST, DAGB_MAX_STEPS = 512, 64, 64
+# phase 62's cases: every DAG env in full mode, then each K10 library's
+# ring build (Tailstorm's first, the case the JAX fixture also holds)
+DAGB_CASES = {**{n: (key, 0) for n, (key, _) in FULL_ENVS.items()},
+              "ts_ring": (FULL_ENVS["ts"][0], DAG_WINDOW),
+              **{f"{n}_ring": (key, DAG_WINDOW)
+                 for n, (key, _) in DAG_ENVS.items() if n != "ts"}}
+DAGB_FX_CASES = (*FULL_ENVS, "ts_ring")  # the fixture's cases
+# phase 62's cases by child process (balanced by their plain replays'
+# time) and the time limit of a child of phases 62-63
+DAGB_GROUPS = (("eth", "spar", "bk_ring"), ("ts", "stree", "spar_ring"),
+               ("ts_ring", "sdag", "eth_ring"),
+               ("bk", "june", "stree_ring", "sdag_ring"))
+DAGB_CHILD_S = 600.0
+DAGB_FIXTURE = ROOT / "tests" / "fixtures" / \
+    "torch_port_serve_dag_golden.npz"
+DAGB_FX_LANES, DAGB_FX_BURST, DAGB_FX_MAX_STEPS, DAGB_FX_ALPHA = \
+    16, 8, 16, 0.33
+DAG_SERVE_KEY, DAG_SERVE_POLICY = "tailstorm-8-discount-heuristic", \
+    "get-ahead"
+DAG_SERVE_LANES, DAG_SERVE_BURST, DAG_SERVE_MAX_STEPS = 4096, 256, 256
+DAG_SERVE_BURSTS = SERVE_BURSTS
+DAG_WIRE_CLIENTS = 16
 
 
 _START = time.perf_counter()
@@ -1418,22 +1505,31 @@ def hold_k5_to_plain(tm, policy, sweeps, rtol=1e-5):
     return err
 
 
-def phase_mdp_main(dev, report):
-    """The exact-analysis path at the capstone's size, its launch counts,
-    then K4 and K5 against their plain twins at its shapes."""
-    from cpr_tpu_torch import kernels
-    from cpr_tpu_torch.mdp import ptmdp
-    from cpr_tpu_torch.mdp.explicit import vi_chunked
+def capstone_table():
+    """The capstone's table, compiled natively on the host; returns
+    (table, host seconds)."""
     from cpr_tpu_torch.mdp.generic import compile_native
-
-    kernels.reset_launches()
     t0 = time.perf_counter()
     table = compile_native("ghostdag", k=2, alpha=MDP_ALPHA, gamma=MDP_GAMMA,
                            collect_garbage="simple",
                            dag_size_cutoff=MDP_CUTOFF)
-    compile_s = time.perf_counter() - t0
+    return table, time.perf_counter() - t0
+
+
+def phase_mdp_main(dev, report, table_future):
+    """The exact-analysis path at the capstone's size (its table from
+    `table_future`: `capstone_table` on the host), its
+    launch counts, then K4 and K5 against their plain twins at its
+    shapes."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.mdp import ptmdp
+    from cpr_tpu_torch.mdp.explicit import vi_chunked
+
+    kernels.reset_launches()
+    table, compile_s = table_future.result()
+    t0 = time.perf_counter()
     mdp = ptmdp(table, horizon=MDP_HORIZON)
-    pt_s = time.perf_counter() - t0 - compile_s
+    pt_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     tm = mdp.tensor(device=dev)  # host to device, then the segment sort
     torch.cuda.synchronize()
@@ -2582,6 +2678,10 @@ def carry_bytes(carry):
 
 ENV_KINDS = {"bk": "BkEnv", "eth": "EthEnv", "ts": "TailstormEnv",
              "stree": "StreeEnv", "spar": "SparEnv", "sdag": "SdagEnv"}
+# the K10 library's env struct of each phase 62 case (K14-dag's kernel
+# name in a trace)
+DAGB_KINDS = {**{n: ENV_KINDS[FULL_LIB[n]] for n in FULL_ENVS},
+              **{f"{n}_ring": ENV_KINDS[n] for n in DAG_ENVS}}
 
 
 def phase_dag_times(dev, report, names):
@@ -3963,31 +4063,83 @@ def lane_slice(out: dict, n: int) -> dict:
     return {k: v[:n] for k, v in out.items()}
 
 
-def phase_k12_scan(dev, nfx, report):
-    """K12-scan at the netsim path's shape (the bench clique, NET_LANES x
-    NET_ACTS: the row's plain time and error) and on a 5-node clique with
-    exponential link delays at lookback 32 and 40 (branches the path does
-    not run; NET_EXTRA_ACTS), each against its plain version; then the
-    JAX fixture's scan cases."""
-    from cpr_tpu_torch import distributions as D
-    from cpr_tpu_torch import kernels, netsim, network
+def plain_ahead(dev, out_dir):
+    """The netsim kernels' plain holds (phases 35, 37 and 48:
+    `k12_scan_holds`, `k12_event_holds`, `proto_holds`), in a child
+    process started while the main process builds the other kernels:
+    these plain versions replay CUDA graphs of small launches, bound by
+    the card's latency, and the card is idle during the build; their one
+    kernel is K1 (their draws), built first (`kernels.load_random`).
+    Each hold's outputs go to out_dir; returns {hold: [file, seconds]}."""
+    from cpr_tpu_torch import kernels, netsim
     from cpr_tpu_torch.netsim import engine as E
+    kernels.load_random()
+    out = {}
+
+    def hold(name, fn):
+        want, sec = plain_timed(fn)
+        file = f"plain{len(out)}.npz"
+        np.savez(Path(out_dir) / file,
+                 **{k: v.cpu().numpy() for k, v in want.items()})
+        out[name] = [file, sec]
+
+    keys, dl = lane_inputs(range(NET_LANES), [NET_ACT_DELAY] * NET_LANES, dev)
+    for what, cn, L, acts in k12_scan_holds():
+        hold(f"K12-scan {what}",
+             lambda: E.scan_plain(cn, acts, L, keys, dl))
+    for what, cn, lanes, acts in k12_event_holds():
+        eng = netsim.Engine(cn, activations=acts, mode="event")
+        ek, ed = lane_inputs(range(lanes), [NET_ACT_DELAY] * lanes, dev)
+        hold(f"K12-event {what}", lambda: E.event_plain(
+            cn, acts, eng.B, eng.M, eng.F, eng.S, ek, ed))
+    for kern, what, cfg, acts, flooding in proto_holds():
+        eng, pk, pd = proto_hold_inputs(cfg, acts, flooding, dev)
+        hold(f"{kern} {what}", lambda: proto_plain(eng, pk, pd))
+    return out
+
+
+def ahead_plain(ahead, name):
+    """A hold's plain outputs (numpy) and seconds from `plain_ahead`'s
+    child (`ahead`: its Popen, output and directory), waiting for the
+    child the first time."""
+    if "result" not in ahead:
+        ahead["result"] = collect_calls(ahead["proc"], ahead["out"],
+                                        "the plain replays'")[0]
+    file, sec = ahead["result"][name]
+    with np.load(Path(ahead["dir"]) / file) as f:
+        return {k: f[k] for k in f.files}, sec
+
+
+def k12_scan_holds():
+    """K12-scan's plain holds: (name, network, lookback, activations): the
+    netsim path's shape (the bench clique, NET_LANES x NET_ACTS: the
+    row's plain time and error) and a 5-node clique with exponential
+    link delays at lookback 32 and 40 (branches the path does not run;
+    NET_EXTRA_ACTS)."""
+    from cpr_tpu_torch import distributions as D
+    from cpr_tpu_torch import netsim, network
     exp_net = network.symmetric_clique(5, activation_delay=25.0,
                                        propagation_delay=1.0)
     for nd in exp_net.nodes:
         for ln in nd.links:
             ln.delay = D.exponential(2.0)
     exp_cn = netsim.compile_network(exp_net)
-    margins, secs = {}, {}
-    for what, cn, L, acts in (
-            ("clique10", bench_clique(NET_NODES, NET_PROP), 32, NET_ACTS),
+    return (("clique10", bench_clique(NET_NODES, NET_PROP), 32, NET_ACTS),
             ("exp5", exp_cn, 32, NET_EXTRA_ACTS),
-            ("exp5_lookback40", exp_cn, 40, NET_EXTRA_ACTS)):
+            ("exp5_lookback40", exp_cn, 40, NET_EXTRA_ACTS))
+
+
+def phase_k12_scan(dev, nfx, report, ahead):
+    """K12-scan against its plain version at `k12_scan_holds`' shapes (the
+    plain outputs and times from `plain_ahead`'s child: `ahead`); then
+    the JAX fixture's scan cases."""
+    from cpr_tpu_torch import kernels
+    margins, secs = {}, {}
+    for what, cn, L, acts in k12_scan_holds():
         keys, dl = lane_inputs(range(NET_LANES), [NET_ACT_DELAY] * NET_LANES,
                                dev)
         got = kernels.netsim_scan(cn, acts, L, keys, dl)
-        want, secs[what] = plain_timed(
-            lambda: E.scan_plain(cn, acts, L, keys, dl))
+        want, secs[what] = ahead_plain(ahead, f"K12-scan {what}")
         margins[what] = float(want["margin"].min())
         err = compare_netsim(got, want, f"K12-scan {what} vs plain")
         if what == "clique10":
@@ -4068,29 +4220,34 @@ def phase_netsim_path(dev, report):
     return counts, orphan
 
 
-def phase_k12_event(dev, nfx, report):
-    """K12-event against its plain version at the event path's shape
-    (the bench clique, NET_LANES x NET_ACTS, the path's sizing: the row's
-    plain time and error) and with flooding on random_regular(13, 4)
-    with exponential delays (the path runs no flooding; NET_FLOOD_LANES x
-    NET_FLOOD_ACTS); then the JAX fixture's event cases."""
+def k12_event_holds():
+    """K12-event's plain holds: (name, network, lanes, activations): the
+    event path's shape (the bench clique, NET_LANES x NET_ACTS, the
+    path's sizing: the row's plain time and error) and flooding on
+    random_regular(13, 4) with exponential delays (the path runs no
+    flooding; NET_FLOOD_LANES x NET_FLOOD_ACTS)."""
     from cpr_tpu_torch import distributions as D
-    from cpr_tpu_torch import kernels, netsim, network
-    from cpr_tpu_torch.netsim import engine as E
+    from cpr_tpu_torch import netsim, network
     flood = netsim.compile_network(network.random_regular(
         13, 4, activation_delay=NET_ACT_DELAY, delay=D.exponential(2.0),
         seed=1))
-    margins, secs = {}, {}
-    for what, cn, lanes, acts in (
-            ("clique10", bench_clique(NET_NODES, NET_PROP), NET_LANES,
+    return (("clique10", bench_clique(NET_NODES, NET_PROP), NET_LANES,
              NET_ACTS),
-            ("flood13", flood, NET_FLOOD_LANES, NET_FLOOD_ACTS)):
+            ("flood13", flood, NET_FLOOD_LANES, NET_FLOOD_ACTS))
+
+
+def phase_k12_event(dev, nfx, report, ahead):
+    """K12-event against its plain version at `k12_event_holds`' shapes
+    (the plain outputs and times from `plain_ahead`'s child: `ahead`);
+    then the JAX fixture's event cases."""
+    from cpr_tpu_torch import kernels, netsim
+    margins, secs = {}, {}
+    for what, cn, lanes, acts in k12_event_holds():
         eng = netsim.Engine(cn, activations=acts, mode="event")
         keys, dl = lane_inputs(range(lanes), [NET_ACT_DELAY] * lanes, dev)
         got = kernels.netsim_event(cn, acts, eng.B, eng.M, eng.F, eng.S,
                                    keys, dl)
-        want, secs[what] = plain_timed(lambda: E.event_plain(
-            cn, acts, eng.B, eng.M, eng.F, eng.S, keys, dl))
+        want, secs[what] = ahead_plain(ahead, f"K12-event {what}")
         margins[what] = float(want["margin"].min())
         err = compare_netsim(got, want, f"K12-event {what} vs plain")
         if what == "clique10":
@@ -4357,43 +4514,57 @@ def proto_plain(eng, keys, dl):
                          eng.S, keys, dl, eng.proto)
 
 
-def phase_proto_plain(dev, report):
-    """Each protocol kernel against its plain version, exactly: the
-    kernel's first configuration (PROTO_FULL) at the path's full shape
-    (the sweep's five lanes, 10 000 activations, delay 30 the most
-    contended), its other configurations at HN_PLAIN_ACTS on the same
-    lanes; then flooding on random_regular(13, 4) with exponential
-    delays. The full shape's plain replay gives the row's plain time and
-    error."""
-    from cpr_tpu_torch import distributions as D
-    from cpr_tpu_torch import kernels, netsim, network
-    flood = netsim.compile_network(network.random_regular(
-        13, 4, activation_delay=NET_ACT_DELAY, delay=D.exponential(2.0),
-        seed=1))
-    keys, dl = lane_inputs([HN_SEED] * len(HN_DELAYS), HN_DELAYS, dev)
-    margins, secs = {}, {}
+def proto_holds():
+    """Phase 48's holds: (kernel, name, (protocol, k, scheme),
+    activations, flooding). Each kernel's first configuration on the
+    path's lanes (the sweep's five lanes, delay 30 the most contended) at
+    the path's HN_ACTS activations (the row's plain time and error), its
+    others at HN_PLAIN_ACTS on the same lanes, then flooding on
+    random_regular(13, 4) with exponential delays."""
+    out = []
     for kern, configs in PROTO_CONFIGS.items():
         for i, (proto, k, scheme) in enumerate(configs):
             acts = HN_ACTS if i == 0 else HN_PLAIN_ACTS
-            eng = proto_engine(proto, k, scheme, acts)
-            what = f"{proto}-{k}-{scheme}@{acts}"
-            got = eng.lanes(keys, dl)
-            want, secs[what] = plain_timed(lambda: proto_plain(eng, keys, dl))
-            margins[what] = float(want["margin"].min())
-            err = compare_netsim(got, want, f"{kern} {what} vs plain")
-            if i == 0:
-                report[kern]["plain_ms"] = secs[what] * 1e3
-                report[kern]["max_abs_err"] = err
-                check(int(got["steps"].max()) > 0, f"{kern} ran no step")
-        proto, k, scheme = configs[0]
-        eng = proto_engine(proto, k, scheme, NET_FLOOD_ACTS, flood)
-        fk, fd = lane_inputs(range(NET_FLOOD_LANES),
-                             [NET_ACT_DELAY] * NET_FLOOD_LANES, dev)
-        got = eng.lanes(fk, fd)
-        what = f"{proto}-flood13"
-        want, secs[what] = plain_timed(lambda: proto_plain(eng, fk, fd))
+            out.append((kern, f"{proto}-{k}-{scheme}@{acts}",
+                        (proto, k, scheme), acts, False))
+        out.append((kern, f"{configs[0][0]}-flood13", configs[0],
+                    NET_FLOOD_ACTS, True))
+    return out
+
+
+def proto_hold_inputs(cfg, acts, flooding, dev):
+    """A phase 48 hold's engine and lane inputs."""
+    from cpr_tpu_torch import distributions as D
+    from cpr_tpu_torch import netsim, network
+    proto, k, scheme = cfg
+    if not flooding:
+        return (proto_engine(proto, k, scheme, acts),
+                *lane_inputs([HN_SEED] * len(HN_DELAYS), HN_DELAYS, dev))
+    flood = netsim.compile_network(network.random_regular(
+        13, 4, activation_delay=NET_ACT_DELAY, delay=D.exponential(2.0),
+        seed=1))
+    return (proto_engine(proto, k, scheme, acts, flood),
+            *lane_inputs(range(NET_FLOOD_LANES),
+                         [NET_ACT_DELAY] * NET_FLOOD_LANES, dev))
+
+
+def phase_proto_plain(dev, report, ahead):
+    """Phase 48: each protocol kernel against its plain version, exactly,
+    at `proto_holds`' shapes (the plain outputs and times from
+    `plain_ahead`'s child: `ahead`); the first configuration's hold
+    gives the row's plain time and error."""
+    from cpr_tpu_torch import kernels
+    margins, secs = {}, {}
+    for kern, what, cfg, acts, flooding in proto_holds():
+        eng, keys, dl = proto_hold_inputs(cfg, acts, flooding, dev)
+        got = eng.lanes(keys, dl)
+        want, secs[what] = ahead_plain(ahead, f"{kern} {what}")
         margins[what] = float(want["margin"].min())
-        compare_netsim(got, want, f"{kern} flooding vs plain")
+        err = compare_netsim(got, want, f"{kern} {what} vs plain")
+        if acts == HN_ACTS:
+            report[kern]["plain_ms"] = secs[what] * 1e3
+            report[kern]["max_abs_err"] = err
+            check(int(got["steps"].max()) > 0, f"{kern} ran no step")
     kernels.reset_launches()  # the comparisons' launches count nowhere
     say("proto_plain", margin=json.dumps(margins), plain_s=json.dumps(secs),
         max_abs_err=json.dumps({k: report[k]["max_abs_err"]
@@ -4567,15 +4738,17 @@ def net_margins(eng, o, pol, live, exp_key, t):
     return margin
 
 
-def replay_burst(eng, carry0, exp0, pol, live, regs, what):
+def replay_burst(eng, carry0, exp0, pol, live, regs, what,
+                 compare=compare_state):
     """K14 with the rings on against the plain version on the card: the
     actions the kernel recorded replayed through the plain `_lane_step`
     from a copy of the pre-burst carry. Every step the plain table
     (`_actions_plain`) picks the recorded action wherever its margin
     exceeds NET_MARGIN, and the recorded observation, reward, done,
     episode rewards and policy are the plain ones; then the carry, the
-    cursors and counters and the first-done registers. Returns (largest
-    float error, draws below the margin, smallest net margin)."""
+    cursors and counters and the first-done registers (the carry by
+    `compare`: `compare_dag_state` for a DAG env). Returns (largest float
+    error, draws below the margin, smallest net margin)."""
     from cpr_tpu_torch.envs.base import _lane_where, map_state
     from cpr_tpu_torch.serve.engine import CAPTURE_FIELDS
     ring = eng._exp
@@ -4618,7 +4791,7 @@ def replay_burst(eng, carry0, exp0, pol, live, regs, what):
         idx = torch.where(newly, torch.full_like(idx, i), idx)
         caps = {k: torch.where(newly, info[k], v) for k, v in caps.items()}
         got = got | done
-    err = max(err, compare_state(eng._carry[0], state, f"{what} carry"))
+    err = max(err, compare(eng._carry[0], state, f"{what} carry"))
     check(float((eng._carry[1] - o).abs().max()) <= 1e-6,
           f"{what}: final obs differs")
     live_i = live.to(torch.int32)
@@ -4658,14 +4831,15 @@ def plain_splice(eng, carry, exp, lane_seeds):
     return obs.cpu().numpy()
 
 
-def hold_admission(eng, lane_policy, seed, what):
+def hold_admission(eng, lane_policy, seed, what, compare=compare_state):
     """K14's admission and the card's splice against the plain path:
     from copies of the engine's carry (and rings), a numpy-seeded eighth
     of the lanes admitted with a burst over a seeded seven eighths (so
     some admitted lanes run and some are held), held to `plain_splice`
     then the plain burst; then a splice on the card held to
-    `plain_splice`. Returns (largest float error, admitted lanes run,
-    admitted lanes held)."""
+    `plain_splice`; the carry by `compare` (`compare_dag_state` for a DAG
+    env: every plane, stale rows included). Returns (largest float error,
+    admitted lanes run, admitted lanes held, episodes the burst ended)."""
     L, dev = eng.n_lanes, eng._carry[1].device
     rng = np.random.default_rng(seed)
     lanes = rng.choice(L, L // 8, replace=False)
@@ -4683,13 +4857,14 @@ def hold_admission(eng, lane_policy, seed, what):
     exp_p = None if exp0 is None else exp_clone(exp0)
     plain_splice(eng, carry_p, exp_p, admit)
     if exp0 is not None:
-        err = replay_burst(eng, carry_p, exp_p, pol, live, regs, what)[0]
+        err = replay_burst(eng, carry_p, exp_p, pol, live, regs, what,
+                           compare)[0]
     else:
         regs_p = eng._burst_plain(carry_p, None, pol, live)
         for k, v in regs_p.items():
             check(np.array_equal(regs[k], v.cpu().numpy()),
                   f"{what}: register {k} differs")
-        err = compare_state(eng._carry[0], carry_p[0], f"{what} carry")
+        err = compare(eng._carry[0], carry_p[0], f"{what} carry")
         d = float((eng._carry[1] - carry_p[1]).abs().max())
         check(d <= 1e-6, f"{what}: obs differs")
         err = max(err, d)
@@ -4702,8 +4877,8 @@ def hold_admission(eng, lane_policy, seed, what):
     want = plain_splice(eng, carry_p, exp_p, more)
     d = max(float(np.abs(got[ln] - want[ln]).max()) for ln in more)
     check(d <= 1e-6, f"{what}: splice obs differs")
-    err = max(err, d, compare_state(eng._carry[0], carry_p[0],
-                                    f"{what} splice carry"))
+    err = max(err, d, compare(eng._carry[0], carry_p[0],
+                              f"{what} splice carry"))
     check(float((eng._carry[1] - carry_p[1]).abs().max()) <= 1e-6,
           f"{what}: splice carry obs differs")
     if exp_p is not None:
@@ -4713,7 +4888,7 @@ def hold_admission(eng, lane_policy, seed, what):
     run = sum(bool(live_np[ln]) for ln in admit)
     check(0 < run < len(admit), f"{what}: {run} of {len(admit)} admitted "
           "lanes run")
-    return err, run, len(admit) - run
+    return err, run, len(admit) - run, int(regs["done"].sum())
 
 
 def phase_serve_full(dev, report):
@@ -4797,8 +4972,8 @@ def phase_serve_full(dev, report):
             compare_state(eng._carry[0], carry_p[0], "K14 rings off carry")
             check(float((eng._carry[1] - carry_p[1]).abs().max()) <= 1e-6,
                   "K14 rings off: obs differs")
-        err, run, held = hold_admission(eng, lane_policy, 510 + cap,
-                                        f"K14 admission, rings {cap}")
+        err, run, held, _ = hold_admission(eng, lane_policy, 510 + cap,
+                                           f"K14 admission, rings {cap}")
         report["K14"]["max_abs_err"] = max(
             report["K14"].get("max_abs_err", 0.0), err)
         say("serve_admission", lanes=L, rings=cap, admitted_run=run,
@@ -5324,6 +5499,567 @@ def phase_learn_loop(dev, report, tmp):
     return counts
 
 
+# -- phases 62-66: K14-dag, the serve burst over the DAG envs -----------------
+
+def dagb_env(name):
+    from cpr_tpu_torch.envs import registry
+    key, window = DAGB_CASES[name]
+    return (registry.get(key, window=window) if window
+            else registry.get_sized(key, DAGB_MAX_STEPS))
+
+
+def dagb_engine(dev, name):
+    """A phase 62 case's started engine, every lane spliced, and its
+    numpy-seeded table (every scripted policy, cycled over the lanes)."""
+    from cpr_tpu_torch.params import make_params
+    from cpr_tpu_torch.serve.engine import ResidentEngine
+    params = make_params(alpha=0.35, gamma=0.5, max_steps=DAGB_MAX_STEPS)
+    eng = ResidentEngine(dagb_env(name), params, n_lanes=DAGB_LANES,
+                         burst=DAGB_BURST, device=dev)
+    eng.start()
+    eng.splice({ln: 6200 + ln for ln in range(DAGB_LANES)})
+    rng = np.random.default_rng(620 + list(DAGB_CASES).index(name))
+    lane_policy = dict(enumerate(rng.permutation(
+        np.arange(DAGB_LANES) % len(eng.policy_names)).tolist()))
+    return eng, lane_policy
+
+
+def dag_burst_case(dev, name):
+    """One phase 62 case: two bursts back to back, each from copies of
+    the carry, with a seeded eighth of the lanes admitted (some live,
+    some held) and a seeded eighth held (`hold_admission`: registers, obs
+    and the whole carry, every plane and stale row). Returns its largest
+    float error."""
+    from cpr_tpu_torch import kernels
+    eng, lane_policy = dagb_engine(dev, name)
+    i = list(DAGB_CASES).index(name)
+    err, run, held, ended = 0.0, 0, 0, 0
+    for b in range(2):
+        e, r, h, d = hold_admission(eng, lane_policy, 6200 + 10 * i + b,
+                                    f"K14-dag {name} burst {b}",
+                                    compare_dag_state)
+        err, run, held, ended = max(err, e), run + r, held + h, ended + d
+    check(ended > 0, f"K14-dag {name}: no episode ended")
+    say("dag_burst", env=name, kernel=kernels.dag_burst_name(eng.env),
+        capacity=eng.env.capacity, ring=eng.env.ring, lanes=DAGB_LANES,
+        burst=DAGB_BURST, table=len(eng.policy_names), episodes=ended,
+        admitted_run=run, admitted_held=held, max_abs_err=err, ok=True)
+    return err
+
+
+CALL_MAIN = """
+import json, sys
+import torch
+import chip_smoke as cs
+torch.set_num_threads(1)
+dev = torch.device(sys.argv[1])
+fn = getattr(cs, sys.argv[2])
+out = [fn(dev, *json.loads(a)) for a in sys.argv[3:]]
+print("RESULT " + json.dumps(out), flush=True)
+"""
+
+
+_CALLS = []  # every `spawn_calls` child, stopped at exit if still running
+
+
+@atexit.register
+def _stop_calls():
+    for proc in _CALLS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def spawn_calls(dev, tmp, name, fn, calls):
+    """A child process that runs `fn(dev, *args)` of this script for each
+    `args` of `calls` in turn (the host-bound plain holds, a core each,
+    beside the card's work), its output in tmp/name.out; its launches
+    count nowhere. Returns (Popen, output path)."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    path = Path(tmp) / f"{name}.out"
+    with open(path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CALL_MAIN, str(dev), fn,
+             *(json.dumps(list(a)) for a in calls)], cwd=ROOT, env=env,
+            stdout=out, stderr=subprocess.STDOUT)
+    _CALLS.append(proc)
+    return proc, path
+
+
+def collect_calls(proc, path, what):
+    """Wait for a `spawn_calls` child (DAGB_CHILD_S at most), print its
+    output, hold its exit 0; returns its results, one a call."""
+    try:
+        rc = proc.wait(timeout=DAGB_CHILD_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{what} child over {DAGB_CHILD_S} s") from None
+    text = Path(path).read_text()
+    print(text, end="", flush=True)
+    check(rc == 0, f"{what} child exited {rc}")
+    line = [x for x in text.splitlines() if x.startswith("RESULT ")]
+    check(line, f"{what} child printed no result")
+    return json.loads(line[-1][len("RESULT "):])
+
+
+def spawn_holds(dev, tmp):
+    """The host-bound holds of phases 62 and 63, each group in a child
+    process, all started together before phase 62 (`collect_dag_burst`
+    and phase 63 wait for them): phase 62's cases (DAGB_GROUPS) and
+    phase 63's two held bursts."""
+    return dict(
+        dagb=[spawn_calls(dev, tmp, f"dagb{k}", "dag_burst_case",
+                          [[n] for n in group])
+              for k, group in enumerate(DAGB_GROUPS)],
+        mixed=[spawn_calls(dev, tmp, f"mixed{b}", "dag_mixed_hold", [[b]])
+               for b in range(2)])
+
+
+def collect_dag_burst(procs, report):
+    """Phase 62's children: every case passed; their errors go into the
+    K14-dag row."""
+    errs = {}
+    for (proc, path), group in zip(procs, DAGB_GROUPS):
+        errs.update(zip(group, collect_calls(proc, path, "phase 62")))
+    check(sorted(errs) == sorted(DAGB_CASES), f"phase 62 cases {errs}")
+    row = report["K14-dag"]
+    row["max_abs_err"] = max(row["max_abs_err"], *errs.values())
+
+
+def phase_dag_burst_fixture(dev, dbfx, report):
+    """K14-dag against cpr_tpu's engine: the committed fixture's
+    three-burst schedules (every family in full mode, Tailstorm in the
+    ring; admissions live and held) replayed through the card's engine,
+    every burst's registers and the final carry held to JAX's."""
+    from cpr_tpu_torch.envs import registry
+    from cpr_tpu_torch.params import make_params
+    from cpr_tpu_torch.serve.engine import BURST_FIELDS, ResidentEngine
+    row = report["K14-dag"]
+    cases = sorted(k[:-len("_window")] for k in dbfx
+                   if k.endswith("_window"))
+    check(sorted(cases) == sorted(DAGB_FX_CASES), f"fixture cases {cases}")
+    for case in cases:
+        key, window = str(dbfx[f"{case}_key"]), int(dbfx[f"{case}_window"])
+        env = (registry.get(key, window=window) if window
+               else registry.get_sized(key, DAGB_FX_MAX_STEPS))
+        params = make_params(alpha=DAGB_FX_ALPHA, gamma=0.5,
+                             max_steps=DAGB_FX_MAX_STEPS)
+        eng = ResidentEngine(env, params, n_lanes=DAGB_FX_LANES,
+                             burst=DAGB_FX_BURST)
+        eng.start()
+        b, ended = 0, 0
+        while f"{case}_b{b}_policy" in dbfx:
+            pol, mask = dbfx[f"{case}_b{b}_policy"], dbfx[f"{case}_b{b}_admit"]
+            seeds = dbfx[f"{case}_b{b}_seeds"]
+            regs = eng.burst_run(
+                {int(ln): int(pol[ln]) for ln in np.nonzero(pol >= 0)[0]},
+                admit={int(ln): int(seeds[ln])
+                       for ln in np.nonzero(mask)[0]})
+            for k in BURST_FIELDS:
+                check(np.array_equal(regs[k], dbfx[f"{case}_b{b}_{k}"]),
+                      f"K14-dag {case} vs jax: burst {b} register {k}")
+            ended += int(regs["done"].sum())
+            b += 1
+        err = compare_dag_state(eng._carry[0], fixture_dag_state(
+            dbfx, f"{case}_final_", env, dev), f"K14-dag {case} vs jax")
+        d = float((eng._carry[1] - torch.from_numpy(
+            dbfx[f"{case}_final_obs_carry"]).to(dev)).abs().max())
+        check(d <= 1e-6, f"K14-dag {case} vs jax: obs")
+        row["max_abs_err"] = max(row["max_abs_err"], err, d)
+        say("dag_burst_fixture", case=case, key=key, window=window,
+            bursts=b, episodes=ended, max_abs_err=max(err, d), ok=True)
+
+
+def dag_serve_env(max_steps):
+    from cpr_tpu_torch.envs import registry
+    from cpr_tpu_torch.params import make_params
+    return (registry.get_sized(DAG_SERVE_KEY, max_steps),
+            make_params(alpha=0.35, gamma=0.5, max_steps=max_steps))
+
+
+def dag_mixed_engine(dev, nets):
+    from cpr_tpu_torch.serve.engine import ResidentEngine
+    from cpr_tpu_torch.train.ppo import NetPolicy
+    env, params = dag_serve_env(DAG_SERVE_MAX_STEPS)
+    loaded, ppo = nets
+    eng = ResidentEngine(env, params, n_lanes=DAG_SERVE_LANES,
+                         burst=DAG_SERVE_BURST,
+                         extra_policies={"loaded": NetPolicy(loaded)},
+                         swap_policies={"ppo": (ppo, ppo.flat.detach()
+                                                .clone(), "fp0")},
+                         sample_policies=("ppo",),
+                         experience=DAG_SERVE_BURST)
+    eng.start()
+    eng.splice({ln: 6300 + ln for ln in range(DAG_SERVE_LANES)})
+    return eng
+
+
+def dag_mixed_nets(dev):
+    env, _ = dag_serve_env(DAG_SERVE_MAX_STEPS)
+    F, A = env.observation_length, env.n_actions
+    return make_net(F, A, 64, 631, dev), make_net(F, A, 64, 632, dev)
+
+
+def dag_mixed_policy(eng):
+    """Phase 63's table over the lanes: lane ln runs entry ln mod size."""
+    L, n = eng.n_lanes, len(eng.policy_names)
+    lane_policy = {ln: ln % n for ln in range(L)}
+    pol = torch.tensor([lane_policy[ln] for ln in range(L)],
+                       dtype=torch.int32, device=eng._carry[1].device)
+    return lane_policy, pol
+
+
+def burst_digest(eng, regs):
+    """A digest of a burst's registers and the engine's carry and rings
+    after it: a child that runs the same seeded engine to the same burst
+    must give the same."""
+    import hashlib
+    from cpr_tpu_torch.envs.base import map_state
+    h = hashlib.sha256()
+    for k in sorted(regs):
+        h.update(np.ascontiguousarray(regs[k]).tobytes())
+    ts = []
+    map_state(ts.append, eng._carry[0])
+    ts += [eng._carry[1], *(eng._exp[k] for k in sorted(eng._exp))]
+    for t in ts:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def dag_mixed_hold(dev, b):
+    """Phase 63's burst `b` (0 or 1) held to the plain version, in a child
+    process: the phase's seeded engine run to it (burst 0 drained, as
+    the phase drains it), then `replay_burst` from copies of the carry
+    and rings. Returns {"digest" (`burst_digest` after the burst), "err",
+    "below", "low"}."""
+    eng = dag_mixed_engine(dev, dag_mixed_nets(dev))
+    lane_policy, pol = dag_mixed_policy(eng)
+    live = torch.ones(eng.n_lanes, dtype=torch.bool, device=dev)
+    for i in range(b + 1):
+        if i == b:
+            carry0, exp0 = clone_carry(eng._carry), exp_clone(eng._exp)
+        regs = eng.burst_run(lane_policy)
+        if i == b:
+            digest = burst_digest(eng, regs)
+            err, below, low = replay_burst(
+                eng, carry0, exp0, pol, live, regs,
+                f"K14-dag mixed burst {b}", compare_dag_state)
+        if i == 0:
+            eng.drain_experience()
+    return {"digest": digest, "err": err, "below": below, "low": low}
+
+
+def phase_dag_serve_mixed(dev, report, tmp, holds):
+    """Phase 63: phase 52 on Tailstorm at the server's sizing: the table
+    of its seven scripted policies, a loaded greedy net, `ppo` and
+    `ppo#sample` at 4096 lanes x 256 steps with the rings, two bursts,
+    the first drained into `Learner.ingest`, each held to the plain
+    version (`replay_burst`, every recorded field and the whole carry)
+    by a child of `spawn_holds` (`dag_mixed_hold`) whose run to it gave
+    the same registers, carry and rings; a mid-run swap leaves the
+    scripted lanes bit for bit those of an unswapped engine."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.envs.base import map_state
+    from cpr_tpu_torch.learn.learner import Learner
+    from cpr_tpu_torch.train.ppo import PPOConfig
+    env, _ = dag_serve_env(DAG_SERVE_MAX_STEPS)
+    F, A = env.observation_length, env.n_actions
+    nets = dag_mixed_nets(dev)
+    L = DAG_SERVE_LANES
+    kernels.reset_launches()
+    eng = dag_mixed_engine(dev, nets)
+    names = eng.policy_names
+    n_scripted = len(env.scripted_policies)
+    check(len(names) == n_scripted + 3, f"table {names}")
+    lane_policy, _ = dag_mixed_policy(eng)
+    digests, episodes = [], 0
+    for b in range(2):
+        regs = eng.burst_run(lane_policy)
+        digests.append(burst_digest(eng, regs))
+        episodes += int(regs["done"].sum())
+        if b == 0:
+            batch = eng.drain_experience()
+    cfg = PPOConfig(n_envs=L, n_steps=DAG_SERVE_BURST, hidden=(64, 64))
+    lr = Learner(eng.env, cfg, protocol=DAG_SERVE_KEY, publish_dir=tmp)
+    reply = lr.ingest(batch)
+    metrics = lr.last_metrics
+    check(reply["updated"] >= 1 and metrics
+          and all(np.isfinite(v) for v in metrics.values()),
+          f"learner update: {reply} {metrics}")
+    name = kernels.dag_burst_name(env)
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K1", env.kernel_name, name, "K15", "K11-act",
+                           "K11-gae", "K11-loss", "K11-adam"),
+                  "DAG serve mixed")
+    windows, updates = int(len(batch["lanes"])), lr.updates
+    del eng, lr, batch
+
+    # a mid-run swap (outside the counted path)
+    a, bb = dag_mixed_engine(dev, nets), dag_mixed_engine(dev, nets)
+    ids = {ln: (ln // 2) % n_scripted if ln % 2 else n_scripted + ln % 3
+           for ln in range(L)}
+    a.burst_run(ids), bb.burst_run(ids)
+    swapped = bb.swap_policy("ppo", make_net(F, A, 64, 633, dev),
+                             fingerprint="fp1")
+    check(swapped["swapped"], "swap refused")
+    ra, rb = a.burst_run(ids), bb.burst_run(ids)
+    scripted = np.array([ln % 2 == 1 for ln in range(L)])
+    for k in ra:
+        check(np.array_equal(ra[k][scripted], rb[k][scripted]),
+              f"K14-dag swap perturbed scripted lanes' {k}")
+    sl = torch.from_numpy(scripted).to(dev)
+    compare_dag_state(map_state(lambda t: t[sl], a._carry[0]),
+                      map_state(lambda t: t[sl], bb._carry[0]),
+                      "K14-dag swap: scripted lanes' carry", rtol=0.0)
+    say("dag_serve_swap", lanes=L, scripted_lanes=int(scripted.sum()),
+        identical=True)
+    del a, bb
+
+    held = [collect_calls(proc, path, "phase 63")[0] for proc, path in holds]
+    for b, h in enumerate(held):
+        check(h["digest"] == digests[b], f"phase 63: the held burst {b} "
+              "is not this run's (registers, carry or rings differ)")
+    err = max(h["err"] for h in held)
+    row = report["K14-dag"]
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    say("dag_serve_mixed", protocol=DAG_SERVE_KEY, capacity=env.capacity,
+        lanes=L, burst=DAG_SERVE_BURST, table=len(names), episodes=episodes,
+        max_abs_err=err, draws_below_margin=sum(h["below"] for h in held),
+        smallest_margin=min(h["low"] for h in held), windows=windows,
+        updates=updates, pg_loss=metrics.get("pg_loss"),
+        launches=json.dumps(counts))
+    return counts
+
+
+def phase_dag_serve(dev, report):
+    """Phase 64: the DAG serve path at full width: `ResidentEngine` over
+    Tailstorm at the server's sizing, 4096 lanes, every lane spliced with
+    its own seed, DAG_SERVE_BURSTS bursts of 256 under DAG_SERVE_POLICY,
+    rings off then at capacity 256, each run its own launch counts; each
+    lane's first-done registers equal the first episode of the K10
+    stream (`rollout`) from its seed; the relative revenue within
+    VOTE_GUARD of the stream's over the same lanes and steps, and the
+    ratio of the two times."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.serve.engine import (CAPTURE_FIELDS, ResidentEngine,
+                                            _lane_keys)
+    env, params = dag_serve_env(DAG_SERVE_MAX_STEPS)
+    L, B = DAG_SERVE_LANES, DAG_SERVE_BURST
+    name = kernels.dag_burst_name(env)
+    seeds = np.arange(L, dtype=np.uint32) + 6400
+    counts, out, first = [], {}, None
+    for cap in (0, B):
+        kernels.reset_launches()
+        eng = ResidentEngine(env, params, n_lanes=L, burst=B,
+                             experience=cap)
+        eng.start()
+        eng.splice({ln: int(sd) for ln, sd in enumerate(seeds)})
+        pid = eng.policy_ids[DAG_SERVE_POLICY]
+        lane_policy = dict.fromkeys(range(L), pid)
+        atk = dfn = 0.0
+        secs, done = [], 0
+        for b in range(DAG_SERVE_BURSTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            regs = eng.burst_run(lane_policy)
+            secs.append(time.perf_counter() - t0)
+            if b == 0 and first is None:
+                first = regs
+            m = regs["done"]
+            atk += float(regs["episode_reward_attacker"][m].sum())
+            dfn += float(regs["episode_reward_defender"][m].sum())
+            done += int(m.sum())
+        counts.append(dict(kernels.launches))
+        path_launches(counts[-1], (env.kernel_name, name)
+                      + (("K1", "K15") if cap else ()),
+                      f"DAG serve (rings {cap})")
+        check(done >= L, f"DAG serve: {done} episodes in "
+              f"{DAG_SERVE_BURSTS} bursts of {L} lanes")
+        rel = atk / (atk + dfn)
+        ms = 1e3 * float(np.median(secs[1:]))
+        out[cap] = (ms, rel)
+        say("dag_serve", protocol=DAG_SERVE_KEY, capacity=env.capacity,
+            lanes=L, burst=B, rings=cap, rel_revenue=rel, episodes=done,
+            burst_ms=ms, env_steps_per_s=L * B / (ms / 1e3),
+            launches=json.dumps(counts[-1]))
+        del eng
+    # a session admitted with seed S replays rollout(PRNGKey(S)): the
+    # first burst's registers are the stream's first episode
+    keys = _lane_keys(seeds, dev)
+    _, _, _, done_t, info = env.rollout(keys, params, DAG_SERVE_POLICY, B)
+    check(bool(done_t.any(1).all()), "a lane's first episode outlasted "
+          "the first burst")
+    idx = torch.argmax(done_t.to(torch.int32), 1)
+    lanes = torch.arange(L, device=dev)
+    check(bool(first["done"].all())
+          and np.array_equal(first["done_step"], idx.cpu().numpy()),
+          "DAG serve: first-done steps differ from the K10 stream's")
+    for k in CAPTURE_FIELDS:
+        check(np.array_equal(first[k], info[k][lanes, idx].cpu().numpy()),
+              f"DAG serve: register {k} differs from the K10 stream's")
+    # the K10 stream over the same lanes and steps
+    fn = env.make_episode_stats_fn(params, DAG_SERVE_POLICY,
+                                   B * DAG_SERVE_BURSTS)
+    stats = fn(keys)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = fn(keys)
+    torch.cuda.synchronize()
+    stream_ms = (time.perf_counter() - t0) * 1e3 / DAG_SERVE_BURSTS
+    sa = float(stats["episode_reward_attacker"].mean())
+    sd = float(stats["episode_reward_defender"].mean())
+    stream_rel = sa / (sa + sd)
+    check(abs(out[0][1] - stream_rel) < VOTE_GUARD,
+          f"DAG serve relative revenue {out[0][1]} not within "
+          f"{VOTE_GUARD} of the stream's {stream_rel}")
+    say("dag_serve_ratio", stream_rel_revenue=stream_rel,
+        stream_ms_per_256_steps=stream_ms,
+        serve_over_stream=stream_ms / out[0][0],
+        serve_rings_over_stream=stream_ms / out[B][0],
+        first_episodes_equal_stream=L)
+    return counts
+
+
+def phase_dag_wire(dev, report, tmp):
+    """Phase 65: `python -m cpr_tpu_torch.serve.server --protocol
+    DAG_SERVE_KEY` as a child at its defaults (32 lanes, burst and
+    max_steps 256) with a seeded net's policy snapshot exported under
+    that protocol; DAG_WIRE_CLIENTS concurrent clients (scripted and
+    `ppo` episode.run, interactive episodes stepped to their end), every
+    reply ok; SIGTERM, a drain report with 0 < p50 <= p99 < wall, exit 0;
+    the child's launch counts hold K14-dag."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.serve.protocol import ServeClient
+    from cpr_tpu_torch.train.driver import export_policy_snapshot
+    env, _ = dag_serve_env(WIRE_MAX_STEPS)
+    honest = env.policies["honest"]
+
+    def honest_action(obs):
+        return int(honest(torch.tensor([obs], dtype=torch.float32))[0])
+
+    snap = str(Path(tmp) / "dag-wire-ppo.msgpack")
+    export_policy_snapshot(
+        snap, make_net(env.observation_length, env.n_actions, 64, 651, dev),
+        protocol=DAG_SERVE_KEY, n_actions=env.n_actions,
+        observation_length=env.observation_length, hidden=[64, 64])
+    ready = str(Path(tmp) / "dag-wire-ready.json")
+    proc = spawn_child("cpr_tpu_torch.serve.server",
+                       ["--protocol", DAG_SERVE_KEY, "--policy-snapshot",
+                        snap, "--ready-file", ready, "--heartbeat-s", 0.5],
+                       tmp, "dag-wire")
+    try:
+        port = wait_ready(ready, proc, "DAG server")["port"]
+
+        def client(i):
+            with ServeClient("127.0.0.1", port, timeout=CHILD_STOP_S) as c:
+                if i % 3 == 0:  # interactive to the episode's end
+                    o = c.request("episode.open", seed=i)
+                    check(o["ok"], f"episode.open: {o}")
+                    obs = o["obs"]
+                    for _ in range(WIRE_MAX_STEPS + 1):
+                        s = c.request("episode.step", session=o["session"],
+                                      action=honest_action(obs))
+                        check(s["ok"], f"episode.step: {s}")
+                        if s["done"]:
+                            return "interactive"
+                        obs = s["obs"]
+                    raise AssertionError("interactive episode never ended")
+                policy = ("ppo" if i % 3 == 2 else env.scripted_policies[
+                    i % len(env.scripted_policies)])
+                r = c.request("episode.run", policy=policy, seed=i)
+                check(r["ok"] and r["episode"]["n_steps"] > 0,
+                      f"episode.run {policy}: {r}")
+                return "ppo" if policy == "ppo" else "scripted"
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(DAG_WIRE_CLIENTS) as pool:
+            kinds = list(pool.map(client, range(DAG_WIRE_CLIENTS)))
+        wall = time.perf_counter() - t0
+    finally:
+        counts = stop_child(proc, tmp, "dag-wire",
+                            (env.kernel_name, kernels.dag_burst_name(env),
+                             "K11-act"), ("K1",))
+    reports = serve_events(tmp, "dag-wire", "report")
+    check(len(reports) == 1, "no drain report")
+    rep = reports[0]["detail"]
+    check(0 < rep["p50_s"] <= rep["p99_s"] < wall,
+          f"drain report p50 {rep['p50_s']} p99 {rep['p99_s']} wall {wall}")
+    say("dag_wire", protocol=DAG_SERVE_KEY, clients=DAG_WIRE_CLIENTS,
+        kinds=json.dumps({k: kinds.count(k) for k in set(kinds)}),
+        wall_s=wall, p50_s=rep["p50_s"], p99_s=rep["p99_s"],
+        steps=rep["steps"], episodes=rep["episodes"],
+        launches=json.dumps(counts))
+    return counts
+
+
+def phase_dag_burst_times(dev, report):
+    """Phase 66: K14-dag's device time per 256-step burst at phase 64's
+    shape, rings off and at capacity 256, L2 scrubbed; its bound (the
+    lanes' carry read and written once, the staging and registers, the
+    ring rows, and the threefry work of the steps and the resets), the
+    plain version's time of one such burst, and the device time per
+    burst of every phase 62 case at its shape."""
+    from cpr_tpu_torch.serve.engine import ResidentEngine
+    env, params = dag_serve_env(DAG_SERVE_MAX_STEPS)
+    L, B = DAG_SERVE_LANES, DAG_SERVE_BURST
+    F = env.observation_length
+    kind = ("dag_burst_kernel", "TailstormEnv")
+    out = {}
+    for cap in (0, B):
+        eng = ResidentEngine(env, params, n_lanes=L, burst=B,
+                             experience=cap)
+        eng.start()
+        eng.splice({ln: 6600 + ln for ln in range(L)})
+        pid = eng.policy_ids[DAG_SERVE_POLICY]
+        lanes, pids = np.arange(L), np.full(L, pid, np.int32)
+        ended, calls = [0], [0]
+
+        def burst():
+            calls[0] += 1
+            ended[0] += int(eng._burst_staged(lanes, pids, {pid})["done"]
+                            .sum())
+
+        out[cap] = device_ms(burst, 5, kind)
+        if cap:
+            resets = ended[0] / calls[0]
+            state_bytes = carry_bytes(eng._carry)
+            # the plain version of one burst, from a copy of the carry
+            carry_p, exp_p = clone_carry(eng._carry), exp_clone(eng._exp)
+            pol = torch.full((L,), pid, dtype=torch.int32, device=dev)
+            live = torch.ones(L, dtype=torch.bool, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._burst_plain(carry_p, exp_p, pol, live)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        del eng
+    row = report["K14-dag"]
+    row["ms"], row["plain_ms"] = out[B], plain_ms
+    # per lane: the carry read and written once, policy, live, admit and
+    # the six params read, the registers written; a step's ring row
+    # (4 F + 21 bytes); a mining draw (5 keys, 4 draws: 9 threefry
+    # blocks) every step and every reset
+    lane_in = 4 + 1 + 1 + 8 + 6 * 4
+    k_bytes = 2 * state_bytes + L * (lane_in + 1 + 4 + 16) \
+        + L * B * (4 * F + 21)
+    k_ops = THREEFRY_OPS * 9 * (L * B + resets)
+    row["bound_ms"], row["bound_by"] = bound_ms(k_bytes, k_ops)
+    others = {}
+    for name in DAGB_CASES:
+        eng, lane_policy = dagb_engine(dev, name)
+        env_kind = ("dag_burst_kernel", DAGB_KINDS[name])
+        others[name] = device_ms(lambda: eng.burst_run(lane_policy), 3,
+                                 env_kind)
+        del eng
+    say("dag_burst_times", K14_dag=json.dumps({f: row[f] for f in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}), rings_off_ms=out[0],
+        resets=resets, phase62_ms=json.dumps(others),
+        phase62_shape=f"{DAGB_LANES}x{DAGB_BURST}")
+
+
 def parametric_capstone():
     """The capstone's structure, compiled once at the probe point with
     its exponent columns; returns (ParamMDP, host seconds)."""
@@ -5355,6 +6091,14 @@ def main() -> int:
 
     from cpr_tpu_torch import native
     t0 = time.perf_counter()
+    # K1 first, then the netsim kernels' plain replays (phases 35, 37, 48)
+    # in a child on the otherwise idle card while the rest builds
+    kernels.build_dir().mkdir(parents=True, exist_ok=True)
+    ahead_dir = tempfile.TemporaryDirectory(dir=kernels.build_dir())
+    kernels.build(("random.cu",))
+    proc, out = spawn_calls(dev, ahead_dir.name, "plain_ahead", "plain_ahead",
+                            [[ahead_dir.name]])
+    ahead = dict(proc=proc, out=out, dir=ahead_dir.name)
     with ThreadPoolExecutor(1) as pool:  # g++ beside the nvcc processes
         gxx = pool.submit(native.build_lib,
                           native.SRC / "generic_compiler.cpp", "-O3")
@@ -5363,9 +6107,14 @@ def main() -> int:
         host_lib = gxx.result()
     say("build", seconds=round(time.perf_counter() - t0, 2),
         libs=",".join(p.name for p in (*paths.values(), host_lib)))
-    # the grid path's parametric cutoff-8 compile runs on the host (ctypes
-    # releases the GIL) while the card works through the phases before it
-    compiler = ThreadPoolExecutor(1)
+    # the exact-analysis paths' host compiles (the capstone and its
+    # parametric cutoff-8 structure; ctypes releases the GIL) run on the
+    # host while the card works through the phases before them (beside
+    # nvcc they would slow the build)
+    from cpr_tpu_torch.mdp import generic, grid  # noqa: F401 (two
+    # threads importing a module at once can deadlock on its lock)
+    compiler = ThreadPoolExecutor(2)
+    table_future = compiler.submit(capstone_table)
     pm_future = compiler.submit(parametric_capstone)
 
     with np.load(FIXTURE) as f:
@@ -5388,6 +6137,8 @@ def main() -> int:
         prfx = {k: f[k] for k in f.files}
     with np.load(FULL_FIXTURE) as f:
         ffx = {k: f[k] for k in f.files}
+    with np.load(DAGB_FIXTURE) as f:
+        dbfx = {k: f[k] for k in f.files}
     for name in ("spar", "sdag"):  # the paths' reference revenues
         VOTE_REVENUE[name] = float(sfx[f"{name}_ref_revenue"])
     csrc = "cpr_tpu_torch/csrc"
@@ -5561,6 +6312,15 @@ def main() -> int:
                     "record_kernel's)", route="cuda",
                     source=f"{csrc}/exp_ring.cuh",
                     replaces="cpr_tpu/learn/buffer.py:82"),
+        "K14-dag": dict(name="K14-dag serve burst over the DAG envs "
+                        "(dag_burst_kernel in every K10 library, ring and "
+                        "full; ms: Tailstorm at the server's sizing, 520 "
+                        f"slots, {DAG_SERVE_LANES} lanes x "
+                        f"{DAG_SERVE_BURST} steps under "
+                        f"{DAG_SERVE_POLICY}, the rings on)", route="cuda",
+                        source=f"{csrc}/dag_env.cuh",
+                        replaces="cpr_tpu/serve/engine.py:215",
+                        max_abs_err=0.0),
     }
     netsim_rows = ("K12-scan", "K12-event", "K13", *PROTO_KERNELS)
     phase_k1(dev, fx, report)
@@ -5571,13 +6331,6 @@ def main() -> int:
     gym_counts = phase_gym(dev, report)
     phase_mdp_fixture(dev, mfx)
     phase_grid_fixture(dev, gfx)
-    mdp_counts, table, policy, compiled, capstone_rev = phase_mdp_main(
-        dev, report)
-    phase_mdp_battery(dev)
-    grid_counts, grid_table, probs = phase_grid(dev, report, pm_future,
-                                                compiled, capstone_rev)
-    compiler.shutdown()
-    rtdp_counts = phase_rtdp(dev, report, table, capstone_rev)
     phase_k8(dev, dfx, report)
     phase_k10_lanes(dev, dfx, report, ("bk", "eth"))
     phase_k10_streams(dev, dfx, report, ("bk", "eth"))
@@ -5596,6 +6349,13 @@ def main() -> int:
     phase_vote_variants(dev, report, PAR_VARIANTS)
     spar_counts, spar_gym = phase_dag_path(dev, report, "spar")
     sdag_counts, sdag_gym = phase_dag_path(dev, report, "sdag")
+    mdp_counts, table, policy, compiled, capstone_rev = phase_mdp_main(
+        dev, report, table_future)
+    phase_mdp_battery(dev)
+    grid_counts, grid_table, probs = phase_grid(dev, report, pm_future,
+                                                compiled, capstone_rev)
+    compiler.shutdown()
+    rtdp_counts = phase_rtdp(dev, report, table, capstone_rev)
     phase_k8_full(dev, ffx, report)
     k9_full_carries = phase_k9_full(dev, ffx, report)
     phase_full_lanes(dev, ffx, report)
@@ -5611,15 +6371,11 @@ def main() -> int:
     for k, r in report.items():
         if k in netsim_rows:
             continue
-        r["launches"] = sum(c[k] for c in (stream_counts, gym_counts,
-                                           mdp_counts, grid_counts,
-                                           rtdp_counts, bk_counts, bk_gym,
-                                           eth_counts, eth_gym, ts_counts,
-                                           ts_gym, stree_counts, stree_gym,
-                                           spar_counts, spar_gym,
-                                           sdag_counts, sdag_gym,
-                                           *full_counts, full_gym,
-                                           ppo_counts, *config_counts))
+        r["launches"] = sum(c.get(k, 0) for c in (
+            stream_counts, gym_counts, mdp_counts, grid_counts, rtdp_counts,
+            bk_counts, bk_gym, eth_counts, eth_gym, ts_counts, ts_gym,
+            stree_counts, stree_gym, spar_counts, spar_gym, sdag_counts,
+            sdag_gym, *full_counts, full_gym, ppo_counts, *config_counts))
     report["K8"]["launches"] = sum(report[k]["launches"] for k in (
         "K10-bk", "K10-eth", "K10-ts", "K10-stree", "K10-spar", "K10-sdag"))
     report["K9"]["launches"] = sum(report[k]["launches"] for k in (
@@ -5640,16 +6396,16 @@ def main() -> int:
     phase_full_times(dev, report, k9_full_carries, full_plain_ms)
     phase_k11_times(dev, report, bench_carry)
     phase_k1_f64(dev, nfx, report)
-    phase_k12_scan(dev, nfx, report)
+    phase_k12_scan(dev, nfx, report, ahead)
     net_counts, scan_orphan = phase_netsim_path(dev, report)
-    phase_k12_event(dev, nfx, report)
+    phase_k12_event(dev, nfx, report, ahead)
     event_counts, event_steps = phase_k12_event_path(dev, report,
                                                      scan_orphan)
     phase_k13(dev, nfx, report)
     attack_counts, attack_steps = phase_attack_path(dev, report)
     phase_netsim_times(dev, report, event_steps, attack_steps)
     phase_proto_fixture(dev, prfx)
-    phase_proto_plain(dev, report)
+    phase_proto_plain(dev, report, ahead)
     hn_counts = phase_honest_net(dev, report)
     for k in netsim_rows:
         report[k]["launches"] = sum(c[k] for c in (net_counts, event_counts,
@@ -5661,8 +6417,19 @@ def main() -> int:
         phase_exp_check(dev, report)
         serve_counts.append(phase_wire(dev, report, tmp))
         serve_counts.extend(phase_learn_loop(dev, report, tmp).values())
+        holds = spawn_holds(dev, tmp)
+        phase_dag_burst_fixture(dev, dbfx, report)
+        serve_counts.append(phase_dag_serve_mixed(dev, report, tmp,
+                                                  holds["mixed"]))
+        collect_dag_burst(holds["dagb"], report)
+        serve_counts.extend(phase_dag_serve(dev, report))
+        serve_counts.append(phase_dag_wire(dev, report, tmp))
+        phase_dag_burst_times(dev, report)
     for k, r in report.items():
         r["launches"] += sum(c.get(k, 0) for c in serve_counts)
+    report["K14-dag"]["launches"] = sum(
+        n for c in serve_counts for k, n in c.items()
+        if k.startswith("K14-dag-"))
     for k, v in report.items():
         check(v["ms"] >= v["bound_ms"],
               f"{k} measured {v['ms']} ms, below its bound of "
@@ -5672,8 +6439,9 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(card, flush=True)  # again, beside the numbers at the end
-    for k in ("K1", "K2", "K3", "K14", "K15"):
+    for k in ("K1", "K2", "K3", "K14", "K15", "K14-dag"):
         report[k]["library_ms"] = None  # no PyTorch call computes these
+    ahead_dir.cleanup()
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in report.values()]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -715,6 +715,50 @@ CPR_SLOT_LOOP
     __syncwarp();
   }
 
+  // Every row of every plane back to core.dag.empty's values and the
+  // scalars to zero, warp-cooperative: the whole-lane form of
+  // `clear_rows` (the DAG of a fresh `init_lanes` carry, before its reset).
+  __device__ void clear_all() {
+    __syncwarp();
+    const int64_t base = lane * W;
+    for (int s = t; s < W; s += 32) {
+      const int64_t q = base + s;
+      for (int p = 0; p < P; ++p) d->parents[p][q] = kNone;
+      d->auxf[q] = 0.f;
+      d->auxg[q] = 0.f;
+      d->aux2[q] = kNone;
+      if (kLifted)
+        for (int l = 0; l < 4; ++l) d->anc[l][q] = kNone;
+      if (kRing) d->gid[q] = kNone;
+      d->kind[q] = 0;
+      d->height[q] = 0;
+      d->aux[q] = 0;
+      d->pow_hash[q] = f_inf();
+      d->signer[q] = kNone;
+      d->miner[q] = kNone;
+      d->vis_a[q] = false;
+      d->vis_d[q] = false;
+      d->vis_d_since[q] = 0.f;
+      d->born_at[q] = 0.f;
+      d->cum_atk[q] = 0.f;
+      d->cum_def[q] = 0.f;
+      d->cum_prog[q] = 0.f;
+    }
+    if (kRing) {
+      const int64_t rows = (int64_t)W * W;
+      bool* cr = d->chain + lane * rows;
+      bool* orr = d->closure + lane * rows;
+      for (int64_t w = t; w < rows; w += 32) {
+        cr[w] = false;
+        orr[w] = false;
+      }
+    }
+    n = 0;
+    live_floor = 0;
+    overflow = false;
+    __syncwarp();
+  }
+
   // Copy this lane's whole DAG from `src` (same shape), warp-cooperative.
   __device__ void copy_from(const DagPtrs& src) {
     const int64_t base = lane * W;

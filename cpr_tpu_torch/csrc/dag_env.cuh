@@ -30,6 +30,30 @@
 // of a scripted policy; `extend_obs` appends the lane's (alpha, gamma) to
 // every observation written and to the net's input
 // (cpr_tpu/envs/assumption.py).
+//
+// K14-dag (`dag_burst_kernel`) is the serve engine's policy burst over
+// the same env step, built into every K10 library: it replaces
+// cpr_tpu/serve/engine.py:215-344 `_build_burst` (the K-step burst over
+// the resident lanes, K15's `record` inline) over the DAG envs' `step`
+// (cpr_tpu/envs/{bk,ethereum,tailstorm,stree,spar,sdag}.py,
+// tailstorm_june.py); plain twin cpr_tpu_torch/serve/engine.py
+// `ResidentEngine._burst_plain`. It is K14 (csrc/nakamoto_stream.cu) with
+// a warp where that has a thread: `burst` steps of every live lane under
+// its policy table entry (the env's scripted policy on the integer
+// fields, or K11-act's policy MLP on the encoded observation, greedy or
+// sampled under fold_in(exp key, t)), the logical auto-reset as in the
+// stream, the first-done registers, and with the rings every live step
+// recorded. An admitted lane first takes what the engine's splice gives
+// it, the DAG of a fresh `init_lanes` carry (every row of every plane
+// empty) reset from split(key, 1), so no stale row of its last session
+// survives; a lane that is neither live nor admitted keeps its carry and
+// rings bit for bit. Bound: the env step's warp-collective latency, as
+// the K10 stream; with nets the policy MLP's FMAs a step (shared by the
+// warp: at (64, 64) and F = 10, 4.8k FMAs, 150 a thread); with the rings
+// 49 to 61 bytes a step. The nets' weights go to dynamic shared memory
+// once a block (`BurstArgs::smem_floats`); the static shared memory of
+// K9's scratch (csrc/quorum.cuh) is beside them, and the launcher refuses
+// a table whose nets do not fit (`kernels.check_dag_burst_nets`).
 
 #pragma once
 
@@ -38,7 +62,9 @@
 #include <cstdint>
 
 #include "actor.cuh"
+#include "burst.cuh"
 #include "dag.cuh"
+#include "exp_ring.cuh"
 #include "lane_params.cuh"
 #include "threefry.cuh"
 
@@ -440,6 +466,134 @@ dag_step_lanes_kernel(const __grid_constant__ DagPtrs dp,
   }
 }
 
+// K14-dag: `b.burst` steps of every live lane under its table entry, the
+// carry (`dp`/`ep`, `obs` [L, kObs]) updated in place, the first-done
+// registers written for every lane (false/0 where not live), and with
+// `e.obs` set every live step recorded into the rings (K15, `e.obs_dim`
+// = kObs). With `b.admit` the admitted lanes first take their fresh state
+// (the splice in the same launch). One instantiation an env, the nets
+// read where `b.smem_floats` > 0 (a block-uniform argument).
+template <class Env>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+dag_burst_kernel(const __grid_constant__ DagPtrs dp,
+                 const __grid_constant__ EnvPtrs ep, float* __restrict__ obs,
+                 int64_t n_lanes, ParamPtrs pp, EnvConfig c,
+                 const __grid_constant__ BurstArgs b,
+                 const __grid_constant__ ExpPtrs e) {
+  extern __shared__ float net_smem[];
+  const bool nets = b.smem_floats > 0;
+  if (nets) {
+    for (int k = 0; k < kBurstSlots; ++k) {
+      if (b.w[k] == nullptr) continue;
+      const int nf = net_mlp_floats(b.in[k], b.hidden[k], b.n_actions[k]);
+      for (int j = threadIdx.x; j < nf; j += blockDim.x)
+        net_smem[b.w_off[k] + j] = b.w[k][j];
+    }
+    __syncthreads();
+  }
+  const int64_t lane = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+  if (lane >= n_lanes) return;  // whole warps
+  const int t = threadIdx.x & 31;
+  const bool admitted = b.admit != nullptr && b.admit[lane];
+  const bool live = b.live[lane];
+  if (!admitted && !live) {  // held: registers zero, carry and rings kept
+    if (t == 0) {
+      b.got[lane] = false;
+      b.done_step[lane] = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) b.caps[k * n_lanes + lane] = 0.f;
+    }
+    return;
+  }
+  const EnvParams& p = warp_params(pp, lane);
+  constexpr int F = Env::kObs;
+  LaneDag g;
+  g.bind(dp, lane);
+  bool* x = ep.stale;
+  Scal s;
+  if (admitted) {  // init_lanes' fresh lane: the empty DAG, then reset
+    g.clear_all();
+    Env::reset(g, s, split_key(b.admit_keys[lane], 1u), p, c, x);
+  } else {
+    g.load_scalars();
+    s = load_scal(ep, lane);
+  }
+  int32_t v[kMaxObs];
+  float f[kNetMaxIn];
+  Env::obs_ints(g, s, c, v);
+  bool got = false;
+  int32_t done_step = 0;
+  float cap[4] = {0.f, 0.f, 0.f, 0.f};
+  if (live) {
+    const int32_t pid = b.policy[lane];
+    const int kind = b.kind[pid], arg = b.arg[pid];
+    const bool by_net = nets && kind != kBurstScripted;
+    NetArgs na{};
+    const float* w = nullptr;
+    if (by_net) {
+      na.in = b.in[arg];
+      na.hidden = b.hidden[arg];
+      na.n_actions = b.n_actions[arg];
+      na.mode = kind == kBurstSample ? kNetSampleLane : kNetGreedy;
+      w = net_smem + b.w_off[arg];
+    }
+    const bool rec = e.obs != nullptr;
+    int32_t cursor = 0, tt = 0;
+    uint2 ekey = make_uint2(0u, 0u);
+    if (rec) {
+      cursor = e.cursor[lane];
+      tt = e.t[lane];
+      ekey = e.key[lane];
+    }
+    for (int k = 0; k < b.burst; ++k) {
+      Env::encode(v, c, f);  // the pre-step observation
+      int action;
+      if (by_net) {
+        float logits[kNetMaxActions], logp;
+        mlp_warp<kNetMaxActions>(w, na.in, na.hidden, na.n_actions, f,
+                                 logits);
+        const uint2 k_act = kind == kBurstSample ? exp_step_key(ekey, tt)
+                                                 : make_uint2(0u, 0u);
+        action = net_choose<kNetMaxActions>(na, logits, k_act, lane, logp);
+      } else {
+        action = Env::policy(arg, v, c);
+      }
+      StepOut o;
+      Env::step(g, s, action, p, c, x, o);
+      if (rec) {
+        exp_record_warp<kNetMaxIn>(e, lane, cursor, f, action, o.reward,
+                                   o.done, o.info[5], o.info[6], pid);
+        ++cursor;
+        ++tt;
+      }
+      if (o.done) Env::reset(g, s, s.key, p, c, x);
+      Env::obs_ints(g, s, c, v);
+      if (o.done && !got) {  // CAPTURE_FIELDS: info 5, 6, 7, 10
+        got = true;
+        done_step = k;
+        cap[0] = o.info[5];
+        cap[1] = o.info[6];
+        cap[2] = o.info[7];
+        cap[3] = o.info[10];
+      }
+    }
+    if (rec && t == 0) {
+      e.cursor[lane] = cursor;
+      e.t[lane] = tt;
+    }
+  }
+  store_scal(ep, lane, s);
+  g.store_scalars();
+  Env::encode(v, c, f);
+  put_row(obs + lane * F, f, F);
+  if (t == 0) {
+    b.got[lane] = got;
+    b.done_step[lane] = done_step;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) b.caps[k * n_lanes + lane] = cap[k];
+  }
+}
+
 inline unsigned dag_blocks_for(int64_t n_lanes) {
   return (unsigned)((n_lanes + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
@@ -517,6 +671,51 @@ cudaError_t launch_dag_step_lanes(
           static_cast<float*>(reward),
           static_cast<bool*>(done), static_cast<float*>(info));
   return cudaGetLastError();
+}
+
+// K14-dag with a resident engine's host traffic in the same call
+// (csrc/burst.cuh `burst_staged`). `e` null: the experience plane is off.
+template <class Env>
+cudaError_t launch_dag_burst(const DagPtrs* dp, const EnvPtrs* ep, void* obs,
+                             int64_t n_lanes, const ParamPtrs* p,
+                             const EnvConfig* c, const BurstArgs* b,
+                             const ExpPtrs* e, const void* h_in, void* d_in,
+                             int64_t in_bytes, const void* d_out, void* h_out,
+                             int64_t out_bytes, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  auto launch = [&]() -> cudaError_t {
+    if (n_lanes <= 0) return cudaSuccess;
+    auto kernel = dag_burst_kernel<Env>;
+    const size_t smem = sizeof(float) * (size_t)b->smem_floats;
+    if (smem > 0) {  // static + dynamic may pass 48 KB
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<dag_blocks_for(n_lanes), 32 * kWarpsPerBlock, smem, st>>>(
+        *dp, *ep, static_cast<float*>(obs), n_lanes, *p, *c, *b,
+        e != nullptr ? *e : ExpPtrs{});
+    return cudaGetLastError();
+  };
+  return burst_staged(h_in, d_in, in_bytes, d_out, h_out, out_bytes, st,
+                      launch);
+}
+
+// K14-dag's static shared memory in this library (the lanes' params and,
+// where the env runs K9, its scratch), as the compiled kernel has it, and
+// the most shared memory a block of the current device may have; the
+// policy MLPs of a launch take the rest.
+template <class Env>
+cudaError_t dag_burst_smem(int* static_bytes, int* block_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, dag_burst_kernel<Env>);
+  if (err != cudaSuccess) return err;
+  *static_bytes = (int)a.sharedSizeBytes;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(block_bytes,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
 }  // namespace cpr

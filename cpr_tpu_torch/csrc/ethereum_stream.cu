@@ -22,6 +22,10 @@
 // Parity with the JAX package: integer state, keys, rewards (dyadic:
 // 15/16, (8 - d)/8, 1 + n/32, exact in float32) and done are
 // bit-identical; the time update is __fmul_rn/__fadd_rn as in K2.
+//
+// The library also holds K14-dag over this env, the serve engine's policy
+// burst (csrc/dag_env.cuh `dag_burst_kernel`, entry
+// `cpr_k14_eth_burst_staged`), built in each of its DAG modes.
 
 #include <cuda_runtime.h>
 
@@ -382,6 +386,26 @@ cudaError_t cpr_k10_eth_step_lanes(
   return cpr::launch_dag_step_lanes<EthEnv>(
       dp, ep, obs, actions, admit, fdp, fep, fresh_obs, step_mask, n_lanes, p,
       c, extend_obs, out_obs, reward, done, info, stream);
+}
+
+// K14-dag launch with its host traffic (csrc/dag_env.cuh
+// `launch_dag_burst`): the carry and, with `e`, the rings are updated in
+// place.
+cudaError_t cpr_k14_eth_burst_staged(
+    const cpr::DagPtrs* dp, const cpr::EnvPtrs* ep, void* obs,
+    int64_t n_lanes, const cpr::ParamPtrs* p, const EnvConfig* c,
+    const cpr::BurstArgs* b, const cpr::ExpPtrs* e, const void* h_in,
+    void* d_in, int64_t in_bytes, const void* d_out, void* h_out,
+    int64_t out_bytes, void* stream) {
+  return cpr::launch_dag_burst<EthEnv>(dp, ep, obs, n_lanes, p, c, b, e, h_in,
+                                    d_in, in_bytes, d_out, h_out, out_bytes,
+                                    stream);
+}
+
+// K14-dag's static shared memory here and a block's limit
+// (csrc/dag_env.cuh `dag_burst_smem`).
+cudaError_t cpr_k14_eth_burst_smem(int* static_bytes, int* block_bytes) {
+  return cpr::dag_burst_smem<EthEnv>(static_bytes, block_bytes);
 }
 
 const char* cpr_k10_eth_error_string(int err) {

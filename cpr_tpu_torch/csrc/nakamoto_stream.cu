@@ -63,6 +63,7 @@
 #include <cstdint>
 
 #include "actor.cuh"
+#include "burst.cuh"
 #include "exp_ring.cuh"
 #include "lane_params.cuh"
 #include "nakamoto_policy.cuh"
@@ -112,35 +113,6 @@ struct TrajPtrs {
   float* reward;
   bool* done;
   float* info;
-};
-
-// K14: a lane's policy table entry is scripted (arg: the policy id of
-// `policy`), a greedy net or a sampled net (arg: a net slot).
-constexpr int kBurstSlots = 4;   // net slots a launch
-constexpr int kBurstTable = 16;  // policy table entries
-constexpr int kBurstScripted = 0, kBurstGreedy = 1, kBurstSample = 2;
-
-// ctypes `_BurstArgs`.
-struct BurstArgs {
-  const int32_t* policy;  // [L] table id of each lane
-  const bool* live;       // [L] lanes the burst advances
-  bool* got;              // [L] out: the lane ended an episode
-  int32_t* done_step;     // [L] out: the step of its first done
-  float* caps;            // [4, L] out: CAPTURE_FIELDS at that step
-  const float* w[kBurstSlots];  // a slot's policy MLP weights, or null
-  int32_t w_off[kBurstSlots];   // their offset in shared memory (floats)
-  int32_t in[kBurstSlots];
-  int32_t hidden[kBurstSlots];
-  int32_t n_actions[kBurstSlots];
-  int32_t kind[kBurstTable];
-  int32_t arg[kBurstTable];
-  int32_t smem_floats;  // the slots' weights, 0 without nets
-  int32_t burst;
-  // admissions before the burst (null: none): a lane where admit[i]
-  // first takes the fresh state of `init_lanes` from admit_keys[i], as
-  // the engine's splice (K2's prologue, then K3's admission) gives it
-  const bool* admit;
-  const uint2* admit_keys;
 };
 
 }  // namespace cpr
@@ -708,10 +680,8 @@ cudaError_t cpr_k14_burst(const StatePtrs* st, void* obs, int64_t n_lanes,
   return cudaGetLastError();
 }
 
-// K14 with a resident engine's host traffic in the same call: `in_bytes`
-// from the pinned host buffer `h_in` to `d_in` (the launch's policy ids,
-// live mask and admissions), the launch, `out_bytes` from `d_out` (its
-// registers) to the pinned `h_out`, and the wait for the stream.
+// K14 with a resident engine's host traffic in the same call
+// (csrc/burst.cuh `burst_staged`).
 cudaError_t cpr_k14_burst_staged(const StatePtrs* st, void* obs,
                                  int64_t n_lanes, const ParamPtrs* p,
                                  int strict_match, int unit_obs,
@@ -720,17 +690,12 @@ cudaError_t cpr_k14_burst_staged(const StatePtrs* st, void* obs,
                                  int64_t in_bytes, const void* d_out,
                                  void* h_out, int64_t out_bytes,
                                  void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemcpyAsync(d_in, h_in, (size_t)in_bytes,
-                                    cudaMemcpyHostToDevice, s);
-  if (err != cudaSuccess) return err;
-  err = cpr_k14_burst(st, obs, n_lanes, p, strict_match, unit_obs, b, e,
-                      stream);
-  if (err != cudaSuccess) return err;
-  err = cudaMemcpyAsync(h_out, d_out, (size_t)out_bytes,
-                        cudaMemcpyDeviceToHost, s);
-  if (err != cudaSuccess) return err;
-  return cudaStreamSynchronize(s);
+  auto launch = [&]() -> cudaError_t {
+    return cpr_k14_burst(st, obs, n_lanes, p, strict_match, unit_obs, b, e,
+                         stream);
+  };
+  return cpr::burst_staged(h_in, d_in, in_bytes, d_out, h_out, out_bytes,
+                           (cudaStream_t)stream, launch);
 }
 
 const char* cpr_k23_error_string(int err) {

@@ -37,6 +37,10 @@
 // order (envs/sdag.py `xla_row_sum`); the vote order's age fraction is a
 // correctly rounded division; the policies read the integer observation
 // fields.
+//
+// The library also holds K14-dag over this env, the serve engine's policy
+// burst (csrc/dag_env.cuh `dag_burst_kernel`, entry
+// `cpr_k14_sdag_burst_staged`), built in each of its DAG modes.
 
 #include <cuda_runtime.h>
 
@@ -409,6 +413,26 @@ cudaError_t cpr_k10_sdag_step_lanes(
   return cpr::launch_dag_step_lanes<SdagEnv>(
       dp, ep, obs, actions, admit, fdp, fep, fresh_obs, step_mask, n_lanes, p,
       c, extend_obs, out_obs, reward, done, info, stream);
+}
+
+// K14-dag launch with its host traffic (csrc/dag_env.cuh
+// `launch_dag_burst`): the carry and, with `e`, the rings are updated in
+// place.
+cudaError_t cpr_k14_sdag_burst_staged(
+    const cpr::DagPtrs* dp, const cpr::EnvPtrs* ep, void* obs,
+    int64_t n_lanes, const cpr::ParamPtrs* p, const EnvConfig* c,
+    const cpr::BurstArgs* b, const cpr::ExpPtrs* e, const void* h_in,
+    void* d_in, int64_t in_bytes, const void* d_out, void* h_out,
+    int64_t out_bytes, void* stream) {
+  return cpr::launch_dag_burst<SdagEnv>(dp, ep, obs, n_lanes, p, c, b, e, h_in,
+                                    d_in, in_bytes, d_out, h_out, out_bytes,
+                                    stream);
+}
+
+// K14-dag's static shared memory here and a block's limit
+// (csrc/dag_env.cuh `dag_burst_smem`).
+cudaError_t cpr_k14_sdag_burst_smem(int* static_bytes, int* block_bytes) {
+  return cpr::dag_burst_smem<SdagEnv>(static_bytes, block_bytes);
 }
 
 const char* cpr_k10_sdag_error_string(int err) {

@@ -364,14 +364,23 @@ class TorchEnv:
                            step_mask, params, extend_obs=False):
         raise _no_kernel(type(self).__name__, self.kernel_item)
 
-    # the serve engine's policy burst (K14) exists for this env on CUDA
+    # the serve engine's policy burst exists for this env on CUDA (K14
+    # for Nakamoto, K14-dag for the DAG envs), under this name
     burst_kernel = False
+    burst_kernel_name = "K14"
+
+    def check_burst_nets(self, nets) -> None:
+        """The burst kernel's limits on these net slots (K14's:
+        `kernels.check_burst_nets`); raises NotImplementedError naming
+        the kernel."""
+        from cpr_tpu_torch import kernels
+        kernels.check_burst_nets(nets, self.n_actions)
 
     def _kernel_burst_launcher(self, state, obs, params, policy, live,
                                table, nets, length, exp, out, admit,
                                staging):
-        raise _no_kernel(f"{type(self).__name__} serve burst (K14-dag)",
-                         "12")
+        raise _no_kernel(f"{type(self).__name__} serve burst",
+                         self.kernel_item)
 
     # -- drivers (kernel on CUDA, plain twin on CPU) ------------------------
 
@@ -609,6 +618,27 @@ class DagEnv(TorchEnv):
                                   params, policy_id, with_sums=with_sums,
                                   store_traj=store_traj, net=net,
                                   extend_obs=extend_obs)
+
+    burst_kernel = True
+    burst_kernel_name = "K14-dag"
+
+    def check_burst_nets(self, nets) -> None:
+        """K14-dag's limits on these net slots
+        (`kernels.check_dag_burst_nets`), its shared memory as the env's
+        K10 library reports it on the card."""
+        from cpr_tpu_torch import kernels
+        kernels.check_dag_burst_nets(nets, self.n_actions,
+                                     self.observation_length,
+                                     lambda: kernels.dag_burst_smem(self))
+
+    def _kernel_burst_launcher(self, state, obs, params, policy, live,
+                               table, nets, length, exp, out, admit,
+                               staging):
+        """K14-dag in the env's K10 library (`kernels.dag_burst_launcher`)."""
+        from cpr_tpu_torch import kernels
+        return kernels.dag_burst_launcher(
+            self, state, obs, params, policy, live, table, nets, length,
+            exp, out, admit, staging)
 
     def _kernel_step_lanes(self, carry, actions, admit_mask, fresh_states,
                            step_mask, params, extend_obs=False):

@@ -64,6 +64,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # inside K14 too: a burst launch with the experience rings adds one to it
 # as well as to K14, and so does each launch of its check kernel
 # (csrc/exp_check.cu); a burst launch with a net adds one to K11-act.
+# K14-dag-<lib> (and -full off a ring) counts the DAG envs' burst
+# launches (csrc/dag_env.cuh `dag_burst_kernel` in the K10 library
+# `<lib>`), which count on K15 and K11-act as K14's do.
 launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K8": 0, "K9": 0, "K10-bk": 0, "K10-eth": 0, "K10-ts": 0,
             "K10-stree": 0, "K10-spar": 0, "K10-sdag": 0, "K8-full": 0,
@@ -73,9 +76,13 @@ launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K11-gae": 0, "K11-loss": 0,
             "K11-adam": 0, "K12-scan": 0, "K12-event": 0, "K13": 0,
             "K12-event-bk": 0, "K12-event-eth": 0, "K12-event-spar": 0,
-            "K14": 0, "K15": 0}
+            "K14": 0, "K15": 0,
+            **{f"K14-dag-{lib}{m}": 0
+               for lib in ("bk", "eth", "ts", "stree", "spar", "sdag")
+               for m in ("", "-full")}}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_loaded = threading.Event()  # every library in _libs (`_load`)
 _lock = threading.Lock()
 
 _p = ctypes.c_void_p
@@ -130,12 +137,14 @@ def library_paths() -> dict[str, Path]:
     return out
 
 
-def build() -> dict[str, Path]:
-    """Compile every source whose library is missing, all at once; the
-    compiler's `-Xptxas -v` report goes beside each library as `.log`.
-    Returns {source: library path}."""
+def build(sources=SOURCES) -> dict[str, Path]:
+    """Compile every one of `sources` (all by default) whose library is
+    missing, all at once; the compiler's `-Xptxas -v` report goes beside
+    each library as `.log`. Returns {source: library path} of every
+    source."""
     paths = library_paths()
-    todo = {s: p for s, p in paths.items() if not p.exists()}
+    todo = {s: p for s, p in paths.items()
+            if s in sources and not p.exists()}
     if not todo:
         return paths
     nvcc = _nvcc()
@@ -187,12 +196,12 @@ class _NetArgs(ctypes.Structure):  # csrc/actor.cuh
         (f, ctypes.c_int32) for f in ("in_", "hidden", "n_actions", "mode")]
 
 
-_BURST_SLOTS = 4   # csrc/nakamoto_stream.cu kBurstSlots
+_BURST_SLOTS = 4   # csrc/burst.cuh kBurstSlots
 _BURST_TABLE = 16  # kBurstTable
 BURST_SCRIPTED, BURST_GREEDY, BURST_SAMPLE = 0, 1, 2
 
 
-class _BurstArgs(ctypes.Structure):  # csrc/nakamoto_stream.cu
+class _BurstArgs(ctypes.Structure):  # csrc/burst.cuh
     _fields_ = [(f, _p) for f in ("policy", "live", "got", "done_step",
                                   "caps")] + [
         ("w", _p * _BURST_SLOTS)] + [
@@ -332,17 +341,32 @@ class _LaneIn(ctypes.Structure):  # csrc/netsim_event.cuh LaneIn
         ("n_lanes", _i64), ("strict_match", ctypes.c_int32)]
 
 
+def _random_lib(path: Path) -> ctypes.CDLL:
+    rnd = ctypes.CDLL(str(path))
+    rnd.cpr_k1_threefry.argtypes = [_p, _i64, _i64, ctypes.c_uint32, _int,
+                                    _p, _p]
+    rnd.cpr_k1_threefry.restype = _int
+    rnd.cpr_k1_error_string.argtypes = [_int]
+    rnd.cpr_k1_error_string.restype = ctypes.c_char_p
+    return rnd
+
+
+def load_random() -> None:
+    """Build and load K1's library (csrc/random.cu) alone, ahead of the
+    others: a process whose only kernel is K1 (a plain version's draws on
+    the card) can run while another process builds the rest. Any other
+    kernel's wrapper still loads every library (`_load`)."""
+    with _lock:
+        if "random" not in _libs:
+            _libs["random"] = _random_lib(build(("random.cu",))["random.cu"])
+
+
 def _load() -> dict[str, ctypes.CDLL]:
     with _lock:
-        if _libs:
+        if _loaded.is_set():  # (`load_random` may have loaded K1's)
             return _libs
         paths = build()
-        rnd = ctypes.CDLL(str(paths["random.cu"]))
-        rnd.cpr_k1_threefry.argtypes = [_p, _i64, _i64, ctypes.c_uint32,
-                                        _int, _p, _p]
-        rnd.cpr_k1_threefry.restype = _int
-        rnd.cpr_k1_error_string.argtypes = [_int]
-        rnd.cpr_k1_error_string.restype = ctypes.c_char_p
+        rnd = _libs.get("random") or _random_lib(paths["random.cu"])
         nak = ctypes.CDLL(str(paths["nakamoto_stream.cu"]))
         sp, pp = ctypes.POINTER(_StatePtrs), ctypes.POINTER(_ParamPtrs)
         npp = ctypes.POINTER(_NetArgs)
@@ -445,6 +469,7 @@ def _load() -> dict[str, ctypes.CDLL]:
             err.argtypes = [_int]
             err.restype = ctypes.c_char_p
             _libs[f"netsim_event_{name}"] = lib
+        _loaded.set()
         return _libs
 
 
@@ -496,6 +521,15 @@ def _load_dag(paths) -> dict[str, ctypes.CDLL]:
             lanes_fn.argtypes = [dp, ep, _p, _p, _p, dp, ep, _p, _p, _i64, pp,
                                  cfg, _int, _p, _p, _p, _p, _p]
             lanes_fn.restype = _int
+            burst_fn = getattr(lib, f"cpr_k14_{name}_burst_staged")
+            burst_fn.argtypes = [dp, ep, _p, _i64, pp, cfg,
+                                 ctypes.POINTER(_BurstArgs),
+                                 ctypes.POINTER(_ExpPtrs), _p, _p, _i64, _p,
+                                 _p, _i64, _p]
+            burst_fn.restype = _int
+            smem_fn = getattr(lib, f"cpr_k14_{name}_burst_smem")
+            smem_fn.argtypes = [ctypes.POINTER(_int), ctypes.POINTER(_int)]
+            smem_fn.restype = _int
             errors(lib, f"cpr_k10_{name}_error_string")
             libs[key] = lib
     return libs
@@ -542,7 +576,7 @@ def threefry(keys: torch.Tensor, n: int, offset: int, mode: int):
     dtype = (torch.int32 if mode in (0, 1) else
              torch.float64 if mode in (4, 5) else torch.float32)
     out = torch.empty(shape, dtype=dtype, device=dev)
-    lib = _load()["random"]
+    lib = _libs.get("random") or _load()["random"]
     with torch.cuda.device(dev):
         rc = lib.cpr_k1_threefry(keys.data_ptr(), keys.shape[0], n,
                                  offset & 0xFFFFFFFF, mode, out.data_ptr(),
@@ -767,6 +801,68 @@ def check_burst_nets(nets, n_actions: int) -> None:
                 f"{net.n_actions} actions")
 
 
+def _burst_args(what, n, dev, policy, live, table, nets, length,
+                exp, out, admit, check_nets):
+    """The `_BurstArgs` of a K14 or K14-dag launcher (`what`) over `n`
+    lanes, every argument checked; `check_nets(nets)` holds each net slot
+    to the kernel's limits. Returns (args, the slots' weight tensors)."""
+    _want(policy, "policy", torch.int32, (n,), dev)
+    _want(live, "live", torch.bool, (n,), dev, align=1)
+    if not 0 < len(table) <= _BURST_TABLE:
+        raise NotImplementedError(
+            f"{what} takes 1 to {_BURST_TABLE} policy table entries, "
+            f"got {len(table)}")
+    if len(nets) > _BURST_SLOTS:
+        raise NotImplementedError(
+            f"{what} runs at most {_BURST_SLOTS} net slots a launch, "
+            f"got {len(nets)}")
+    if exp is None and any(k == BURST_SAMPLE for k, _ in table):
+        raise ValueError("a sampled net draws from the experience rings' "
+                         "key streams: pass `exp`")
+    check_nets([s[0] for s in nets if s is not None])
+    args = _BurstArgs()
+    keep = []
+    off = 0
+    for j, slot in enumerate(nets):
+        if slot is None:
+            continue
+        net, flat = slot
+        _want(flat, f"nets[{j}]", torch.float32, (net.n_params,), dev,
+              align=16)
+        flat = flat.detach()
+        keep.append(flat)
+        h = net.hidden[0]
+        args.w[j] = flat.data_ptr()
+        args.w_off[j] = off
+        args.in_[j], args.hidden[j], args.n_actions[j] = (
+            net.obs_dim, h, net.n_actions)
+        off += _mlp_floats(net.obs_dim, h, net.n_actions)
+    for j, (kind, arg) in enumerate(table):
+        if kind != BURST_SCRIPTED and (arg >= len(nets)
+                                       or nets[arg] is None):
+            continue  # a net entry no lane of this launch may use
+        args.kind[j], args.arg[j] = kind, arg
+    got, done_step, caps = out
+    _want(got, "out got", torch.bool, (n,), dev, align=1)
+    _want(done_step, "out done_step", torch.int32, (n,), dev)
+    _want(caps, "out caps", torch.float32, (4, n), dev)
+    args.policy, args.live = policy.data_ptr(), live.data_ptr()
+    args.got, args.done_step, args.caps = (got.data_ptr(),
+                                           done_step.data_ptr(),
+                                           caps.data_ptr())
+    args.smem_floats, args.burst = off, int(length)
+    amask, akeys = admit
+    _want(amask, "admit mask", torch.bool, (n,), dev, align=1)
+    _want(akeys, "admit keys", torch.int32, (n, 2), dev, align=8)
+    args.admit, args.admit_keys = amask.data_ptr(), akeys.data_ptr()
+    return args, keep
+
+
+def _mlp_floats(in_, h, a) -> int:
+    """csrc/actor.cuh `net_mlp_floats`: one MLP's flat parameters."""
+    return in_ * h + h + h * h + h + h * a + a
+
+
 def burst_launcher(state, obs, params, strict_match: bool, unit_obs: bool,
                    policy, live, table, nets, length: int, exp: dict | None,
                    out, admit, staging):
@@ -798,56 +894,9 @@ def burst_launcher(state, obs, params, strict_match: bool, unit_obs: bool,
     n = obs.shape[0]
     sp = _state_ptrs(state, n, dev, "state")
     _want(obs, "obs", torch.float32, (n, 4), dev, align=16)
-    _want(policy, "policy", torch.int32, (n,), dev)
-    _want(live, "live", torch.bool, (n,), dev, align=1)
-    if not 0 < len(table) <= _BURST_TABLE:
-        raise NotImplementedError(
-            f"K14 takes 1 to {_BURST_TABLE} policy table entries, "
-            f"got {len(table)}")
-    if len(nets) > _BURST_SLOTS:
-        raise NotImplementedError(
-            f"K14 runs at most {_BURST_SLOTS} net slots a launch, "
-            f"got {len(nets)}")
-    if exp is None and any(k == BURST_SAMPLE for k, _ in table):
-        raise ValueError("a sampled net draws from the experience rings' "
-                         "key streams: pass `exp`")
-    args = _BurstArgs()
-    keep = []
-    off = 0
-    for j, slot in enumerate(nets):
-        if slot is None:
-            continue
-        net, flat = slot
-        check_burst_nets([net], 4)
-        _want(flat, f"nets[{j}]", torch.float32, (net.n_params,), dev,
-              align=16)
-        flat = flat.detach()
-        keep.append(flat)
-        h = net.hidden[0]
-        args.w[j] = flat.data_ptr()
-        args.w_off[j] = off
-        args.in_[j], args.hidden[j], args.n_actions[j] = (
-            net.obs_dim, h, net.n_actions)
-        off += net.obs_dim * h + h + h * h + h + h * net.n_actions \
-            + net.n_actions
-    for j, (kind, arg) in enumerate(table):
-        if kind != BURST_SCRIPTED and (arg >= len(nets)
-                                       or nets[arg] is None):
-            continue  # a net entry no lane of this launch may use
-        args.kind[j], args.arg[j] = kind, arg
-    got, done_step, caps = out
-    _want(got, "out got", torch.bool, (n,), dev, align=1)
-    _want(done_step, "out done_step", torch.int32, (n,), dev)
-    _want(caps, "out caps", torch.float32, (4, n), dev)
-    args.policy, args.live = policy.data_ptr(), live.data_ptr()
-    args.got, args.done_step, args.caps = (got.data_ptr(),
-                                           done_step.data_ptr(),
-                                           caps.data_ptr())
-    args.smem_floats, args.burst = off, int(length)
-    amask, akeys = admit
-    _want(amask, "admit mask", torch.bool, (n,), dev, align=1)
-    _want(akeys, "admit keys", torch.int32, (n, 2), dev, align=8)
-    args.admit, args.admit_keys = amask.data_ptr(), akeys.data_ptr()
+    args, keep = _burst_args("K14", n, dev, policy, live, table, nets,
+                             length, exp, out, admit,
+                             lambda ns: check_burst_nets(ns, 4))
     ex = None if exp is None else _exp_ptrs(exp, n, dev)
     ep = None if ex is None else ctypes.byref(ex)
     p, p_keep = _params(params, n, dev)
@@ -1237,11 +1286,11 @@ def _env_config(env) -> _EnvConfig:
                       **{f: int(v) for f, v in cfg.items()})
 
 
-def _k10(env, entry: str):
+def _k10(env, entry: str, prefix: str = "cpr_k10"):
     """The env's K10 library (`env.kernel_lib`, its full-mode build off a
-    ring) and its `entry` point."""
+    ring) and its `entry` point (`<prefix>_<lib>_<entry>`)."""
     lib = _load()[f"k10_{env.kernel_lib}" + ("" if env.ring else "_full")]
-    return lib, getattr(lib, f"cpr_k10_{env.kernel_lib}_{entry}")
+    return lib, getattr(lib, f"{prefix}_{env.kernel_lib}_{entry}")
 
 
 def _k10_mode(env) -> str:
@@ -1346,6 +1395,115 @@ def dag_step_lanes(env, state, obs, actions, admit_mask, fresh_state,
            f"{env.kernel_name} step_lanes")
     launches[env.kernel_name] += 1
     return out_obs, reward, done, info
+
+
+# -- K14-dag -------------------------------------------------------------------
+
+SMEM_PER_BLOCK = 227 * 1024  # an H100 block's shared memory
+
+
+def dag_burst_smem(env) -> tuple[int, int]:
+    """(K14-dag's static shared memory in the env's K10 library, the most
+    a block of the current card may have), as the compiled kernel and the
+    card report them (csrc/dag_env.cuh `dag_burst_smem`)."""
+    lib, fn = _k10(env, "burst_smem", prefix="cpr_k14")
+    static, block = _int(), _int()
+    _check(fn(ctypes.byref(static), ctypes.byref(block)), lib,
+           f"cpr_k10_{env.kernel_lib}_error_string",
+           f"{dag_burst_name(env)} shared memory")
+    return static.value, block.value
+
+
+def check_dag_burst_nets(nets, n_actions: int, obs_dim: int, smem) -> None:
+    """The net slots K14-dag runs: at most 4, each a two-layer MLP of
+    equal widths of at most 96 units (K11-act's warp mode) on the env's
+    observation (at most 16 inputs) with at most 24 actions (Ethereum's),
+    and all their policy MLPs in the shared memory a block has beside
+    K14-dag's static shared memory: `smem()` gives (static bytes, a
+    block's bytes), as `dag_burst_smem` reads them, and is called only
+    when there are nets. Raises NotImplementedError naming K14-dag
+    otherwise."""
+    if len(nets) > _BURST_SLOTS:
+        raise NotImplementedError(
+            f"K14-dag runs at most {_BURST_SLOTS} net slots a launch, the "
+            f"policy table has {len(nets)}")
+    floats = 0
+    for net in nets:
+        h = net.hidden
+        if (len(h) != 2 or h[0] != h[1] or not 0 < h[0] <= 96
+                or net.obs_dim != obs_dim or not 0 < obs_dim <= 16
+                or not 0 < net.n_actions <= min(24, n_actions)):
+            raise NotImplementedError(
+                f"K14-dag runs nets of two equal hidden layers of at most "
+                f"96 units on the env's {obs_dim} observation fields (at "
+                f"most 16) and at most {min(24, n_actions)} actions; this "
+                f"net has hidden {h}, input {net.obs_dim} and "
+                f"{net.n_actions} actions")
+        floats += _mlp_floats(net.obs_dim, h[0], net.n_actions)
+    if not nets:
+        return
+    static, block = smem()
+    if 4 * floats + static > block:
+        raise NotImplementedError(
+            f"K14-dag holds every net slot's policy MLP in shared memory: "
+            f"{4 * floats} bytes of weights beside its {static} bytes of "
+            f"static shared memory pass the {block} bytes a block has "
+            "(ROADMAP §2: K14-dag's limits)")
+
+
+def dag_burst_name(env) -> str:
+    """K14-dag's launch counter for a DAG env: `K14-dag-<lib>`, "-full"
+    off a ring."""
+    return f"K14-dag-{env.kernel_lib}" + ("" if env.ring else "-full")
+
+
+def dag_burst_launcher(env, state, obs, params, policy, live, table, nets,
+                       length: int, exp: dict | None, out, admit, staging):
+    """K14-dag (in the env's K10 library, `env.kernel_lib`): the serve
+    burst of `burst_launcher` over a DAG env, a warp a lane. The carry is
+    the env's state on the card and `obs` [L, F], F the env's observation
+    length; `exp` the rings of `learn.buffer.init_buffer` with obs width
+    F; the nets hold to `env.check_burst_nets`. An admitted lane first
+    takes the fresh lane of `init_lanes(keys)` whole (every DAG row and
+    plane), as the engine's splice gives it. Checks every argument and
+    returns `launch`, as `burst_launcher` does."""
+    name = dag_burst_name(env)
+    dev = obs.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors")
+    n = obs.shape[0]
+    F = env.observation_length
+    dp = _dag_ptrs(state.dag, dev, "state.dag", _k10_mode(env))
+    ep = _env_ptrs(env, state, n, dev, "state")
+    _want(obs, "obs", torch.float32, (n, F), dev)
+    args, keep = _burst_args(name, n, dev, policy, live, table, nets,
+                             length, exp, out, admit, env.check_burst_nets)
+    ex = None
+    if exp is not None:
+        ex = _exp_ptrs(exp, n, dev)
+        if ex.obs_dim != F:
+            raise ValueError(f"exp.obs: width {ex.obs_dim}, the env "
+                             f"observes {F}")
+    ep_exp = None if ex is None else ctypes.byref(ex)
+    (p, p_keep), c = _params(params, n, dev), _env_config(env)
+    lib, fn = _k10(env, "burst_staged", prefix="cpr_k14")
+    refs = (ctypes.byref(dp), ctypes.byref(ep), obs.data_ptr(), n,
+            ctypes.byref(p), ctypes.byref(c), ctypes.byref(args), ep_exp,
+            *staging)
+
+    def launch():
+        with torch.cuda.device(dev):
+            rc = fn(*refs, _stream(dev))
+        _check(rc, lib, f"cpr_k10_{env.kernel_lib}_error_string",
+               f"{name} burst")
+        launches[name] += 1
+        if exp is not None:
+            launches["K15"] += 1
+        if keep:
+            launches["K11-act"] += 1
+
+    launch.keep_alive = (dp, ep, p, p_keep, c, args, ex, keep)
+    return launch
 
 
 def quorum_check(dag, inputs: dict, cfg: dict) -> dict:
@@ -1596,7 +1754,6 @@ SCAN_MAX_LOOKBACK = 256      # csrc/netsim_scan.cu: 8 ring slots a thread
 # the event engine's protocol kernels, by the protocol they run
 PROTOCOL_KERNELS = {"bk": "bk", "ethereum-whitepaper": "eth",
                     "ethereum-byzantium": "eth", "spar": "spar"}
-EVENT_MAX_SMEM = 227 * 1024  # an H100 block's dynamic shared memory
 
 
 def _net_planes(cn, logw, dev):
@@ -1668,10 +1825,10 @@ def event_smem(M: int, F: int) -> int:
 
 def _ledger(n, B, M, F, S, A, WA, dev, attack):
     smem = event_smem(M, F)
-    if smem > EVENT_MAX_SMEM:
+    if smem > SMEM_PER_BLOCK:
         raise ValueError(f"netsim queue {M} and pending {F} need {smem} "
                          f"bytes of shared memory a lane, over "
-                         f"{EVENT_MAX_SMEM}")
+                         f"{SMEM_PER_BLOCK}")
     planes = [torch.empty((n, B), dtype=torch.int32, device=dev)
               for _ in range(6 if attack else 5)]
     ptrs = [t.data_ptr() for t in planes] + ([] if attack else [None])
@@ -1732,10 +1889,10 @@ def netsim_event_protocol(cn, proto, A, B, M, F, S, keys, delays) -> dict:
     dev, n = _lane_inputs(keys, delays, kernel)
     N, QW, W, U = cn.n, proto.QW, proto.W, proto.U
     smem = event_smem(M, F) + proto_smem(W, QW, U)
-    if smem > EVENT_MAX_SMEM:
+    if smem > SMEM_PER_BLOCK:
         raise ValueError(f"{kernel}: queue {M}, pending {F} and window {W} "
                          f"need {smem} bytes of shared memory a lane, over "
-                         f"{EVENT_MAX_SMEM}")
+                         f"{SMEM_PER_BLOCK}")
     pl, keep = _net_planes(cn, log_compute(cn, dev), dev)
     led, planes = _ledger(n, B, M, F, S, A, 0, dev, False)
     i32, f32 = torch.int32, torch.float32

@@ -7,8 +7,9 @@ by continuous batching: lanes are admitted (spliced from a fresh state)
 and retired on any tick instead of padding work to rollout boundaries.
 
   engine.py    ResidentEngine: the (state, obs) lane carry, the
-               interactive `step_lanes` tick (K3) and the K-step policy
-               burst (K14, with the experience rings K15 inside).
+               interactive `step_lanes` tick (K3; K10 for a DAG env)
+               and the K-step policy burst (K14; K14-dag for a DAG env;
+               with the experience rings K15 inside).
   scheduler.py LaneScheduler: host-side sessions -> lanes placement and
                the admission queue.
   server.py    the asyncio front-end: the length-prefixed JSON protocol,

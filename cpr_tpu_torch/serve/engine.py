@@ -10,8 +10,10 @@ Owns the (state, obs) lane carry and two device entry points:
     launch, each lane's action from its entry of the policy table (the
     env's scripted policies, loaded greedy nets, hot-swappable nets and
     their `#sample` variants). On the card this is K14
-    (csrc/nakamoto_stream.cu, Nakamoto); on the CPU `_burst_plain`,
-    generic over the env's `_lane_step`. Nothing is stacked per step:
+    (csrc/nakamoto_stream.cu) for Nakamoto and K14-dag
+    (csrc/dag_env.cuh, in the env's K10 library) for the DAG envs; on
+    the CPU `_burst_plain`, generic over the env's `_lane_step`. Nothing
+    is stacked per step:
     each lane's first done (step index and episode aggregates) is
     captured into per-lane registers, which is all the server needs to
     complete a session. A launch whose lanes use no net runs without
@@ -42,11 +44,16 @@ Always-on learning adds two planes, both fixed at construction:
     argmax.
 
 The engine runs on the card unless `device="cpu"` asks for the host. On
-the card the burst runs Nakamoto only (a DAG env raises, ROADMAP item
-12: K14-dag), `extra_policies` must be greedy `train.ppo.NetPolicy`s,
-and the table may hold at most 16 entries over at most 4 nets (K14's
-limits; the plain burst takes any). `mesh=` (item 13) and
-`CPR_DEVICE_METRICS=1` (K17, item 14) raise.
+the card `extra_policies` must be greedy `train.ppo.NetPolicy`s, and the
+table may hold at most 16 entries over at most 4 nets (the plain burst
+takes any): K14's nets take at most 4 actions, K14-dag's at most 24 on
+the env's observation, and all of a table's policy MLPs must fit in a
+block's shared memory beside K14-dag's static shared memory, as the
+card reports it (the env's `check_burst_nets`). A table past those
+limits raises NotImplementedError naming the kernel
+(`env.burst_kernel_name`); there is no fallback to the
+plain burst. `mesh=` (item 13) and `CPR_DEVICE_METRICS=1` (K17, item
+14) raise.
 """
 
 from __future__ import annotations
@@ -129,11 +136,10 @@ class ResidentEngine:
                               "(CPR_DEVICE_METRICS=1, K17)", 14)
         self.device = _device.resolve(device)
         self.on_card = self.device.type == "cuda"
-        if self.on_card and not getattr(env, "burst_kernel", False):
+        if self.on_card and not env.burst_kernel:
             raise NotImplementedError(
-                f"{type(env).__name__}: no K14 burst kernel for this env "
-                "on CUDA yet (ROADMAP item 12, K14-dag); the plain burst "
-                "runs it with device='cpu'")
+                f"{type(env).__name__}: no serve burst kernel for this env "
+                "on CUDA; the plain burst runs it with device='cpu'")
         self.env = env
         self.params = params
         self.n_lanes = int(n_lanes)
@@ -159,7 +165,7 @@ class ResidentEngine:
             pol = extra_policies[name]
             names.append(name)
             if getattr(pol, "is_net_policy", False) and pol.greedy:
-                self._check_net(pol.net)
+                self._check_nets([pol.net])
                 self._slot_of["extra:" + name] = len(self._slots)
                 self._slots.append([pol.net, self._as_params(pol.net.flat)])
                 entries.append((_GREEDY, self._slot_of["extra:" + name],
@@ -168,8 +174,8 @@ class ResidentEngine:
                 raise NotImplementedError(
                     f"extra policy {name!r}: on CUDA the burst runs the "
                     "env's scripted policies and greedy train.ppo."
-                    "NetPolicy nets (K14); an arbitrary callable runs on "
-                    "the CPU only")
+                    f"NetPolicy nets ({env.burst_kernel_name}); an "
+                    "arbitrary callable runs on the CPU only")
             else:
                 entries.append((_SCRIPTED, None, pol))
         if not entries:
@@ -195,7 +201,7 @@ class ResidentEngine:
         self._swap_fingerprint: dict = {}
         for name in sorted(swap_policies):
             net, net_params, fp = swap_policies[name]
-            self._check_net(net)
+            self._check_nets([net])
             self._swap_net[name] = net
             self._swap_fingerprint[name] = fp
             self._slot_of[name] = len(self._slots)
@@ -211,10 +217,10 @@ class ResidentEngine:
         if self.on_card:
             if len(entries) > kernels._BURST_TABLE:
                 raise NotImplementedError(
-                    f"K14 takes at most {kernels._BURST_TABLE} policy "
-                    f"table entries, this table has {len(entries)}")
-            kernels.check_burst_nets([s[0] for s in self._slots],
-                                     env.n_actions)
+                    f"{env.burst_kernel_name} takes at most "
+                    f"{kernels._BURST_TABLE} policy table entries, this "
+                    f"table has {len(entries)}")
+            self._check_nets([s[0] for s in self._slots])
 
         self._exp = None
         self._carry = None
@@ -241,11 +247,12 @@ class ResidentEngine:
         self.swaps = 0
         self.last_swap_t: float | None = None
 
-    def _check_net(self, net):
-        """K14's limits on one net, checked before any weight moves to
-        the card."""
+    def _check_nets(self, nets):
+        """The env's burst kernel's limits on these nets
+        (`env.check_burst_nets`), checked before any weight moves to the
+        card."""
         if self.on_card:
-            kernels.check_burst_nets([net], self.env.n_actions)
+            self.env.check_burst_nets(nets)
 
     def _as_params(self, net_params) -> torch.Tensor:
         t = torch.as_tensor(net_params).detach()
@@ -375,7 +382,8 @@ class ResidentEngine:
         policy-driven. `occupancy` is the scheduler's assigned-lane
         fraction (defaults to the live fraction). `admit` ({lane: seed})
         admits those sessions first, as `splice` does: on the card inside
-        the burst's own launch (K14's admission), on the CPU by `splice`."""
+        the burst's own launch (K14's or K14-dag's admission), on the
+        CPU by `splice`."""
         if not lane_policy:
             if admit:
                 self.splice(admit)
@@ -414,15 +422,15 @@ class ResidentEngine:
         self._occ_sum += occ
         return host
 
-    # -- the burst: K14 on the card, the plain twin on the CPU -------------
+    # -- the burst: K14/K14-dag on the card, the plain twin on the CPU ------
 
     def _burst_staged(self, lanes, pids, used: set,
                       admit: dict | None = None) -> dict:
-        """K14 on the card with the dispatch's host traffic in one copy
-        each way, inside the launch's own call: the policy ids, the live
-        mask and the admissions ({lane: seed}, or None) in, the registers
-        out, through the pinned staging buffers. Returns the BURST_FIELDS
-        registers as numpy arrays."""
+        """K14 (K14-dag) on the card with the dispatch's host traffic in
+        one copy each way, inside the launch's own call: the policy ids,
+        the live mask and the admissions ({lane: seed}, or None) in, the
+        registers out, through the pinned staging buffers. Returns the
+        BURST_FIELDS registers as numpy arrays."""
         sb, sr = self._stage_burst, self._stage_regs
         h = sb.host
         sb.raw.fill(0)  # policy 0, nothing live, nothing admitted
@@ -458,7 +466,7 @@ class ResidentEngine:
                 (sb.views["admit"], sb.views["keys"]),
                 (h_in, d_in, n_in, d_out, h_out, n_out))
             self._launch_key = (key, self._carry, self._exp)
-        # the inputs in, K14, the registers out, in one call
+        # the inputs in, the burst, the registers out, in one call
         self._launch()
         caps = sr.host["caps"].copy()
         return dict(done=sr.host["done"].copy(),
@@ -496,11 +504,11 @@ class ResidentEngine:
         return actions
 
     def _burst_plain(self, carry, exp, policy, live) -> dict:
-        """Plain twin of K14, generic over the env's `_lane_step`: the
-        reference's scan body (engine.py:241-302) a step at a time, the
-        carry and the rings `exp` (or None) updated in place. Returns the
-        BURST_FIELDS registers as tensors. Used by the tests and, on the
-        card, only to hold the kernel."""
+        """Plain twin of K14 and K14-dag, generic over the env's
+        `_lane_step`: the reference's scan body (engine.py:241-302) a step
+        at a time, the carry and the rings `exp` (or None) updated in
+        place. Returns the BURST_FIELDS registers as tensors. Used by the
+        tests and, on the card, only to hold the kernel."""
         from cpr_tpu_torch.learn import buffer
         state, obs = carry
         n, dev = obs.shape[0], obs.device

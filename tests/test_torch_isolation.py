@@ -270,6 +270,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             kernels.dag_step_lanes(denv, dstate, dobs,
                                    torch.zeros(4, dtype=torch.int32), mask,
                                    dstate, dobs, mask, params)
+        with pytest.raises(ValueError, match="CUDA"):
+            kernels.dag_burst_launcher(
+                denv, dstate, dobs, params, zi, mask,
+                [(kernels.BURST_SCRIPTED, 0)], [], 8, None, None, None,
+                None)
         if isinstance(denv, (TailstormSSZ, StreeSSZ)):  # K9's check too
             with pytest.raises(ValueError, match="CUDA"):
                 kernels.quorum_check(dstate.dag,

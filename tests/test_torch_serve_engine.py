@@ -35,7 +35,7 @@ from cpr_tpu.envs import registry as jregistry
 from cpr_tpu.params import make_params as jmake
 from cpr_tpu.serve.engine import ResidentEngine as JEngine
 from cpr_tpu.train.ppo import ActorCritic as JNet
-from cpr_tpu_torch import convert
+from cpr_tpu_torch import convert, kernels
 from cpr_tpu_torch import random as rnd
 from cpr_tpu_torch.envs import registry as tregistry
 from cpr_tpu_torch.integrity import IntegrityError
@@ -371,13 +371,46 @@ def test_tailstorm_plain_burst_matches_reference():
 
 def test_card_refusals_name_their_items(envs, monkeypatch):
     """Refusals that happen before any tensor is made, so they are
-    checked here without a card: K14-dag, mesh=, device metrics; and the
-    extra-policy and table limits of K14."""
+    checked here without a card: mesh=, device metrics; the extra-policy
+    and table limits of K14, and K14-dag's net and shared-memory limits
+    (a DAG env's engine on "cuda" builds, its table checked)."""
     _, tenv = envs
     _, tp = params_pair()
     dag = tregistry.get("tailstorm-2-discount-heuristic", window=40)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ResidentEngine(dag, tp, n_lanes=4, device="cuda")
+    eng = ResidentEngine(dag, tp, n_lanes=4, device="cuda")
+    assert eng.on_card and eng.env.burst_kernel_name == "K14-dag"
+    _, _, tnet = nets(1)  # one hidden layer: not K11-act's warp MLP
+    with pytest.raises(NotImplementedError, match="K14-dag runs nets"):
+        ResidentEngine(dag, tp, n_lanes=4, device="cuda",
+                       swap_policies={"ppo": (tnet, tnet.flat, None)})
+    wide = ActorCritic(dag.observation_length, dag.n_actions, (128, 128),
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="K14-dag"):
+        ResidentEngine(dag, tp, n_lanes=4, device="cuda",
+                       extra_policies={"w": NetPolicy(wide)})
+    with pytest.raises(NotImplementedError, match="K14-dag"):
+        ResidentEngine(dag, tp, n_lanes=4, device="cuda",
+                       extra_policies={"f": lambda o: o[..., 0]})
+    # four nets of 16 inputs, hidden 96 and 24 actions beside K9's
+    # full-mode scratch pass a block's shared memory; the card reports
+    # K14-dag's static shared memory, here its layout: the lanes' params
+    # (4 x 24 bytes) and K9's QScratch (64 candidates' five arrays, three
+    # of 544 slots) for each of a block's four warps
+    k9_full = 4 * 24 + 4 * (64 * (4 + 8 + 4 + 4) + 3 * 4 * 544)
+    smem = lambda: (k9_full, kernels.SMEM_PER_BLOCK)  # noqa: E731
+    big = ActorCritic(16, 24, (96, 96), device="cpu")
+    with pytest.raises(NotImplementedError, match="K14-dag holds"):
+        kernels.check_dag_burst_nets([big] * 4, 24, 16, smem)
+    kernels.check_dag_burst_nets([big] * 3, 24, 16, smem)
+    # Nakamoto's K14 keeps thread mode's limit of 4 actions
+    eth = tregistry.get_sized("ethereum-byzantium", 16)
+    eth_net = ActorCritic(eth.observation_length, eth.n_actions, (64, 64),
+                          device="cpu")
+    kernels.check_dag_burst_nets([eth_net], eth.n_actions,
+                                 eth.observation_length,
+                                 lambda: (4 * 24, kernels.SMEM_PER_BLOCK))
+    with pytest.raises(NotImplementedError, match="at most 4 actions"):
+        kernels.check_burst_nets([eth_net], eth.n_actions)
     with pytest.raises(NotImplementedError, match="item 13"):
         ResidentEngine(tenv, tp, n_lanes=4, mesh=object(), device="cpu")
     monkeypatch.setenv("CPR_DEVICE_METRICS", "1")
