@@ -423,6 +423,43 @@ Phases, one line each; any failure raises and the exit code is not 0:
      the ring rows, the threefry work of the steps and resets), the
      plain version's time of one such burst, and every phase 62 case's
      device ms a burst at its shape.
+ 67. K17 (the device-metrics fold, csrc/metrics.cu) on every crafted
+     case of the committed JAX fixture (tests/fixtures/torch_port_
+     metrics_golden.npz: NaN and +-inf, values on histogram edges, empty
+     and all-masked cells, int masks, row sentinels, transposed views,
+     inputs of several blocks) against its plain fold on the card and
+     cpr_tpu's summaries, two folds bit for bit; then the fixture's short
+     paths with the metrics on (Nakamoto SM1 unchunked and chunked, the
+     Tailstorm ring chunked, a batch rollout, one tiny PPO step from
+     JAX's params) against cpr_tpu's cells;
+ 68. the main path with `collect_metrics=True` (bench.py:139-166's
+     measure under CPR_DEVICE_METRICS=1: 131072 lanes x 2200 SM1 steps,
+     unchunked): first beside the metrics-off call on the same keys (the
+     stats bit for bit, the same count of synchronizing operations under
+     torch.cuda.set_sync_debug_mode("warn")), then one warm and three
+     timed calls with their own launch counts (K1, K2, K17), the
+     accumulators merged on the card, one readback and one `emit`:
+     env_steps 865,075,200, the cells against the plain fold of the
+     same per-lane tensors; K17's device time (L2 scrubbed) beside the
+     stream's, its plain fold's time and its bound;
+ 69. the Tailstorm path (phase 24's shape, chunks of 128) the same way:
+     K1, K10-ts eight times a call, K17 once a chunk;
+ 70. `rollout(with_metrics=True)`, Nakamoto SM1, 4096 lanes x 256 steps
+     (K1, K2, K17): the trajectory the metrics-off call's, no added
+     synchronizing operation, the cells against the plain
+     `update_rollout` over the same trajectory;
+ 71. the serve engines under CPR_DEVICE_METRICS=1: Nakamoto at phase
+     51's shape (rings off; K2, K3, K14, K17) and Tailstorm in full mode
+     at phase 62's (K10-ts-full, K14-dag-ts-full, K17): `emit_metrics`
+     gives the bursts without the warm-up, env_steps and episodes the
+     registers' sums;
+ 72. two bench PPO train_steps (phase 31's shape) with the variable on,
+     each beside the metrics-off step from a copy of its carry: every
+     other metric and the params bit for bit, the cells finite with the
+     config's counts (16 minibatches a step; K17 once a step);
+ 73. `netsim.Engine.run` at bench.py's clique with the variable on: one
+     `device_metrics` event of scope netsim equal to the outputs' sums;
+     `AttackEngine.run` runs with it set (K12-scan, K13).
 Then the kernels line (JSON: launches summed over the main paths, the
 error of the main-shape comparison, the times and the bound) and the
 last line {"ok": true, "device": {...}}.
@@ -6060,6 +6097,545 @@ def phase_dag_burst_times(dev, report):
         phase62_shape=f"{DAGB_LANES}x{DAGB_BURST}")
 
 
+# K17, the device-metrics fold (phases 67-73): the crafted cases and short
+# paths of tests/fixtures/torch_port_metrics_golden.npz (written by
+# tests/test_torch_device_metrics.py from cpr_tpu), then the paths with
+# the metrics on: the main stream, the chunked Tailstorm stream, a batch
+# rollout, the serve engines, the bench PPO step and the netsim.
+METRICS_FIXTURE = ROOT / "tests" / "fixtures" / \
+    "torch_port_metrics_golden.npz"
+METRICS_SUM_RTOL = 1e-5  # float32 sums in K17's order, not XLA's or torch's
+METRICS_PATH_RTOL = 1e-5  # a path's float inputs (clocks) against cpr_tpu's
+METRICS_PPO_ATOL = 1e-5  # approx_kl from K11-loss against XLA's
+METRICS_ROLLOUT_LANES, METRICS_ROLLOUT_STEPS = 4096, 256
+METRICS_ROLLOUT_MAX_STEPS = 128  # episodes end inside the rollout
+METRICS_TIME_REPS = 20
+
+
+@contextlib.contextmanager
+def metrics_on():
+    """CPR_DEVICE_METRICS=1 around a producer's build (or the netsim's
+    run, which reads it then)."""
+    import os
+    old = os.environ.get("CPR_DEVICE_METRICS")
+    os.environ["CPR_DEVICE_METRICS"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["CPR_DEVICE_METRICS"]
+        else:
+            os.environ["CPR_DEVICE_METRICS"] = old
+
+
+def sync_warnings(fn):
+    """(fn(), the synchronizing CUDA operations it ran as
+    torch.cuda.set_sync_debug_mode("warn") reports them, and where: the
+    Python lines that ran them). The garbage collector waits until the
+    call ends, so that no earlier object's teardown lands in it."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    gc.disable()
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        gc.enable()
+    sites = [f"{Path(w.filename).name}:{w.lineno}" for w in seen
+             if "synchroniz" in str(w.message)]
+    return out, len(sites), sites
+
+
+def hold_no_added_syncs(off, on, what):
+    """Run the metrics-off and -on calls in turns (off, on, on, off) and
+    hold that the metrics add no synchronizing operation: the fewest a
+    metrics-on call ran is at most the fewest a metrics-off call ran
+    (a sync that an earlier object's teardown or the allocator lands in
+    one call is not the call's own), and none ran in device_metrics.py.
+    Returns (the metrics-on call's result, (off counts, on counts))."""
+    n_off, n_on, sites = [], [], []
+    for fn, ns in ((off, n_off), (on, n_on), (on, n_on), (off, n_off)):
+        out, n, at = sync_warnings(fn)
+        ns.append(n)
+        sites += at
+        if fn is on:
+            res = out
+    check(min(n_on) <= min(n_off)
+          and not any(a.startswith("device_metrics.py") for a in sites),
+          f"{what}: the metrics added synchronizing operations (off "
+          f"{n_off}, on {n_on}; at {sites})")
+    return res, (n_off, n_on)
+
+
+def nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
+
+
+def _same_float(a, b):
+    return a == b or (a is not None and b is not None
+                      and np.isnan(a) and np.isnan(b))
+
+
+def compare_metrics(got, want, what, rtol=0.0, atol=0.0):
+    """Two summaries: counters, hist counts and stats counts exact; min
+    and max exact, or within rtol/atol where the cells' inputs come from
+    other arithmetic; sums within METRICS_SUM_RTOL (and the same rtol/
+    atol). Returns the largest finite sum difference."""
+    check(list(got) == list(want), f"{what}: cells {list(got)}")
+    err = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if not isinstance(w, dict) or "counts" in w:
+            check(g == w, f"{what}: {k} is {g}, expected {w}")
+            continue
+        check(g["count"] == w["count"], f"{what}: {k} count {g} vs {w}")
+        for f, tol in (("min", rtol), ("max", rtol),
+                       ("sum", max(rtol, METRICS_SUM_RTOL))):
+            a, b = g[f], w[f]
+            ok = _same_float(a, b) or (
+                a is not None and b is not None and np.isfinite(b)
+                and abs(a - b) <= tol * abs(b) + atol)
+            check(ok, f"{what}: {k}.{f} is {a}, expected {b}")
+        if g["sum"] is not None and np.isfinite(w["sum"]):
+            err = max(err, abs(g["sum"] - w["sum"]))
+    return err
+
+
+def metrics_gen(a):
+    """tests/test_torch_device_metrics.py `_gen`: a fixture array made by
+    integer arithmetic."""
+    n = int(np.prod(a["shape"]))
+    i = np.arange(n, dtype=np.int64)
+    if a["gen"] == "mask":
+        out = (i % a["mod"]) != 0
+    elif a["gen"] == "i32":
+        out = ((i * a["mul"]) % a["mod"]).astype(np.int32)
+    else:
+        out = ((i * a["mul"]) % a["mod"]).astype(np.float32) \
+            / np.float32(a["div"])
+        if a.get("nan_every"):
+            out[::a["nan_every"]] = np.nan
+        if a.get("inf_every"):
+            out[1::a["inf_every"]] = np.inf
+    return out.reshape(a["shape"])
+
+
+def metrics_case(mfx, name, dev):
+    """A crafted fixture case on `dev`: (spec, ops, cpr_tpu's summary);
+    its transposed and column arrays are views, as the producers fold
+    them."""
+    from cpr_tpu_torch import device_metrics as dm
+    t = {}
+    for k, a in json.loads(str(mfx[f"{name}__arrays"])).items():
+        if "file" in a:
+            t[k] = torch.from_numpy(mfx[a["file"]]).to(dev)
+        elif "of" in a:
+            base = t[a["of"]]
+            t[k] = base[:, a["col"]] if "col" in a else \
+                base[:, a["cols"][0]:a["cols"][1]]
+        else:
+            v = torch.from_numpy(metrics_gen(a)).to(dev)
+            t[k] = v.T if a.get("transpose") else v
+    spec = dm.MetricsSpec()
+    for c in json.loads(str(mfx[f"{name}__cells"])):
+        getattr(spec, c[0])(*c[1:])
+    ops = []
+    for o in json.loads(str(mfx[f"{name}__ops"])):
+        x = None if o["x"] is None else t[o["x"]]
+        w = None if o["where"] is None else t[o["where"]]
+        if o["op"] == "count":
+            ops.append(dm.count_op(o["name"], o["n"] if x is None else x,
+                                   o["scale"]))
+        elif o["op"] == "nonfinite":
+            ops.append(dm.nonfinite_op(o["name"], x, rows=o["rows"]))
+        elif o["op"] == "observe":
+            ops.append(dm.observe_op(o["name"], o["value"] if x is None
+                                     else x, w, nonfinite=o["nonfinite"]))
+        else:
+            ops.append(dm.hist_op(o["name"], x, w))
+    return spec, ops, json.loads(str(mfx[f"{name}__want"]))
+
+
+def fold_bytes(ops, acc):
+    """The bytes a fold must move: each input tensor read once (a tensor
+    two cells read counted once), the accumulator read and written."""
+    seen, total = set(), 2 * acc.numel() * 4
+    for op in ops:
+        for t in (op.x, op.where):
+            if t is not None and (t.data_ptr(), t.numel()) not in seen:
+                seen.add((t.data_ptr(), t.numel()))
+                total += t.numel() * t.element_size()
+    return total
+
+
+def phase_metrics_fixture(dev, mfx, report):
+    """Phase 67: K17 on every crafted case of the fixture against its
+    plain fold on the card and against cpr_tpu's summary (counters, bins,
+    min, max and count exact, sums within METRICS_SUM_RTOL), two folds
+    bit for bit; then the fixture's short paths on the card with the
+    metrics on (Nakamoto SM1 unchunked and chunked, the Tailstorm ring
+    chunked, a batch rollout, one tiny PPO step from JAX's params)
+    against cpr_tpu's cells."""
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs import registry
+    from cpr_tpu_torch.params import make_params
+    from cpr_tpu_torch.train import ppo
+    row, err = report["K17"], 0.0
+    cases = json.loads(str(mfx["cases"]))
+    for name in cases:
+        spec, ops, want = metrics_case(mfx, name, dev)
+        acc = spec.fold(spec.init(dev), ops)
+        again = spec.fold(spec.init(dev), ops)
+        got = spec.summarize(acc)
+        check(torch.equal(acc, again), f"K17 {name}: two folds differ")
+        err = max(err, compare_metrics(got, want, f"K17 {name} vs cpr_tpu"),
+                  compare_metrics(got, spec.summarize(spec.fold_plain(
+                      spec.init(dev), ops)), f"K17 {name} vs plain"))
+    paths = json.loads(str(mfx["paths"]))
+    for name, (key, window, pol, max_steps, lanes, steps, chunk) in \
+            paths.items():
+        env = registry.get(key, **({"window": window} if window else {}))
+        params = make_params(alpha=0.35, gamma=0.5, max_steps=max_steps)
+        fn = env.make_episode_stats_fn(params, pol, steps, chunk=chunk,
+                                       collect_metrics=True)
+        _, acc = fn(rnd.split(rnd.PRNGKey(0, dev), lanes))
+        compare_metrics(fn.metrics_spec.summarize(acc),
+                        json.loads(str(mfx[f"path_{name}__want"])),
+                        f"{name} with metrics vs cpr_tpu",
+                        rtol=METRICS_PATH_RTOL)
+    env = registry.get("nakamoto")
+    params = make_params(alpha=0.35, gamma=0.5, max_steps=16)
+    _, acc = env.rollout(rnd.split(rnd.PRNGKey(3, dev), 4), params,
+                         "sapirshtein-2016-sm1", 48, with_metrics=True)
+    from cpr_tpu_torch import device_metrics as dm
+    compare_metrics(dm.rollout_spec().summarize(acc),
+                    json.loads(str(mfx["path_rollout__want"])),
+                    "rollout with metrics vs cpr_tpu",
+                    rtol=METRICS_PATH_RTOL)
+    pc = json.loads(str(mfx["ppo_config"]))
+    with metrics_on():
+        init_fn, step = ppo.make_train(
+            env, make_params(alpha=pc["alpha"], gamma=pc["gamma"],
+                             max_steps=pc["max_steps"]),
+            ppo.PPOConfig(n_envs=pc["n_envs"], n_steps=pc["n_steps"],
+                          hidden=tuple(pc["hidden"]),
+                          update_epochs=pc["update_epochs"],
+                          n_minibatches=pc["n_minibatches"]))
+    carry = init_fn(rnd.PRNGKey(pc["seed"], dev),
+                    params=torch.from_numpy(mfx["path_ppo__flat"]))
+    _, m = step(carry)
+    compare_metrics(step.metrics_spec.summarize(m["device_metrics"]),
+                    json.loads(str(mfx["path_ppo__want"])),
+                    "PPO step with metrics vs cpr_tpu",
+                    atol=METRICS_PPO_ATOL)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    say("metrics_fixture", cases=len(cases), paths=len(paths) + 2,
+        max_abs_err=err, ok=True)
+
+
+def metrics_stream_case(dev, env, params, pol, lanes, steps, chunk, name,
+                        ran):
+    """Phases 68-69: a stats path with collect_metrics against the same
+    path with it off (same keys): the stats bit for bit, the same count
+    of synchronizing operations under set_sync_debug_mode("warn"); then
+    one warm and three timed calls with the launch counts zeroed before
+    and read after, their accumulators merged on the card, one readback
+    and one `emit`; the cells against the plain fold of the last call's
+    per-lane tensors. Returns (counts, that fold's ops, the spec)."""
+    from cpr_tpu_torch import device_metrics as dm
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs.base import EPISODE_KEYS
+    keys = rnd.split(rnd.PRNGKey(0, dev), lanes)
+    fn_off = env.make_episode_stats_fn(params, pol, steps, chunk=chunk)
+    fn_on = env.make_episode_stats_fn(params, pol, steps, chunk=chunk,
+                                      collect_metrics=True)
+    spec = fn_on.metrics_spec
+    fn_off(keys)  # warm, both: a first call may sync once (allocation)
+    fn_on(keys)
+    torch.cuda.synchronize()
+    (on, _), syncs = hold_no_added_syncs(lambda: fn_off(keys),
+                                         lambda: fn_on(keys), name)
+    off = fn_off(keys)
+    for k, v in off.items():
+        check(torch.equal(on[k], v), f"{name}: metrics on changed {k}")
+    kernels.reset_launches()
+    keys = rnd.split(rnd.PRNGKey(0, dev), lanes)  # K1, as on the path
+    fn_on(keys)
+    torch.cuda.synchronize()
+    secs, accs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        stats, acc = fn_on(keys)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        accs.append(acc)
+    merged = spec.merge(spec.merge(accs[0], accs[1]), accs[2])
+    summary = dm.emit(name, spec, merged, reps=3)
+    counts = dict(kernels.launches)
+    path_launches(counts, ran, f"{name} with metrics")
+    n_chunks = 1 if chunk is None else -(-steps // chunk)
+    check(counts["K17"] == 4 * n_chunks, f"{name}: K17 launched "
+          f"{counts['K17']} times in 4 calls of {n_chunks} chunks")
+    check(summary["env_steps"] == 3 * lanes * steps,
+          f"{name}: env_steps {summary['env_steps']}")
+    check(summary["episodes"] == 3 * int(stats["n_episodes"].sum()),
+          f"{name}: episodes {summary['episodes']}")
+    check(summary["nonfinite_stats"] == 0
+          and summary["nonfinite_obs_boundary"] == 0,
+          f"{name}: nonfinite cells {summary}")
+    stat_keys = tuple(sorted(EPISODE_KEYS))
+    ops = [dm.count_op("env_steps", lanes, steps)] + dm.episode_stats_ops(
+        stats=stats, n_episodes=stats["n_episodes"], stat_keys=stat_keys)
+    err = compare_metrics(spec.summarize(accs[-1]), spec.summarize(
+        spec.fold_plain(spec.init(dev), ops)), f"K17 {name} vs plain")
+    say(f"metrics_{name}", lanes=lanes, steps=steps, chunk=chunk,
+        env_steps=summary["env_steps"], episodes=summary["episodes"],
+        episode_n_steps=json.dumps(summary["episode_n_steps"]),
+        call_s=secs, sync_ops_off_on=json.dumps(syncs),
+        max_abs_err=err, launches=json.dumps(nonzero(counts)))
+    return counts, ops, spec, err
+
+
+def phase_metrics_stream(dev, report):
+    """Phase 68: the main path (bench.py:139-166's episode measure with
+    CPR_DEVICE_METRICS=1: Nakamoto SM1 at 131072 lanes x 2200 steps,
+    unchunked; K1, K2, K17), `env_steps` 865,075,200; then K17's device
+    time on this fold (L2 scrubbed) beside the stream's (phase 6), its
+    plain fold's time and its bound (the per-lane inputs read once)."""
+    from cpr_tpu_torch import device_metrics as dm
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs.nakamoto import NakamotoSSZ
+    from cpr_tpu_torch.params import make_params
+    env = NakamotoSSZ()
+    params = make_params(alpha=0.35, gamma=0.5, max_steps=MAIN_MAX_STEPS)
+    counts, ops, spec, err = metrics_stream_case(
+        dev, env, params, "sapirshtein-2016-sm1", MAIN_LANES, MAIN_STEPS,
+        None, "nakamoto_sm1", ("K1", "K2", "K17"))
+    check(3 * MAIN_LANES * MAIN_STEPS == 865_075_200, "the bench's span")
+    obs = env.init_lanes(rnd.split(rnd.PRNGKey(0, dev), MAIN_LANES),
+                         params)[1]
+    ops = ops + [dm.nonfinite_op("nonfinite_obs_boundary", obs)]
+    row = report["K17"]
+    acc = spec.init(dev)
+    row["ms"] = device_ms(lambda: spec.fold(acc, ops), METRICS_TIME_REPS,
+                          "metrics_fold_kernel")
+    acc_p = spec.init(dev)
+    row["plain_ms"] = cuda_ms(lambda: spec.fold_plain(acc_p, ops), 5)
+    row["bound_ms"], row["bound_by"] = bound_ms(fold_bytes(ops, acc), 0)
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    stream_ms = report["K2"]["ms"]
+    say("metrics_times", K17=json.dumps({f: row[f] for f in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}),
+        bytes=fold_bytes(ops, acc), stream_ms=stream_ms,
+        overhead=row["ms"] / stream_ms)
+    return counts
+
+
+def phase_metrics_chunked(dev, report):
+    """Phase 69: the Tailstorm path (config 4's shape, phase 24) with
+    collect_metrics, in chunks of 128: K1, K10-ts eight times a call,
+    K17 once a chunk."""
+    from cpr_tpu_torch.params import make_params
+    env = dag_env("ts")
+    params = make_params(alpha=0.35, gamma=0.5, max_steps=VOTE_MAX_STEPS)
+    counts, _, _, err = metrics_stream_case(
+        dev, env, params, env.policies[DAG_ENVS["ts"][1]], VOTE_LANES,
+        VOTE_STEPS, VOTE_CHUNK, "tailstorm", ("K1", "K10-ts", "K17"))
+    report["K17"]["max_abs_err"] = max(report["K17"]["max_abs_err"], err)
+    return counts
+
+
+def phase_metrics_rollout(dev, report):
+    """Phase 70: `rollout(with_metrics=True)`, Nakamoto SM1, 4096 lanes x
+    256 steps (K1, K2, K17): the trajectory that of the metrics-off
+    call, no added synchronizing operation, the cells against the plain
+    `update_rollout` over the same trajectory."""
+    from cpr_tpu_torch import device_metrics as dm
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs.nakamoto import NakamotoSSZ
+    from cpr_tpu_torch.params import make_params
+    env = NakamotoSSZ()
+    params = make_params(alpha=0.35, gamma=0.5,
+                         max_steps=METRICS_ROLLOUT_MAX_STEPS)
+    L, T = METRICS_ROLLOUT_LANES, METRICS_ROLLOUT_STEPS
+    keys = rnd.split(rnd.PRNGKey(7, dev), L)
+    sm1 = "sapirshtein-2016-sm1"
+    env.rollout(keys, params, sm1, T, with_metrics=True)  # warm
+    torch.cuda.synchronize()
+    _, syncs = hold_no_added_syncs(
+        lambda: env.rollout(keys, params, sm1, T),
+        lambda: env.rollout(keys, params, sm1, T, with_metrics=True),
+        "rollout")
+    off = env.rollout(keys, params, sm1, T)
+    key = rnd.PRNGKey(7, dev)
+    kernels.reset_launches()
+    traj, acc = env.rollout(rnd.split(key, L), params, sm1, T,
+                            with_metrics=True)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K1", "K2", "K17"), "rollout with metrics")
+    for a, b, f in zip(traj[:4], off[:4], ("obs", "action", "reward",
+                                           "done")):
+        check(torch.equal(a, b), f"rollout with metrics: {f} differs")
+    obs, _, reward, done, info = traj
+    spec = dm.rollout_spec()
+    s = spec.summarize(acc)
+    plain = spec.summarize(spec.fold_plain(spec.init(dev), dm.rollout_ops(
+        reward=reward, done=done, ep_len=info["episode_n_steps"], obs=obs)))
+    err = compare_metrics(s, plain, "K17 rollout vs plain")
+    check(s["env_steps"] == L * T and s["episodes"] == int(done.sum()) > 0,
+          f"rollout cells {s}")
+    report["K17"]["max_abs_err"] = max(report["K17"]["max_abs_err"], err)
+    say("metrics_rollout", lanes=L, steps=T, episodes=s["episodes"],
+        reward=json.dumps(s["reward"]), sync_ops_off_on=json.dumps(syncs),
+        max_abs_err=err,
+        launches=json.dumps(nonzero(counts)))
+    return counts
+
+
+def phase_metrics_serve(dev, report):
+    """Phase 71: the serve engines under CPR_DEVICE_METRICS=1: Nakamoto at
+    phase 51's shape (131072 lanes, SERVE_BURSTS bursts of 256, rings
+    off; K2, K3, K14, K17) and Tailstorm in full mode at phase 62's
+    (K10-ts-full, K14-dag-ts-full, K17); `emit_metrics` gives the bursts
+    without the warm-up, env_steps and episodes the registers' sums."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.serve.engine import ResidentEngine
+    counts = []
+    env, params = serve_env(MAIN_MAX_STEPS)
+    for name in ("nakamoto", "ts"):
+        kernels.reset_launches()
+        with metrics_on():
+            if name == "nakamoto":
+                L, B, n_bursts = MAIN_LANES, SERVE_BURST, SERVE_BURSTS
+                eng = ResidentEngine(env, params, n_lanes=L, burst=B)
+                eng.start()
+                eng.splice({ln: ln for ln in range(L)})
+                sm1 = eng.policy_ids["sapirshtein-2016-sm1"]
+                lane_policy = dict.fromkeys(range(L), sm1)
+            else:
+                L, B, n_bursts = DAGB_LANES, DAGB_BURST, 2
+                eng, lane_policy = dagb_engine(dev, "ts")
+        done = 0
+        for _ in range(n_bursts):
+            done += int(eng.burst_run(lane_policy)["done"].sum())
+        s = eng.emit_metrics()
+        counts.append(dict(kernels.launches))
+        ran = (("K2", "K3", "K14") if name == "nakamoto" else
+               (eng.env.kernel_name, kernels.dag_burst_name(eng.env)))
+        path_launches(counts[-1], ran + ("K17",), f"serve {name} metrics")
+        check(counts[-1]["K17"] == n_bursts + 1,
+              f"serve {name}: K17 launched {counts[-1]['K17']} times")
+        check(s["bursts"] == n_bursts and s["env_steps"] == n_bursts * L * B
+              and s["episodes"] == done and s["occupancy"]["count"] ==
+              n_bursts and s["burst_s"]["count"] == n_bursts
+              and sum(s["burst_s_hist"]["counts"]) == n_bursts,
+              f"serve {name} cells {s}")
+        say("metrics_serve", env=name, lanes=L, burst=B, bursts=n_bursts,
+            episodes=done, burst_s=json.dumps(s["burst_s"]),
+            launches=json.dumps(nonzero(counts[-1])), ok=True)
+        del eng
+    return counts
+
+
+def phase_metrics_ppo(dev, report):
+    """Phase 72: two bench train_steps (phase 31's shape: Tailstorm,
+    config 4, 4096 lanes x 128 steps) with CPR_DEVICE_METRICS=1, each
+    beside the metrics-off step from a copy of the same carry: every
+    other metric and the params bit for bit, the cells finite with the
+    config's counts (K1, K10-ts, K11-*, K17 once a step)."""
+    import copy
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs.base import map_state
+    from cpr_tpu_torch.params import make_params
+    from cpr_tpu_torch.train import ppo
+    env = dag_env("ts")
+    params = make_params(alpha=0.35, gamma=0.5, max_steps=PPO_MAX_STEPS)
+    cfg = ppo.PPOConfig(n_envs=PPO_LANES, n_steps=PPO_STEPS)
+    init_fn, step_off = ppo.make_train(env, params, cfg)
+    with metrics_on():
+        _, step_on = ppo.make_train(env, params, cfg)
+    carry = init_fn(rnd.PRNGKey(72, dev))
+    kernels.reset_launches()
+    n_mb = cfg.update_epochs * cfg.n_minibatches
+    for i in range(2):
+        ts, state, obs, key = carry
+        twin = (copy.deepcopy(ts), map_state(torch.clone, state),
+                obs.clone(), key.clone())
+        carry, m = step_on(carry)
+        twin, m_off = step_off(twin)
+        s = step_on.metrics_spec.summarize(m.pop("device_metrics"))
+        check(set(m) == set(m_off), "PPO metrics keys differ")
+        for k, v in m_off.items():
+            check(torch.equal(m[k], v), f"PPO step {i}: metric {k} differs "
+                  "with the metrics on")
+        check(torch.equal(carry[0].net.flat, twin[0].net.flat),
+              f"PPO step {i}: params differ with the metrics on")
+        check(s["minibatches"] == n_mb and s["approx_kl"]["count"] == n_mb
+              and s["nonfinite_advantages"] == 0
+              and s["nonfinite_loss"] == 0
+              and s["minibatches_skipped"] == 0
+              and np.isfinite(s["approx_kl"]["sum"]), f"PPO cells {s}")
+    counts = dict(kernels.launches)
+    check(counts["K17"] == 2, f"PPO: K17 launched {counts['K17']} times")
+    path_launches(counts, ("K1", "K10-ts", "K11-act", "K11-gae",
+                           "K11-loss", "K11-adam", "K17"),
+                  "bench PPO with metrics")
+    say("metrics_ppo", lanes=PPO_LANES, steps=PPO_STEPS, minibatches=n_mb,
+        approx_kl=json.dumps(s["approx_kl"]),
+        launches=json.dumps(nonzero(counts)), ok=True)
+    # the metrics-off steps ran the same kernels: only K17 is theirs
+    return {"K17": counts["K17"]}
+
+
+def phase_metrics_netsim(dev, report):
+    """Phase 73: `netsim.Engine.run` at bench.py's clique (96 lanes x
+    10000, scan) with CPR_DEVICE_METRICS=1 emits one device_metrics
+    event of scope netsim equal to the outputs' sums (a host fold: the
+    outputs are numpy arrays, as the reference's); `AttackEngine.run`
+    runs with the variable set and emits none (K12-scan, K13)."""
+    from cpr_tpu_torch import kernels, netsim, network, telemetry
+    net = network.symmetric_clique(NET_NODES, activation_delay=NET_ACT_DELAY,
+                                   propagation_delay=NET_PROP)
+    eng = netsim.Engine(net, protocol="nakamoto", activations=NET_ACTS)
+    atk = attack_engine(ATK_ACTS)
+    alphas, pids, _ = attack_lanes(ATK_LANES)
+    buf = io.StringIO()
+    telemetry.configure(stream=buf)
+    kernels.reset_launches()
+    try:
+        with metrics_on():
+            out = eng.run(list(range(NET_LANES)), [NET_ACT_DELAY] * NET_LANES)
+            aout = atk.run(range(ATK_LANES), [NET_ACT_DELAY] * ATK_LANES,
+                           alphas, pids)
+    finally:
+        telemetry.configure()
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K12-scan", "K13"), "netsim with metrics")
+    ev = [e for e in map(json.loads, buf.getvalue().splitlines())
+          if e.get("name") == "device_metrics"]
+    check(len(ev) == 1 and ev[0]["scope"] == "netsim",
+          f"netsim device_metrics events: {ev}")
+    m = ev[0]["metrics"]
+    for cell, k in (("steps", "steps"), ("queue_drops", "drop_q"),
+                    ("pending_drops", "drop_p"), ("ledger_drops", "drop_b")):
+        check(m[cell] == int(np.asarray(out[k], np.int64).sum()),
+              f"netsim cell {cell} {m[cell]}")
+    check(drops(aout) == 0, "attack path with metrics dropped")
+    say("metrics_netsim", lanes=NET_LANES, steps=m["steps"],
+        attack_lanes=ATK_LANES, launches=json.dumps(nonzero(counts)),
+        ok=True)
+
+
 def parametric_capstone():
     """The capstone's structure, compiled once at the probe point with
     its exponent columns; returns (ParamMDP, host seconds)."""
@@ -6312,6 +6888,13 @@ def main() -> int:
                     "record_kernel's)", route="cuda",
                     source=f"{csrc}/exp_ring.cuh",
                     replaces="cpr_tpu/learn/buffer.py:82"),
+        "K17": dict(name="K17 device-metrics fold (the cells of the "
+                    "episode drivers, rollout, serve bursts and PPO "
+                    "updates; ms: the main path's stats fold, "
+                    f"{MAIN_LANES} lanes)", route="cuda",
+                    source=f"{csrc}/metrics.cu",
+                    replaces="cpr_tpu/device_metrics.py:56",
+                    max_abs_err=0.0),
         "K14-dag": dict(name="K14-dag serve burst over the DAG envs "
                         "(dag_burst_kernel in every K10 library, ring and "
                         "full; ms: Tailstorm at the server's sizing, 520 "
@@ -6425,8 +7008,19 @@ def main() -> int:
         serve_counts.extend(phase_dag_serve(dev, report))
         serve_counts.append(phase_dag_wire(dev, report, tmp))
         phase_dag_burst_times(dev, report)
+    # K17 (phases 67-73), each path with the metrics on
+    with np.load(METRICS_FIXTURE) as f:
+        metrics_fx = {k: f[k] for k in f.files}
+    phase_metrics_fixture(dev, metrics_fx, report)
+    serve_counts.append(phase_metrics_stream(dev, report))
+    serve_counts.append(phase_metrics_chunked(dev, report))
+    serve_counts.append(phase_metrics_rollout(dev, report))
+    serve_counts.extend(phase_metrics_serve(dev, report))
+    serve_counts.append(phase_metrics_ppo(dev, report))
+    phase_metrics_netsim(dev, report)
     for k, r in report.items():
-        r["launches"] += sum(c.get(k, 0) for c in serve_counts)
+        r["launches"] = r.get("launches", 0) + sum(c.get(k, 0)
+                                                   for c in serve_counts)
     report["K14-dag"]["launches"] = sum(
         n for c in serve_counts for k, n in c.items()
         if k.startswith("K14-dag-"))
@@ -6439,8 +7033,9 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(card, flush=True)  # again, beside the numbers at the end
-    for k in ("K1", "K2", "K3", "K14", "K15", "K14-dag"):
-        report[k]["library_ms"] = None  # no PyTorch call computes these
+    # no PyTorch call computes these (K17: several masked reductions)
+    for k in ("K1", "K2", "K3", "K14", "K15", "K14-dag", "K17"):
+        report[k]["library_ms"] = None
     ahead_dir.cleanup()
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in report.values()]}), flush=True)

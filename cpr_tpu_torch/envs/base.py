@@ -478,11 +478,14 @@ class TorchEnv:
 
         Returns per-step (obs, action, reward, done, info) with a lane
         axis and a time axis, `[L, T, ...]` (the layout of
-        `jax.vmap(rollout)`); a single key `[2]` gives `[T, ...]`."""
-        if with_metrics:
-            raise NotImplementedError(
-                "rollout(with_metrics=True) needs device metrics, not "
-                "ported yet (ROADMAP item 14, K17)")
+        `jax.vmap(rollout)`); a single key `[2]` gives `[T, ...]`.
+
+        `with_metrics=True` also folds a `device_metrics.rollout_spec()`
+        accumulator from the stacked trajectory (K17 on the card, one
+        fold) and returns (traj, acc): acc stays on the device, merged
+        over the lanes (the reference's per-lane accumulators after
+        `merge_axis`); summarize it once with
+        `device_metrics.rollout_spec().summarize`."""
         single = keys.dim() == 1
         if single:
             keys = keys[None]
@@ -492,7 +495,15 @@ class TorchEnv:
             obs, action, reward, done, info = traj
             traj = (obs[0], action[0], reward[0], done[0],
                     {k: v[0] for k, v in info.items()})
-        return traj
+        if not with_metrics:
+            return traj
+        from cpr_tpu_torch import device_metrics
+        spec = device_metrics.rollout_spec()
+        obs, _, reward, done, info = traj
+        acc = device_metrics.update_rollout(
+            spec, spec.init(reward.device), reward=reward, done=done,
+            ep_len=info["episode_n_steps"], obs=obs)
+        return traj, acc
 
     def episode_stats(self, keys, params, policy, n_steps: int):
         """Final-info aggregation over completed episodes, per lane; a
@@ -515,13 +526,20 @@ class TorchEnv:
         between chunks in place and adds the per-chunk done-masked sums,
         as the reference's chunked driver does. The unchunked call is one
         chunk. Per-lane means divide the sums by max(n_done, 1) in
-        float32; `n_episodes` is the done count."""
+        float32; `n_episodes` is the done count.
+
+        `collect_metrics=True` makes `fn` return (stats, acc), acc a
+        `device_metrics.episode_stats_spec()` accumulator on the keys'
+        device, merged over the lanes; the spec rides on `fn` as
+        `fn.metrics_spec`. The stream launches are the metrics-off ones:
+        `env_steps` and `nonfinite_obs_boundary` fold at each chunk's end
+        from its length and the carry's live obs (once unchunked, as the
+        reference), the stats cells once a call from the per-lane means
+        and `n_episodes`, each fold one K17 launch on the card (the last
+        chunk's and the stats' together), and the chunk loop reads
+        nothing back."""
         if chunk is not None and chunk <= 0:
             raise ValueError(f"chunk must be positive, got {chunk}")
-        if collect_metrics:
-            raise NotImplementedError(
-                "collect_metrics needs device metrics, not ported yet "
-                "(ROADMAP item 14, K17)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded episode streams are not ported yet "
@@ -532,20 +550,41 @@ class TorchEnv:
             n_full, rem = divmod(n_steps, chunk)
             lengths = (chunk,) * n_full + ((rem,) if rem else ())
 
+        spec = stat_keys = None
+        if collect_metrics:
+            from cpr_tpu_torch import device_metrics as dm
+            stat_keys = tuple(sorted(EPISODE_KEYS))
+            spec = dm.episode_stats_spec(stat_keys)
+
         def fn(keys):
-            carry, totals, n_done = None, None, None
-            for length in lengths:
+            carry, totals, n_done, acc = None, None, None, None
+            if spec is not None:
+                acc = spec.init(keys.device)
+            for i, length in enumerate(lengths):
                 first = carry is None
                 carry, sums, d, _ = self._stream(
                     carry, keys, 1 if first else 0, length, params, policy,
                     True)
                 totals = sums if first else totals + sums
                 n_done = d if first else n_done + d
+                if spec is not None:
+                    # per chunk, before the next launch updates the obs
+                    bounds = [dm.count_op("env_steps", keys.shape[0],
+                                          length),
+                              dm.nonfinite_op("nonfinite_obs_boundary",
+                                              carry[1])]
+                    if i + 1 < len(lengths):
+                        spec.fold(acc, bounds)
             nd = torch.clamp(n_done, min=1)
             stats = {k: totals[j] / nd for j, k in enumerate(EPISODE_KEYS)}
             stats["n_episodes"] = n_done
-            return stats
+            if spec is None:
+                return stats
+            spec.fold(acc, bounds + dm.episode_stats_ops(
+                stats=stats, n_episodes=n_done, stat_keys=stat_keys))
+            return stats, acc
 
+        fn.metrics_spec = spec
         return fn
 
 

@@ -38,7 +38,8 @@ SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu", "rtdp.cu",
            "ppo_loss.cu", "adam.cu",
            "netsim_scan.cu", "netsim_event.cu", "netsim_attack.cu",
            "netsim_event_bk.cu", "netsim_event_eth.cu", "netsim_event_spar.cu",
-           "exp_check.cu", "dag_script.cu:full", "dag_script.cu:lift",
+           "exp_check.cu", "metrics.cu", "dag_script.cu:full",
+           "dag_script.cu:lift",
            "quorum_check.cu:full", "bk_stream.cu:full",
            "ethereum_stream.cu:lift", "tailstorm_stream.cu:full",
            "stree_stream.cu:full", "spar_stream.cu:full",
@@ -66,7 +67,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (csrc/exp_check.cu); a burst launch with a net adds one to K11-act.
 # K14-dag-<lib> (and -full off a ring) counts the DAG envs' burst
 # launches (csrc/dag_env.cuh `dag_burst_kernel` in the K10 library
-# `<lib>`), which count on K15 and K11-act as K14's do.
+# `<lib>`), which count on K15 and K11-act as K14's do. K17 counts the
+# device-metrics folds (csrc/metrics.cu), one a fold call.
 launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K8": 0, "K9": 0, "K10-bk": 0, "K10-eth": 0, "K10-ts": 0,
             "K10-stree": 0, "K10-spar": 0, "K10-sdag": 0, "K8-full": 0,
@@ -76,7 +78,7 @@ launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K11-gae": 0, "K11-loss": 0,
             "K11-adam": 0, "K12-scan": 0, "K12-event": 0, "K13": 0,
             "K12-event-bk": 0, "K12-event-eth": 0, "K12-event-spar": 0,
-            "K14": 0, "K15": 0,
+            "K14": 0, "K15": 0, "K17": 0,
             **{f"K14-dag-{lib}{m}": 0
                for lib in ("bk", "eth", "ts", "stree", "spar", "sdag")
                for m in ("", "-full")}}
@@ -460,6 +462,7 @@ def _load() -> dict[str, ctypes.CDLL]:
         exp.cpr_k15_error_string.argtypes = [_int]
         exp.cpr_k15_error_string.restype = ctypes.c_char_p
         _libs["exp"] = exp
+        _libs["metrics"] = _metrics_lib(paths["metrics.cu"])
         for name in PROTOCOL_KERNELS.values():
             lib = ctypes.CDLL(str(paths[f"netsim_event_{name}.cu"]))
             fn = getattr(lib, f"cpr_k12_event_{name}")
@@ -1939,3 +1942,118 @@ def netsim_attack(cn, A, B, M, F, S, WA, keys, delays, alphas, policy,
     out["reward_attacker"] = out["reward"][:, 0]
     out["reward_defender"] = out["reward"][:, 1:].sum(1)
     return out
+
+
+# -- K17 ----------------------------------------------------------------------
+
+K17_MAX_CELLS = 24       # csrc/metrics.cu kMaxCells
+K17_EDGE_POOL = 64       # kEdgePool: every hist edge of one launch
+K17_ROWS_PER_BLOCK = 4096  # elements a block reads (16 a thread)
+K17_MAX_BLOCKS = 256     # blocks a cell (the last block reduces them)
+_K17_XTYPES = {torch.float32: 0, torch.int32: 1, torch.bool: 2}
+
+
+class _Cell(ctypes.Structure):  # csrc/metrics.cu Cell
+    _fields_ = [("x", _p), ("mask", _p), ("n", _i64), ("stride", _i64),
+                ("mstride", _i64)] + [
+        (f, ctypes.c_int32) for f in ("row_len", "kind", "xtype", "mtype",
+                                      "scale")] + [
+        ("value", ctypes.c_float)] + [
+        (f, ctypes.c_int32) for f in ("dst", "dst2", "n_stats", "n_edges",
+                                      "edge_off", "first_block",
+                                      "n_blocks")]
+
+
+class _FoldTable(ctypes.Structure):  # csrc/metrics.cu Table
+    _fields_ = [("n_cells", ctypes.c_int32), ("n_blocks", ctypes.c_int32),
+                ("edges", ctypes.c_float * K17_EDGE_POOL),
+                ("cells", _Cell * K17_MAX_CELLS)]
+
+
+def _metrics_lib(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    lib.cpr_k17_fold.argtypes = [ctypes.POINTER(_FoldTable), _p, _p, _p]
+    lib.cpr_k17_fold.restype = _int
+    lib.cpr_k17_table_bytes.argtypes = []
+    lib.cpr_k17_table_bytes.restype = _int
+    lib.cpr_k17_error_string.argtypes = [_int]
+    lib.cpr_k17_error_string.restype = ctypes.c_char_p
+    if lib.cpr_k17_table_bytes() != ctypes.sizeof(_FoldTable):
+        raise RuntimeError(
+            f"K17: the fold table is {lib.cpr_k17_table_bytes()} bytes in "
+            f"csrc/metrics.cu, {ctypes.sizeof(_FoldTable)} here")
+    return lib
+
+
+def _k17_tensor(t, what, dev):
+    if t.device != dev:
+        raise ValueError(f"K17 {what}: on {t.device}, expected {dev}")
+    if t.dtype not in _K17_XTYPES:
+        raise ValueError(f"K17 {what}: dtype {t.dtype}, expected float32, "
+                         "int32 or bool")
+    if t.dtype != torch.bool and t.data_ptr() % 4:
+        raise ValueError(f"K17 {what}: must be 4-byte aligned")
+    return _K17_XTYPES[t.dtype]
+
+
+def metrics_fold(acc, cells):
+    """K17: fold `cells` (at most K17_MAX_CELLS of
+    `device_metrics.MetricsSpec.lower`'s dicts: kind, x and mask as rows
+    of a pointer and strides, the accumulator words) into `acc` (a
+    spec's flat int32 buffer on the card), in place, in one launch. Each
+    cell's rows are cut into up to K17_MAX_BLOCKS blocks of
+    K17_ROWS_PER_BLOCK elements; the partials go to a scratch buffer."""
+    dev = acc.device
+    if dev.type != "cuda":
+        raise ValueError("K17 takes CUDA tensors")
+    _want(acc, "acc", torch.int32, (acc.shape[0],), dev)
+    # a tensor of no elements adds nothing
+    cells = [c for c in cells if c["x"] is None or c["n"] * c["row_len"]]
+    if len(cells) > K17_MAX_CELLS:
+        raise NotImplementedError(f"K17 folds at most {K17_MAX_CELLS} "
+                                  f"cells a launch, got {len(cells)}")
+    tab = _FoldTable()
+    tab.n_cells = len(cells)
+    blocks = edge_off = 0
+    keep = []
+    for i, c in enumerate(cells):
+        cell = tab.cells[i]
+        cell.kind, cell.n, cell.scale = c["kind"], c["n"], c["scale"]
+        cell.stride, cell.mstride = c["stride"], c["mstride"]
+        cell.row_len, cell.value = c["row_len"], c["value"]
+        cell.dst, cell.dst2, cell.n_stats = c["dst"], c["dst2"], c["n_stats"]
+        if c["edges"] is not None:
+            e = c["edges"]
+            if edge_off + len(e) > K17_EDGE_POOL:
+                raise NotImplementedError(
+                    f"K17 bins at most {K17_EDGE_POOL} edges a launch")
+            tab.edges[edge_off:edge_off + len(e)] = [float(v) for v in e]
+            cell.n_edges, cell.edge_off = len(e), edge_off
+            edge_off += len(e)
+        x, m = c["x"], c["mask"]
+        if x is None:
+            if c["kind"] == 3:
+                raise ValueError("K17: a hist cell takes a tensor")
+            continue
+        cell.xtype = _k17_tensor(x, "values", dev)
+        cell.x = x.data_ptr()
+        keep.append(x)
+        if m is not None:
+            mt = _k17_tensor(m, "mask", dev)
+            if mt == 0:
+                raise ValueError("K17 mask: bool or int32")
+            cell.mtype, cell.mask = 2 if mt == 1 else 1, m.data_ptr()
+            keep.append(m)
+        nb = max(1, min(K17_MAX_BLOCKS, -(-c["n"] * c["row_len"]
+                                           // K17_ROWS_PER_BLOCK)))
+        cell.first_block, cell.n_blocks = blocks, nb
+        blocks += nb
+    tab.n_blocks = blocks
+    scratch = torch.empty(32 * (blocks + 1), dtype=torch.int32, device=dev)
+    lib = _load()["metrics"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k17_fold(ctypes.byref(tab), acc.data_ptr(),
+                              scratch.data_ptr(), _stream(dev))
+    _check(rc, lib, "cpr_k17_error_string", "K17 fold")
+    launches["K17"] += 1
+    return acc

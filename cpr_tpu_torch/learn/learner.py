@@ -82,9 +82,10 @@ class Learner:
         self.device = _device.resolve(device)
         rt = relative_reward_on_done if reward_transform == "relative" \
             else reward_transform
-        self.net, init_fn, self._update = make_experience_update(
-            env.n_actions, env.observation_length, cfg,
-            reward_transform=rt, device=self.device)
+        self.net, init_fn, self._update, self._mspec = \
+            make_experience_update(env.n_actions, env.observation_length,
+                                   cfg, reward_transform=rt,
+                                   device=self.device)
         keys = random.split(random.PRNGKey(seed, self.device))
         init_key, self._key = keys[0], keys[1]
         self.ts = init_fn(init_key)

@@ -48,8 +48,7 @@ from cpr_tpu_torch.envs.nakamoto import (ADOPT, EV_NETWORK, EV_POW, MATCH,
 from cpr_tpu_torch.netsim.compile import CompiledNet, compile_network
 from cpr_tpu_torch.netsim.engine import (F32, F64, I32, EventLedger,
                                          check_kernel_nodes, finish,
-                                         lane_keys, load_kernels,
-                                         refuse_device_metrics)
+                                         lane_keys, load_kernels)
 
 ATTACK_PROTOCOLS = ("nakamoto",)
 SCRIPTED_POLICIES = POLICY_NAMES
@@ -369,7 +368,6 @@ class AttackEngine:
         bad_a = [a for a in alphas if not 0.0 < a < 1.0]
         if bad_a:
             raise ValueError(f"alphas must lie in (0, 1), got {bad_a}")
-        refuse_device_metrics()
         tele = telemetry.current()
         dev = self.device
         keys = lane_keys(seeds, dev)

@@ -32,15 +32,19 @@ integer output can differ only where a decision compared two times
 closer than that (the plain versions return that smallest gap as
 `margin`).
 
-Not ported: `x64=False` (float32 clocks, ROADMAP item 11b), `mesh=`
-(item 13) and the CPR_DEVICE_METRICS cells (item 14): each raises,
-naming its item. The kernels hold one node per thread of a warp, so they
-take N <= 32 nodes (item 11b); the plain versions take any N.
+Under CPR_DEVICE_METRICS=1 `Engine.run` emits the reference's
+`device_metrics` event of scope `netsim` (steps and drop counters over
+the lanes); `AttackEngine.run` runs as without it, as the reference's
+does.
+
+Not ported: `x64=False` (float32 clocks, ROADMAP item 11b) and `mesh=`
+(item 13): each raises, naming its item. The kernels hold one node per
+thread of a warp, so they take N <= 32 nodes (item 11b); the plain
+versions take any N.
 """
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -1077,13 +1081,6 @@ def load_kernels(tele, name: str, seen: set, lanes: int, device) -> None:
     seen.add(lanes)
 
 
-def refuse_device_metrics() -> None:
-    if os.environ.get("CPR_DEVICE_METRICS") == "1":
-        raise NotImplementedError(
-            "CPR_DEVICE_METRICS=1: the netsim's device-metrics cells are "
-            "not ported yet (ROADMAP item 14, K17)")
-
-
 class Engine:
     """One netsim configuration: fixed topology, protocol and activation
     target; `run()` executes a batch of lanes (independent seed /
@@ -1175,7 +1172,6 @@ class Engine:
         delays = list(activation_delays)
         if len(seeds) != len(delays):
             raise ValueError("seeds and activation_delays must pair up")
-        refuse_device_metrics()
         L = len(seeds)
         tele = telemetry.current()
         keys = lane_keys(seeds, self.device)
@@ -1191,7 +1187,26 @@ class Engine:
                    drops=int(out["drop_q"].sum() + out["drop_p"].sum()
                              + out["drop_b"].sum()
                              + out["win_miss"].sum()))
+        self._emit_device_metrics(out)
         return out
+
+    def _emit_device_metrics(self, out):
+        """The run's cells under CPR_DEVICE_METRICS=1 (the reference's
+        engine.py:1084-1097): steps and the three drop counters summed
+        over the lanes' outputs. Those are host arrays in both packages,
+        so the fold is the plain one, on a CPU accumulator."""
+        from cpr_tpu_torch import device_metrics as dm
+
+        if not dm.enabled():
+            return
+        spec = (dm.MetricsSpec().counter("steps").counter("queue_drops")
+                .counter("pending_drops").counter("ledger_drops"))
+        acc = spec.fold(spec.init("cpu"), [
+            dm.count_op(cell, torch.from_numpy(np.asarray(out[k])))
+            for cell, k in (("steps", "steps"), ("queue_drops", "drop_q"),
+                            ("pending_drops", "drop_p"),
+                            ("ledger_drops", "drop_b"))])
+        dm.emit("netsim", spec, acc, protocol=self.protocol)
 
     def lanes(self, keys, delays) -> dict:
         """The lanes' outputs as tensors on the keys' device: K12-scan,

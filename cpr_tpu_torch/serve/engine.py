@@ -52,18 +52,22 @@ block's shared memory beside K14-dag's static shared memory, as the
 card reports it (the env's `check_burst_nets`). A table past those
 limits raises NotImplementedError naming the kernel
 (`env.burst_kernel_name`); there is no fallback to the
-plain burst. `mesh=` (item 13) and `CPR_DEVICE_METRICS=1` (K17, item
-14) raise.
+plain burst. `mesh=` (item 13) raises.
+
+With `CPR_DEVICE_METRICS=1` (read at construction) the engine keeps a
+`device_metrics.serve_spec()` accumulator on its device: each
+`burst_run` folds its cells from the burst's live mask and first-done
+registers (K17 on the card, one launch after the burst's), the warm-up
+burst of `start` does not count, and `emit_metrics` folds the host walls
+and the shed count into a copy and emits it (one readback).
 """
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
-from cpr_tpu_torch import _device, kernels, random, telemetry
+from cpr_tpu_torch import _device, device_metrics, kernels, random, telemetry
 from cpr_tpu_torch.envs.base import _lane_where, copy_state_, map_state
 from cpr_tpu_torch.kernels import BURST_GREEDY as _GREEDY
 from cpr_tpu_torch.kernels import BURST_SAMPLE as _SAMPLE
@@ -131,9 +135,6 @@ class ResidentEngine:
             raise ValueError(f"burst must be positive, got {burst}")
         if mesh is not None:
             raise _not_ported("ResidentEngine(mesh=...)", 13)
-        if os.environ.get(telemetry.DEVICE_METRICS_ENV_VAR) == "1":
-            raise _not_ported("the serve burst's device metrics "
-                              "(CPR_DEVICE_METRICS=1, K17)", 14)
         self.device = _device.resolve(device)
         self.on_card = self.device.type == "cuda"
         if self.on_card and not env.burst_kernel:
@@ -230,6 +231,13 @@ class ResidentEngine:
         # the K14 launcher over them, and the net slots it was made for
         self._launch = self._launch_key = None
 
+        # device metrics (CPR_DEVICE_METRICS=1): the accumulator, made
+        # by start() after the warm-up burst, and the bursts' host walls
+        self._spec = device_metrics.serve_spec()
+        self._with_metrics = device_metrics.enabled()
+        self._macc = None
+        self._burst_wall: list[float] = []
+
         # host-side throughput ledger (report() / the serve perf rows)
         self.steps = 0
         self.episodes = 0
@@ -298,6 +306,9 @@ class ResidentEngine:
         if self.on_card:
             self._burst_staged(np.zeros(0, np.int64), np.zeros(0, np.int32),
                                set())
+        if self._with_metrics:
+            # after the warm-up burst, which must not count
+            self._macc = self._spec.init(self.device)
 
     # -- the three device entry points ------------------------------------
 
@@ -405,22 +416,41 @@ class ResidentEngine:
                 self._rekey(admit)
                 self.admitted += len(admit)
             host = self._burst_staged(lanes, pids, used, admit)
+            live_t = self._stage_burst.views["live"]
+            got_t = self._stage_regs.views["done"]
         else:
             pol = np.zeros(self.n_lanes, np.int32)
             live = np.zeros(self.n_lanes, bool)
             pol[lanes] = pids
             live[lanes] = True
+            live_t = torch.from_numpy(live)
             regs = self._burst_plain(self._carry, self._exp,
-                                     torch.from_numpy(pol),
-                                     torch.from_numpy(live))
+                                     torch.from_numpy(pol), live_t)
             host = {k: v.numpy() for k, v in regs.items()}
+            got_t = regs["done"]
+        if self._macc is not None:
+            self._fold_burst(live_t, got_t, occ)
         dur = telemetry.now() - t0
         self.bursts += 1
         self.steps += len(lane_policy) * self.burst
         self.episodes += int(host["done"].sum())
         self.busy_s += dur
         self._occ_sum += occ
+        self._burst_wall.append(dur)
         return host
+
+    def _fold_burst(self, live, got, occ: float):
+        """The per-burst cells (the reference's engine.py:311-320) from
+        the burst's own inputs and registers on its device: env_steps =
+        live lanes x burst, episodes = lanes whose first episode ended
+        (`got`), one burst, the occupancy. One K17 launch on the card,
+        reading the staging buffers before the next burst's copy."""
+        dm = device_metrics
+        self._spec.fold(self._macc, [
+            dm.count_op("env_steps", live, self.burst),
+            dm.count_op("episodes", got),
+            dm.count_op("bursts", 1),
+            dm.observe_op("occupancy", occ)])
 
     # -- the burst: K14/K14-dag on the card, the plain twin on the CPU ------
 
@@ -651,8 +681,20 @@ class ResidentEngine:
         self.sheds += 1
 
     def emit_metrics(self, scope: str = "serve"):
-        """The reference folds its in-graph metrics cells here; the port
-        has none (K17, ROADMAP item 14: the engine refuses
-        CPR_DEVICE_METRICS=1), so this returns None as the reference
-        does with metrics off."""
-        return None
+        """Fold the host-recorded burst walls (the `burst_s` spread and
+        the `burst_s_hist` log buckets) and the shed counter into a copy
+        of the accumulator and emit the `device_metrics` event (one
+        readback). Returns its summary; None when metrics are off."""
+        if self._macc is None:
+            return None
+        dm = device_metrics
+        ops = []
+        if self._burst_wall:
+            walls = torch.tensor(self._burst_wall, dtype=torch.float32,
+                                 device=self.device)
+            ops += [dm.observe_op("burst_s", walls),
+                    dm.hist_op("burst_s_hist", walls)]
+        if self.sheds:
+            ops.append(dm.count_op("shed_sessions", self.sheds))
+        macc = self._spec.fold(self._macc.clone(), ops)
+        return dm.emit(scope, self._spec, macc)

@@ -45,8 +45,9 @@ RUN_ID_ENV_VAR = "CPR_RUN_ID"
 # flight-recorder ring capacity: the last N emitted events
 BLACKBOX_ENV_VAR = "CPR_BLACKBOX_EVENTS"
 BLACKBOX_DEFAULT_EVENTS = 512
-# in-graph device metrics (K17, ROADMAP item 14): read by the serve
-# engine, which refuses to run with it set
+# device metrics (K17, `device_metrics.enabled`): read when the serve
+# engine and PPO's train step and update are built and when the netsim
+# engine runs; their cells arrive as `device_metrics` events
 DEVICE_METRICS_ENV_VAR = "CPR_DEVICE_METRICS"
 
 # every span event carries at least these keys
@@ -79,6 +80,9 @@ EVENT_FIELDS = {
     "alert": ("signal", "severity", "window_s", "value", "budget",
               "burn_rate"),
     "memory": ("scope", "peak_bytes", "source"),
+    # one per device-metrics readback (device_metrics.emit): scope names
+    # the producer (rollout, stats driver, serve, ppo_update, netsim)
+    "device_metrics": ("scope", "metrics"),
     "integrity": ("artifact", "artifact_kind", "reason", "action"),
     # one per leg of the always-on learning loop (learn.learn_event):
     # role is sample|feed|update|publish|swap

@@ -27,7 +27,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from cpr_tpu_torch import _device, convert, random, resilience, telemetry
+from cpr_tpu_torch import (_device, convert, device_metrics, random,
+                           resilience, telemetry)
 from cpr_tpu_torch.envs.assumption import AssumptionEnv
 from cpr_tpu_torch.envs.registry import get_sized
 from cpr_tpu_torch.params import FIELDS as PARAM_FIELDS
@@ -366,7 +367,11 @@ def train_from_config(cfg: TrainConfig, *, out_dir: str | None = None,
             with tele.span("update", env_steps=steps_per_update) as sp:
                 carry, metrics = step(carry)
                 sp.fence(carry[2])
+                acc = metrics.pop("device_metrics", None)
                 m = {k: float(v) for k, v in metrics.items()}
+            if acc is not None:
+                device_metrics.emit("ppo_update", train_step.metrics_spec,
+                                    acc, update=i + 1)
             m["wall_s"] = round(sp.dur_s, 6)
             if sp.dur_s > 0:
                 m["steps_per_sec"] = round(steps_per_update / sp.dur_s)

@@ -41,7 +41,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from cpr_tpu_torch import _device, random
+from cpr_tpu_torch import _device, device_metrics, random
 from cpr_tpu_torch.learn.buffer import EXPERIENCE_STREAM, experience_stream
 from cpr_tpu_torch.train import optim
 
@@ -341,13 +341,20 @@ def loss_head(logits, value, action, old_logp, old_value, adv, target,
 
 # -- the update half -----------------------------------------------------------
 
-def make_minibatch_epochs(cfg: PPOConfig):
+def make_minibatch_epochs(cfg: PPOConfig, mspec=None):
     """The update half after GAE (ppo.py:187-285): epochs of minibatch
     updates over ONE trajectory, (T, N) from its shapes, and the step's
     metrics.
 
     Returns epochs(ts, traj, advs, targets, key) -> (ts, key, metrics),
-    `ts` updated in place, metrics 0-dim tensors."""
+    `ts` updated in place, metrics 0-dim tensors. With `mspec`
+    (`device_metrics.ppo_spec()`), metrics["device_metrics"] is the
+    step's accumulator (ppo.py:217-248): `nonfinite_advantages` over
+    the advantages, and per minibatch `minibatches`, `nonfinite_loss`
+    (pg_loss, v_loss or entropy not finite), `approx_kl` and, with
+    `target_kl`, `minibatches_skipped`, every minibatch counted as the
+    reference's scan runs a gated one as a no-op; one fold (K17 on the
+    card) over the stacked minibatch metrics after the last epoch."""
     kl_limit = (None if cfg.target_kl is None
                 else float(np.float32(1.5 * cfg.target_kl)))
 
@@ -404,16 +411,29 @@ def make_minibatch_epochs(cfg: PPOConfig):
         for k in ("episode_reward_attacker", "episode_reward_defender"):
             metrics[k] = torch.where(done, traj.info[k], zero).sum() / nd
         metrics["n_episodes"] = n_done.to(torch.int32)
+        if mspec is not None:
+            dm = device_metrics
+            ops = [dm.nonfinite_op("nonfinite_advantages", adv_f),
+                   dm.count_op("minibatches", stacked.shape[0]),
+                   dm.nonfinite_op("nonfinite_loss", stacked[:, :3],
+                                   rows=True),
+                   dm.observe_op("approx_kl", stacked[:, 3])]
+            if kl_limit is not None:
+                ops.append(dm.count_op("minibatches_skipped",
+                                       len(applied) - sum(applied)))
+            metrics["device_metrics"] = mspec.fold(
+                mspec.init(stacked.device), ops)
         return ts, key, metrics
 
     return epochs
 
 
-def make_update_phase(cfg: PPOConfig):
+def make_update_phase(cfg: PPOConfig, mspec=None):
     """The update half of a PPO step (ppo.py:139-285): GAE, then
-    `make_minibatch_epochs`' epochs. Returns update_phase(ts, traj,
-    last_value, key) -> (ts, key, metrics)."""
-    epochs = make_minibatch_epochs(cfg)
+    `make_minibatch_epochs`' epochs (with `mspec`, their device-metrics
+    accumulator). Returns update_phase(ts, traj, last_value, key) ->
+    (ts, key, metrics)."""
+    epochs = make_minibatch_epochs(cfg, mspec)
 
     def update_phase(ts: TrainState, traj: Transition, last_value, key):
         advs, targets = gae(traj.reward, traj.value, traj.done, last_value,
@@ -493,7 +513,10 @@ def make_train(env, env_params, cfg: PPOConfig,
     key splits in three (net, envs); `params` (a flat vector, e.g. from
     `convert.actor_critic_from_flax`) replaces the port's own init.
     train_step(carry) -> (carry, metrics), the carry updated in place:
-    `rollout` from the carry's key, the transform, then `update_phase`."""
+    `rollout` from the carry's key, the transform, then `update_phase`.
+    With CPR_DEVICE_METRICS=1 (read here) metrics["device_metrics"] is
+    the step's `device_metrics.ppo_spec()` accumulator, and
+    `train_step.metrics_spec` the spec (None when off)."""
     if rollout_phase is not None:
         raise _not_ported("make_train(rollout_phase=...), the resident "
                           "lane rollout", 12)
@@ -503,7 +526,8 @@ def make_train(env, env_params, cfg: PPOConfig,
         if n != cfg.n_envs:
             raise ValueError(f"per_env_params: params for {n} lanes, "
                              f"cfg.n_envs is {cfg.n_envs}")
-    update_phase = make_update_phase(cfg)
+    mspec = device_metrics.ppo_spec() if device_metrics.enabled() else None
+    update_phase = make_update_phase(cfg, mspec)
     n_per = cfg.total_updates * cfg.update_epochs * cfg.n_minibatches
 
     def lr_schedule(count):
@@ -542,6 +566,7 @@ def make_train(env, env_params, cfg: PPOConfig,
         ts, key, metrics = update_phase(ts, traj, last_value, key)
         return (ts, env_state, obs, key), metrics
 
+    train_step.metrics_spec = mspec
     return init_fn, train_step
 
 
@@ -558,13 +583,16 @@ def make_experience_update(n_actions: int, obs_dim: int, cfg: PPOConfig, *,
     """The learner half over fed experience (ppo.py:450-500): logp and
     value recomputed under the current params, then `update_phase`.
 
-    Returns (net, init_fn, update): init_fn(key, params=None) ->
+    Returns (net, init_fn, update, mspec): init_fn(key, params=None) ->
     TrainState; update(ts, batch, key) -> (ts, key, metrics), `ts`
-    updated in place. Batch (time-major): obs [T, N, obs_dim] float32,
-    action [T, N] int32, reward/era/erd [T, N] float32, done [T, N]
-    bool, last_obs [N, obs_dim]."""
+    updated in place; mspec the `device_metrics.ppo_spec()` of
+    metrics["device_metrics"] under CPR_DEVICE_METRICS=1, else None.
+    Batch (time-major): obs [T, N, obs_dim] float32, action [T, N]
+    int32, reward/era/erd [T, N] float32, done [T, N] bool, last_obs
+    [N, obs_dim]."""
     dev = _device.resolve(device)
-    update_phase = make_update_phase(cfg)
+    mspec = device_metrics.ppo_spec() if device_metrics.enabled() else None
+    update_phase = make_update_phase(cfg, mspec)
     tx = optim.ClipAdam(cfg.lr, max_grad_norm=cfg.max_grad_norm)
     net = ActorCritic(obs_dim, n_actions, cfg.hidden, device=dev)
 
@@ -592,7 +620,7 @@ def make_experience_update(n_actions: int, obs_dim: int, cfg: PPOConfig, *,
                           reward=reward, done=done, info=info)
         return update_phase(ts, traj, last_value, key)
 
-    return net, init_fn, update
+    return net, init_fn, update, mspec
 
 
 def maybe_checkify(step_fn):
@@ -619,7 +647,9 @@ def relative_reward_on_done(reward, info, done):
 def train(env, env_params, cfg: PPOConfig, *, n_updates: int, seed: int = 0,
           reward_transform=relative_reward_on_done, mesh=None,
           progress: Callable | None = None, device=None):
-    """Run PPO for n_updates; returns (train_state, metrics history)."""
+    """Run PPO for n_updates; returns (train_state, metrics history).
+    Under CPR_DEVICE_METRICS=1 each update emits a `device_metrics`
+    event of scope `ppo_update` (update=i, as the reference)."""
     import time
     if mesh is not None:
         raise _not_ported("train(mesh=...)", 13)
@@ -632,8 +662,12 @@ def train(env, env_params, cfg: PPOConfig, *, n_updates: int, seed: int = 0,
     for i in range(n_updates):
         t0 = time.perf_counter()
         carry, metrics = train_step(carry)
+        acc = metrics.pop("device_metrics", None)
         m = {k: float(v) for k, v in metrics.items()}
         dur = time.perf_counter() - t0
+        if acc is not None:
+            device_metrics.emit("ppo_update", train_step.metrics_spec, acc,
+                                update=i)
         m["wall_s"] = round(dur, 6)
         if dur > 0:
             m["steps_per_sec"] = round(steps_per_update / dur)

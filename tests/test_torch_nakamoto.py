@@ -299,12 +299,15 @@ def test_driver_option_errors():
     pol = tenv.policies["honest"]
     with pytest.raises(ValueError, match="chunk must be positive"):
         tenv.make_episode_stats_fn(tp, pol, 10, chunk=0)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tenv.make_episode_stats_fn(tp, pol, 10, collect_metrics=True)
     with pytest.raises(NotImplementedError, match="item 13"):
         tenv.make_episode_stats_fn(tp, pol, 10, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tenv.rollout(rnd.PRNGKey(0, "cpu"), tp, pol, 4, with_metrics=True)
+    # device metrics (K17) are ported: both options return an accumulator
+    fn = tenv.make_episode_stats_fn(tp, pol, 10, collect_metrics=True)
+    stats, acc = fn(rnd.split(rnd.PRNGKey(0, "cpu"), 2))
+    assert fn.metrics_spec.summarize(acc)["env_steps"] == 20
+    traj, acc = tenv.rollout(rnd.PRNGKey(0, "cpu"), tp, pol, 4,
+                             with_metrics=True)
+    assert traj[2].shape == (4,) and acc.dtype == torch.int32
 
 
 def test_reward_ratios():

@@ -294,9 +294,19 @@ def test_engine_validation(monkeypatch):
         netsim.Engine(net, activations=100, x64=False, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         netsim.Engine(net, activations=100, mesh=object(), device="cpu")
+    # CPR_DEVICE_METRICS=1 (K17 ported): the run emits the reference's
+    # netsim cells instead of raising
     monkeypatch.setenv("CPR_DEVICE_METRICS", "1")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        eng.run([0], [50.0])
+    stream = io.StringIO()
+    telemetry.configure(stream=stream)
+    try:
+        out = eng.run([0], [50.0])
+    finally:
+        telemetry.configure(None)
+    (ev,) = [e for e in map(json.loads, stream.getvalue().splitlines())
+             if e.get("name") == "device_metrics"]
+    assert ev["scope"] == "netsim" and ev["protocol"] == "nakamoto"
+    assert ev["metrics"]["steps"] == int(out["steps"].sum())
     for proto, k, scheme in (("nakamoto", 1, "constant"),
                              ("bk", 8, "block"), ("tailstorm", 8, "constant"),
                              ("bk", 8, "discount"), ("spar", 0, "constant"),

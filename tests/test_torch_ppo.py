@@ -432,7 +432,8 @@ def test_experience_update_against_jax():
     jts2, jkey, jm = jupdate(jts, {k: jnp.asarray(v) for k, v in
                                    batch.items()}, jax.random.PRNGKey(2))
     pcfg = P.PPOConfig(update_epochs=2, n_minibatches=2, hidden=(16, 16))
-    _, tinit, tupdate = P.make_experience_update(A, F, pcfg, device="cpu")
+    _, tinit, tupdate, _ = P.make_experience_update(A, F, pcfg,
+                                                    device="cpu")
     tts = tinit(rnd.PRNGKey(1, device="cpu"), params=flat0)
     tts, tkey, tm = tupdate(tts, {k: torch.from_numpy(np.asarray(v))
                                   for k, v in batch.items()},
