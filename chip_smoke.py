@@ -327,7 +327,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
  54. the wire path: `python -m cpr_tpu_torch.serve.server` as a child
      at its defaults (32 lanes, burst 256, max_steps 256) with a policy
      snapshot; 32 concurrent clients (scripted and `ppo` episode.run,
-     interactive episodes stepped to their end, one netsim.query);
+     interactive episodes stepped to their end, a netsim.query at the
+     default 10 nodes and one at 64, path (d));
      then tools/serve_smoke.py's flood: FLOOD_EPISODES honest episodes
      over 128 persistent connections from 2 client processes, the steps
      per busy dispatch second of the server's stats over a batch
@@ -336,8 +337,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
      floor SERVE_MIN_FRAC (0.8; not held: ROADMAP §3.4); SIGTERM: a
      drain report with 0 <
      p50 <= p99 < the traffic's wall, exit 0; the child's launch counts
-     (printed at its exit: K2, K3, K14, K11-act, K12-scan, and K1
-     allowed);
+     (printed at its exit: K2, K3, K14, K11-act, K12-scan,
+     K12-scan-n64, and K1 allowed);
  55. the learning loop: `python -m cpr_tpu_torch.learn.learner` and a
      server with `--learner` and `--learn-watch` at tools/learn_smoke.
      py's shape (16 lanes, burst 64, max_steps 64, --n-envs 16 --n-steps
@@ -460,6 +461,40 @@ Phases, one line each; any failure raises and the exit code is not 0:
  73. `netsim.Engine.run` at bench.py's clique with the variable on: one
      `device_metrics` event of scope netsim equal to the outputs' sums;
      `AttackEngine.run` runs with it set (K12-scan, K13).
+ 74. the netsim past 32 nodes (node n on thread n % 32 in slot n / 32 of
+     2, 4 or 8; counters `<kernel>-n64`, `-n128`, `-n256`): every case of
+     the wide JAX fixture (tests/fixtures/torch_port_netsim_wide_golden.npz:
+     40-node cliques under Nakamoto scan and event, Bk k=4 and Spar k=4,
+     Byzantium on 64 nodes, flooding on preferential_attachment(40, 2),
+     the attacker at gamma 0.97 with 34 defenders, at the default queue
+     and at queue 64 (every lane dropping), 100- and 130-node cliques)
+     through the widened kernels;
+ 75. path (a): `honest_net_rows(engine="jax", n_nodes=64)` at the
+     reference's defaults, then Spar k=4 under both schemes, a warm and a
+     timed round, each call with its own launch counts (K12-scan-n64,
+     K12-event-eth-n64, K12-event-bk-n64; K12-event-spar-n64), phase 49's
+     guards; each kernel's first configuration held to its plain version
+     on the sweep's five lanes at WIDE_HN_PLAIN_ACTS activations;
+ 76. path (b): flooding on preferential_attachment(100, 2, exponential,
+     seed 42) through Engine.run, Nakamoto PA_LANES x PA_ACTS and Bk k=8
+     PA_BK_LANES x PA_BK_ACTS (K12-event-n128, K12-event-bk-n128): no
+     drop or exhausted lane, rewards summing to the progress; all lanes
+     held to the plain version at PA_PLAIN_ACTS and PA_BK_PLAIN_ACTS;
+ 77. path (c): the attacker on selfish_mining(alpha 0.25, gamma 0.99, 100
+     defenders, activation delay 60, propagation 1), 101 nodes, alpha in
+     ATK_ALPHAS x {honest, SM1}, the default queue: AttackEngine.run
+     SM_LANES x SM_ACTS, then `attack_sweep` at SM_SWEEP_LANES x
+     SM_SWEEP_ACTS (K13-n128); the drops printed; the path's lanes held at
+     SM_PLAIN_ACTS, its alpha 0.45 SM1 lanes at SM_DEEP_ACTS, where the
+     plain version drops queue entries and parked blocks, the sweep's at
+     SM_SWEEP_PLAIN_ACTS;
+ 78. path (e): a 256-node clique, scan and event, WIDE_MAX_LANES x
+     WIDE_MAX_ACTS (K12-scan-n256, K12-event-n256), held to the plain
+     versions at that depth; 257 nodes refused by name (the limit and
+     ROADMAP item 11b) by Engine and AttackEngine before any launch;
+ 79. each widened kernel's device time at its path's shape, L2 scrubbed,
+     and its bound. Path (d), the server's netsim.query at 64 nodes
+     (K12-scan-n64), runs in phase 54's wire child.
 Then the kernels line (JSON: launches summed over the main paths, the
 error of the main-shape comparison, the times and the bound) and the
 last line {"ok": true, "device": {...}}.
@@ -769,6 +804,46 @@ PROTO_KERNELS = tuple(PROTO_CONFIGS)
 PROTO_OUT_KEYS = ("head", "head_height", "progress", "on_chain", "sim_time",
                   "n_blocks", "n_act", "node_act", "reward", "steps",
                   "drop_q", "drop_p", "drop_b", "win_miss", "exhausted")
+
+# The netsim past 32 nodes (phases 74-79): the widened kernels, node n on
+# thread n % 32 in slot n / 32 (2, 4 or 8 slots: the `-n64`, `-n128`,
+# `-n256` counters). Path (a) the honest-network sweep on a 64-node clique
+# at the reference's defaults; (b) flooding on the simulate-topology
+# generator's network at 100 nodes (cpr_tpu/network.py:123-175,
+# exponential link delays; ~400 delivery steps an activation over its 394
+# directed links, so max_steps PA_STEPS_PER_ACT an activation, and depth
+# cut for time: on an H100 a launch of 96 lanes x 250 takes ~0.77 s and
+# one of 5 x 1000 under Bk ~4 s, so 10 000 activations would take 30-40
+# s a launch; Nakamoto at PA_ACTS, ~200 blocks a lane, Bk k=8 at
+# PA_BK_ACTS, ~125 blocks of 8 votes a lane); (c) the attacker at gamma
+# 0.99 (cpr_tpu/params.py:81-84: ceil(1 / (1 - gamma)) = 100
+# defenders), the default queue; (d) the server's netsim.query at 64
+# nodes (phase 54); (e) a 256-node clique, and one node more refused. Every widened kernel is held to its plain version
+# (the replays in `plain_ahead`'s child, at the *_PLAIN_ACTS depths: Bk
+# k=8 deep enough for 10 blocks a lane, path (c)'s alpha 0.45 SM1 lanes
+# deep enough to drop; the sweep's lanes SM_SWEEP_CHUNK a replay) and to
+# the wide JAX fixture.
+WIDE_FIXTURE = ROOT / "tests" / "fixtures" / \
+    "torch_port_netsim_wide_golden.npz"
+WIDE_HN_NODES, WIDE_HN_PLAIN_ACTS = 64, 1000
+WIDE_QUERY_NODES = 64
+PA_NODES, PA_M, PA_SEED = 100, 2, 42
+PA_LANES, PA_ACTS, PA_PLAIN_ACTS = 96, 250, 15
+PA_BK_LANES, PA_BK_ACTS, PA_BK_PLAIN_ACTS = 5, 1000, 80
+PA_STEPS_PER_ACT = 800
+PA_RUNS = (("nakamoto", 1, PA_LANES, PA_ACTS, "K12-event-n128"),
+           ("bk", 8, PA_BK_LANES, PA_BK_ACTS, "K12-event-bk-n128"))
+SM_ALPHA, SM_GAMMA, SM_DEFENDERS = 0.25, 0.99, 100
+SM_DELAY, SM_PROP = 60.0, 1.0
+SM_LANES, SM_ACTS, SM_PLAIN_ACTS, SM_DEEP_ACTS = 64, 1500, 100, 300
+SM_SWEEP_REPS, SM_SWEEP_ACTS, SM_SWEEP_PLAIN_ACTS = 128, 1000, 10
+SM_SWEEP_LANES = 8 * SM_SWEEP_REPS  # ATK_ALPHAS x ATK_POLICIES x reps
+SM_SWEEP_CHUNK = 128
+WIDE_DROP_HOLDS = ("c-deep",)
+WIDE_MAX_NODES, WIDE_MAX_LANES, WIDE_MAX_ACTS = 256, 4, 1000
+WIDE_KERNELS = ("K12-scan-n64", "K12-event-eth-n64", "K12-event-bk-n64",
+                "K12-event-spar-n64", "K12-event-n128", "K12-event-bk-n128",
+                "K13-n128", "K12-scan-n256", "K12-event-n256")
 
 # The serve paths (phases 51-55). Nine bursts of 256 cover an episode of
 # 2016 steps; it ends in burst 7, the one held to the plain version.
@@ -1340,13 +1415,15 @@ def phase_times(dev, report, main_episodes):
         for k in ("K1", "K2", "K3")})
 
 
-def event_ms(fn, reps):
+def event_ms(fn, reps, warm=True):
     """Mean device time of `fn` by CUDA events around each call, with
-    the L2 cache scrubbed (as in device_ms) before each; for calls that
-    launch several kernels or kernels of a library."""
+    the L2 cache scrubbed (as in device_ms) before each, after a warm
+    call unless `warm` is false (a shape that ran before); for calls
+    that launch several kernels or kernels of a library."""
     scrub = torch.empty(L2_SCRUB_BYTES // 4, dtype=torch.float32,
                         device="cuda")
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     total = 0.0
     for i in range(reps):
@@ -4101,9 +4178,10 @@ def lane_slice(out: dict, n: int) -> dict:
 
 
 def plain_ahead(dev, out_dir):
-    """The netsim kernels' plain holds (phases 35, 37 and 48:
-    `k12_scan_holds`, `k12_event_holds`, `proto_holds`), in a child
-    process started while the main process builds the other kernels:
+    """The netsim kernels' plain holds (phases 35-39, 48 and 75-78:
+    `k12_scan_holds` and the netsim sweep's, `k12_event_holds`,
+    `proto_holds`, `k13_holds`, `wide_holds`), in a child process started
+    while the main process builds the other kernels:
     these plain versions replay CUDA graphs of small launches, bound by
     the card's latency, and the card is idle during the build; their one
     kernel is K1 (their draws), built first (`kernels.load_random`).
@@ -4124,6 +4202,10 @@ def plain_ahead(dev, out_dir):
     for what, cn, L, acts in k12_scan_holds():
         hold(f"K12-scan {what}",
              lambda: E.scan_plain(cn, acts, L, keys, dl))
+    sk, sd = lane_inputs(*netsim.grid(range(NET_SWEEP_SEEDS),
+                                      NET_SWEEP_DELAYS), dev)
+    hold("K12-scan sweep", lambda: E.scan_plain(
+        bench_clique(NET_NODES, NET_PROP), NET_ACTS, 32, sk, sd))
     for what, cn, lanes, acts in k12_event_holds():
         eng = netsim.Engine(cn, activations=acts, mode="event")
         ek, ed = lane_inputs(range(lanes), [NET_ACT_DELAY] * lanes, dev)
@@ -4132,6 +4214,12 @@ def plain_ahead(dev, out_dir):
     for kern, what, cfg, acts, flooding in proto_holds():
         eng, pk, pd = proto_hold_inputs(cfg, acts, flooding, dev)
         hold(f"{kern} {what}", lambda: proto_plain(eng, pk, pd))
+    for what, eng, lanes, alphas, pids in k13_holds():
+        args = attack_inputs(eng, lanes, alphas, pids, dev)
+        hold(f"K13 {what}", lambda: attack_plain_run(eng, *args))
+    for name, _, spec in wide_holds():
+        eng, inputs = wide_hold_inputs(spec, dev)
+        hold(f"wide {name}", lambda: wide_plain(eng, inputs))
     return out
 
 
@@ -4197,10 +4285,10 @@ def drops(out):
                                                   "drop_b", "win_miss")))
 
 
-def phase_netsim_path(dev, report):
+def phase_netsim_path(dev, report, ahead):
     """The netsim path at bench.py's shape through Engine.run, its own
     launch counts; then the sweep shape, held to the plain version on all
-    its lanes."""
+    its lanes (its replay from `plain_ahead`'s child: `ahead`)."""
     from cpr_tpu_torch import kernels, netsim, network
     from cpr_tpu_torch.netsim import engine as E
     net = network.symmetric_clique(NET_NODES, activation_delay=NET_ACT_DELAY,
@@ -4243,9 +4331,8 @@ def phase_netsim_path(dev, report):
         len(NET_SWEEP_DELAYS), NET_SWEEP_SEEDS).mean(1)
     check(np.all(np.diff(by_delay) < 0),
           f"sweep orphan rates not falling with the delay: {by_delay}")
-    keys, dl = lane_inputs(ss, dd, dev)
-    want, plain_s = plain_timed(
-        lambda: E.scan_plain(eng.net, NET_ACTS, eng.lookback, keys, dl))
+    check(eng.lookback == 32, "the sweep's hold runs lookback 32")
+    want, plain_s = ahead_plain(ahead, "K12-scan sweep")
     err = compare_netsim(sweep, want, "the netsim sweep vs plain")
     margin = float(want["margin"].min())
     del want
@@ -4356,25 +4443,35 @@ def attack_plain_run(eng, keys, dl, al, pi):
                            eng.strict_match)
 
 
-def phase_k13(dev, nfx, report):
-    """K13 against its plain version at the attack path's shape (clique-4,
-    ATK_LANES x ATK_ACTS, its alphas, policies and queue: the row's plain
-    time and error) and for every scripted policy at alpha 0.3 and 0.45
-    (ATK_EXTRA_LANES x ATK_EXTRA_ACTS, the default queue); then the JAX
-    fixture's attack cases."""
+def k13_holds():
+    """K13's plain holds: (name, engine, lanes, alphas, policy ids): the
+    attack path's shape (clique-4, ATK_LANES x ATK_ACTS, its alphas,
+    policies and queue: the row's plain time and error), every scripted
+    policy at alpha 0.3 and 0.45 (ATK_EXTRA_LANES x ATK_EXTRA_ACTS, the
+    default queue) and the attack sweep (ATK_SWEEP_LANES x
+    ATK_SWEEP_ACTS)."""
     from cpr_tpu_torch.netsim import attack as AT
     al, pi, _ = attack_lanes(ATK_LANES)
+    sal, spi, _ = attack_lanes(ATK_SWEEP_LANES)
     n = ATK_EXTRA_LANES
-    margins, secs = {}, {}
-    for what, eng, lanes, alphas, pids in (
-            ("path", attack_engine(ATK_ACTS), ATK_LANES, al, pi),
+    return (("path", attack_engine(ATK_ACTS), ATK_LANES, al, pi),
             ("policies", attack_engine(ATK_EXTRA_ACTS, AT.SCRIPTED_POLICIES,
                                        None), n,
              [0.3 if i % 2 else 0.45 for i in range(n)],
-             [i // 2 % 4 for i in range(n)])):
+             [i // 2 % 4 for i in range(n)]),
+            ("sweep", attack_engine(ATK_SWEEP_ACTS), ATK_SWEEP_LANES, sal,
+             spi))
+
+
+def phase_k13(dev, nfx, report, ahead):
+    """K13 against its plain version at `k13_holds`' path and policy
+    shapes (the plain outputs and times from `plain_ahead`'s child:
+    `ahead`); then the JAX fixture's attack cases."""
+    margins, secs = {}, {}
+    for what, eng, lanes, alphas, pids in k13_holds()[:2]:
         args = attack_inputs(eng, lanes, alphas, pids, dev)
         got = eng.lanes(*args)
-        want, secs[what] = plain_timed(lambda: attack_plain_run(eng, *args))
+        want, secs[what] = ahead_plain(ahead, f"K13 {what}")
         margins[what] = float(want["margin"].min())
         err = compare_netsim(got, want, f"K13 {what} vs plain")
         if what == "path":
@@ -4386,10 +4483,11 @@ def phase_k13(dev, nfx, report):
         margin=json.dumps(margins), plain_s=json.dumps(secs), ok=True)
 
 
-def phase_attack_path(dev, report):
+def phase_attack_path(dev, report, ahead):
     """The attack path at bench.py's shape through AttackEngine.run, its
     own launch counts; the default queue's drops; then ATK_SWEEP_LANES x
-    ATK_SWEEP_ACTS, held to the plain version on all its lanes."""
+    ATK_SWEEP_ACTS, held to the plain version on all its lanes (its
+    replay from `plain_ahead`'s child: `ahead`)."""
     from cpr_tpu_torch import kernels
     al, pi, lanes = attack_lanes(ATK_LANES)
     seeds, delays = list(range(ATK_LANES)), [NET_ACT_DELAY] * ATK_LANES
@@ -4434,8 +4532,7 @@ def phase_attack_path(dev, report):
     counts["K13"] += kernels.launches["K13"]
     check(drops(sweep) == 0 and not sweep["exhausted"].any(),
           "attack sweep dropped or exhausted")
-    want, plain_s = plain_timed(lambda: attack_plain_run(
-        big, *attack_inputs(big, ATK_SWEEP_LANES, al, pi, dev)))
+    want, plain_s = ahead_plain(ahead, "K13 sweep")
     err = compare_netsim(sweep, want, "the attack sweep vs plain")
     margin = float(want["margin"].min())
     del want
@@ -4608,12 +4705,15 @@ def phase_proto_plain(dev, report, ahead):
                                 for k in PROTO_KERNELS}), ok=True)
 
 
-def hn_guards(rows, spar_rows):
+def hn_guards(rows, spar_rows, none_ok=False):
     """The sweep's guards on its rows: 30 rows and 2 Tailstorm error rows,
     then 10 Spar rows; every lane's activations there; Bk constant's
     rewards summing to its progress; Spar's progress k times the head's
     height; the Ethereum bounds of the JAX package's invariant test;
-    orphan rates in [0, 0.2], falling from delay 30 to 600."""
+    orphan rates in [0, 0.2], falling from delay 30 to 600 (or, with
+    `none_ok`, none at either: on 64 nodes every Byzantium orphan but the
+    newest becomes an uncle, as cpr_tpu's run of the case ethbyz_clique64
+    in tests/test_torch_netsim_wide.py shows)."""
     ok = [r for r in rows + spar_rows if "error" not in r]
     bad = [r for r in rows + spar_rows if "error" in r]
     check(len(ok) == 40 and len(bad) == 2, f"{len(ok)} rows, {len(bad)} "
@@ -4644,8 +4744,10 @@ def hn_guards(rows, spar_rows):
               f"{what}: orphan rate {r['orphan_rate']}")
         orphan.setdefault(what, {})[r["activation_delay"]] = r["orphan_rate"]
     for what, by in orphan.items():
-        check(by[30.0] > by[600.0], f"{what}: orphan rate at delay 30 "
-              f"{by[30.0]} not above delay 600's {by[600.0]}")
+        check(by[30.0] > by[600.0]
+              or (none_ok and by[30.0] == by[600.0] == 0.0),
+              f"{what}: orphan rate at delay 30 {by[30.0]} not above delay "
+              f"600's {by[600.0]}")
     return orphan
 
 
@@ -5293,6 +5395,12 @@ def phase_wire(dev, report, tmp):
                     r = c.request("netsim.query", seed=1)
                     check(r["ok"] and sum(r["activations"]) == 1000,
                           f"netsim.query: {r}")
+                    # path (d): past 32 nodes (K12-scan at 2 node slots)
+                    r = c.request("netsim.query", seed=1,
+                                  n_nodes=WIDE_QUERY_NODES)
+                    check(r["ok"] and sum(r["activations"]) == 1000
+                          and len(r["activations"]) == WIDE_QUERY_NODES,
+                          f"netsim.query at {WIDE_QUERY_NODES} nodes: {r}")
                     return "netsim"
                 if i % 3 == 1:  # interactive to the episode's end
                     o = c.request("episode.open", seed=i)
@@ -5320,8 +5428,8 @@ def phase_wire(dev, report, tmp):
         flood = wire_flood(port)
     finally:
         counts = stop_child(proc, tmp, "wire",
-                            ("K2", "K3", "K14", "K11-act", "K12-scan"),
-                            ("K1",))
+                            ("K2", "K3", "K14", "K11-act", "K12-scan",
+                             "K12-scan-n64"), ("K1",))
     base_sps = rollout_baseline(dev)
     serve_sps = flood["steps_per_busy_s"]
     frac = serve_sps / base_sps
@@ -6636,6 +6744,546 @@ def phase_metrics_netsim(dev, report):
         ok=True)
 
 
+# -- phases 74-79: the netsim past 32 nodes (the widened K12/K13) -------------
+
+def wide_rows(report):
+    """The kernels line's rows of the widened launches, one a kernel and
+    node bucket the paths run (`netsim.engine.kernel_name`)."""
+    csrc = "cpr_tpu_torch/csrc"
+    rows = {
+        "K12-scan-n64": ("netsim_scan.cu", "cpr_tpu/netsim/engine.py:716",
+                         f"K12-scan at 2 node slots a thread (the honest-net "
+                         f"sweep's Nakamoto on the {WIDE_HN_NODES}-node "
+                         f"clique, 5 lanes x {HN_ACTS}; the server's "
+                         f"netsim.query at {WIDE_QUERY_NODES} nodes)"),
+        "K12-event-eth-n64": ("netsim_event_eth.cu",
+                              "cpr_tpu/netsim/engine.py:311",
+                              f"K12-event-eth at 2 node slots (the sweep's "
+                              f"whitepaper and Byzantium on "
+                              f"{WIDE_HN_NODES} nodes)"),
+        "K12-event-bk-n64": ("netsim_event_bk.cu",
+                             "cpr_tpu/netsim/engine.py:409",
+                             f"K12-event-bk at 2 node slots (the sweep's "
+                             f"three Bk configurations on {WIDE_HN_NODES} "
+                             f"nodes)"),
+        "K12-event-spar-n64": ("netsim_event_spar.cu",
+                               "cpr_tpu/netsim/engine.py:368",
+                               f"K12-event-spar at 2 node slots (the "
+                               f"sweep's Spar call on {WIDE_HN_NODES} "
+                               f"nodes)"),
+        "K12-event-n128": ("netsim_event.cu", "cpr_tpu/netsim/engine.py:92",
+                           f"K12-event at 4 node slots (flooding on "
+                           f"preferential_attachment({PA_NODES}, {PA_M}), "
+                           f"{PA_LANES} lanes x {PA_ACTS})"),
+        "K12-event-bk-n128": ("netsim_event_bk.cu",
+                              "cpr_tpu/netsim/engine.py:409",
+                              f"K12-event-bk at 4 node slots (Bk k=8 "
+                              f"flooding on preferential_attachment("
+                              f"{PA_NODES}, {PA_M}), {PA_BK_LANES} lanes x "
+                              f"{PA_BK_ACTS})"),
+        "K13-n128": ("netsim_attack.cu", "cpr_tpu/netsim/attack.py:81",
+                     f"K13 at 4 node slots (selfish_mining gamma "
+                     f"{SM_GAMMA}, {SM_DEFENDERS} defenders, {SM_LANES} "
+                     f"lanes x {SM_ACTS}, the default queue; the sweep "
+                     f"{SM_SWEEP_LANES} x {SM_SWEEP_ACTS})"),
+        "K12-scan-n256": ("netsim_scan.cu", "cpr_tpu/netsim/engine.py:716",
+                          f"K12-scan at 8 node slots (a {WIDE_MAX_NODES}-"
+                          f"node clique, {WIDE_MAX_LANES} lanes x "
+                          f"{WIDE_MAX_ACTS})"),
+        "K12-event-n256": ("netsim_event.cu", "cpr_tpu/netsim/engine.py:92",
+                           f"K12-event at 8 node slots (a {WIDE_MAX_NODES}-"
+                           f"node clique, {WIDE_MAX_LANES} lanes x "
+                           f"{WIDE_MAX_ACTS})"),
+    }
+    for k, (src, at, name) in rows.items():
+        report[k] = dict(name=f"{k}: {name}", route="cuda",
+                         source=f"{csrc}/{src}", replaces=at,
+                         library_ms=None, max_abs_err=0.0)
+
+
+def pa_net():
+    """Path (b)'s topology: the simulate-topology generator's attributes
+    at PA_NODES nodes, flooding."""
+    from cpr_tpu_torch import netsim, network
+    return netsim.compile_network(network.preferential_attachment(
+        PA_NODES, PA_M, distribution="exponential", seed=PA_SEED))
+
+
+def sm_net():
+    """Path (c)'s topology: selfish_mining at gamma SM_GAMMA, the
+    attacker at node 0 and SM_DEFENDERS defenders."""
+    from cpr_tpu_torch import netsim, network
+    return netsim.compile_network(network.selfish_mining(
+        alpha=SM_ALPHA, gamma=SM_GAMMA, defenders=SM_DEFENDERS,
+        activation_delay=SM_DELAY, propagation_delay=SM_PROP))
+
+
+def pa_engine(cn, proto, k, acts):
+    from cpr_tpu_torch import netsim
+    return netsim.Engine(cn, protocol=proto, k=k, activations=acts,
+                         max_steps=PA_STEPS_PER_ACT * acts + 4096)
+
+
+def sm_engine(cn, acts):
+    from cpr_tpu_torch import netsim
+    return netsim.AttackEngine(cn, activations=acts, policies=ATK_POLICIES,
+                               topology="selfish-mining-gamma0.99")
+
+
+def sm_inputs(seeds, alphas, pids, dev):
+    """Path (c)'s lane inputs: keys, delays SM_DELAY, alphas, policy ids."""
+    keys, dl = lane_inputs(seeds, [SM_DELAY] * len(seeds), dev)
+    return (keys, dl, torch.tensor(alphas, dtype=torch.float32, device=dev),
+            torch.tensor(pids, dtype=torch.int32, device=dev))
+
+
+def sweep_lanes():
+    """attack_sweep's lane order at path (c)'s grid: (seeds, alphas,
+    policy ids), a grid point's SM_SWEEP_REPS reps together."""
+    pts = [(a, p) for a in ATK_ALPHAS for p in range(len(ATK_POLICIES))]
+    seeds = list(range(len(pts) * SM_SWEEP_REPS))
+    return (seeds, [pts[i // SM_SWEEP_REPS][0] for i in seeds],
+            [pts[i // SM_SWEEP_REPS][1] for i in seeds])
+
+
+def wide_holds():
+    """The widened kernels' holds: (name, kernel row, what builds the
+    engine and lane inputs). Path (a): each kernel's first configuration
+    on the sweep's five lanes at WIDE_HN_PLAIN_ACTS activations; (b) all
+    lanes of both runs at PA_PLAIN_ACTS and PA_BK_PLAIN_ACTS; (c) all
+    lanes of the path at SM_PLAIN_ACTS, its alpha 0.45 SM1 lanes at
+    SM_DEEP_ACTS (`WIDE_DROP_HOLDS`: their plain version drops queue
+    entries, and parked blocks on every lane), and the sweep's lanes
+    (SM_SWEEP_CHUNK a hold) at SM_SWEEP_PLAIN_ACTS; (e) both runs at the
+    path's depth."""
+    out = [(f"a-{proto}-{k}-{scheme}", row, ("hn", proto, k, scheme))
+           for row, (proto, k, scheme) in (
+               ("K12-scan-n64", ("nakamoto", 1, "constant")),
+               *((f"{kern}-n64", cfgs[0])
+                 for kern, cfgs in PROTO_CONFIGS.items()))]
+    out += [("b-nakamoto", "K12-event-n128", ("pa", "nakamoto", 1)),
+            ("b-bk-8", "K12-event-bk-n128", ("pa", "bk", 8)),
+            ("c-path", "K13-n128", ("sm", None, None)),
+            ("c-deep", "K13-n128", ("smdeep", None, None))]
+    out += [(f"c-sweep{i}", "K13-n128", ("smsweep", i, None))
+            for i in range(SM_SWEEP_LANES // SM_SWEEP_CHUNK)]
+    out += [("e-scan", "K12-scan-n256", ("max", "scan", None)),
+            ("e-event", "K12-event-n256", ("max", "event", None))]
+    return out
+
+
+def wide_hold_inputs(spec, dev):
+    """(engine, lane inputs) of a `wide_holds` entry."""
+    from cpr_tpu_torch import netsim
+    kind, a, b = spec[0], spec[1], spec[2]
+    if kind == "hn":
+        eng = proto_engine(a, b, spec[3], WIDE_HN_PLAIN_ACTS,
+                           bench_clique(WIDE_HN_NODES, HN_PROP))
+        return eng, lane_inputs([HN_SEED] * len(HN_DELAYS), HN_DELAYS, dev)
+    if kind == "pa":
+        cn = pa_net()
+        n, acts = ((PA_LANES, PA_PLAIN_ACTS) if a == "nakamoto"
+                   else (PA_BK_LANES, PA_BK_PLAIN_ACTS))
+        return (pa_engine(cn, a, b, acts),
+                lane_inputs(range(n), [cn.activation_delay] * n, dev))
+    if kind == "max":
+        cn = bench_clique(WIDE_MAX_NODES, NET_PROP)
+        eng = netsim.Engine(cn, activations=WIDE_MAX_ACTS, mode=a)
+        return eng, lane_inputs(range(WIDE_MAX_LANES),
+                                [NET_ACT_DELAY] * WIDE_MAX_LANES, dev)
+    if kind == "sm":
+        al, pi, _ = attack_lanes(SM_LANES)
+        return (sm_engine(sm_net(), SM_PLAIN_ACTS),
+                sm_inputs(range(SM_LANES), al, pi, dev))
+    if kind == "smdeep":
+        _, _, grid = attack_lanes(SM_LANES)
+        seeds = [i for i, g in enumerate(grid) if g == (0.45, 1)]
+        return (sm_engine(sm_net(), SM_DEEP_ACTS),
+                sm_inputs(seeds, [0.45] * len(seeds), [1] * len(seeds), dev))
+    seeds, al, pi = sweep_lanes()
+    part = slice(a * SM_SWEEP_CHUNK, (a + 1) * SM_SWEEP_CHUNK)
+    return (sm_engine(sm_net(), SM_SWEEP_PLAIN_ACTS),
+            sm_inputs(seeds[part], al[part], pi[part], dev))
+
+
+def wide_plain(eng, inputs):
+    """A wide hold's plain version."""
+    from cpr_tpu_torch.netsim import engine as E
+    if len(inputs) == 4:
+        return attack_plain_run(eng, *inputs)
+    keys, dl = inputs
+    if eng.mode == "scan":
+        return E.scan_plain(eng.net, eng.activations, eng.lookback, keys, dl)
+    return E.event_plain(eng.net, eng.activations, eng.B, eng.M, eng.F,
+                         eng.S, keys, dl, eng.proto)
+
+
+def wide_fixture_run(wfx, name, dev):
+    """A wide fixture case through the kernels, from the fixture alone."""
+    from cpr_tpu_torch import netsim
+    from cpr_tpu_torch.netsim import engine as E
+    cn = netsim_fixture_net(wfx, name)
+    A = int(wfx[f"{name}_A"])
+    keys, dl = lane_inputs(wfx[f"{name}_seeds"].tolist(),
+                           wfx[f"{name}_delays"].tolist(), dev)
+    mode = str(wfx[f"{name}_mode"])
+    if mode == "attack":
+        eng = netsim.AttackEngine(
+            cn, activations=A, device=dev,
+            policies=tuple(str(p) for p in wfx["attack_policies"]),
+            queue_cap=int(wfx[f"{name}_queue"]) or None)
+        out = eng.lanes(keys, dl, torch.as_tensor(wfx[f"{name}_alphas"],
+                                                  device=dev),
+                        torch.as_tensor(wfx[f"{name}_pids"], device=dev))
+    else:
+        out = netsim.Engine(cn, activations=A, mode=mode, device=dev,
+                            protocol=str(wfx[f"{name}_protocol"]),
+                            k=int(wfx[f"{name}_k"])).lanes(keys, dl)
+    return E.finish(out)
+
+
+def phase_wide_fixture(dev, wfx):
+    """Phase 74: every case of the wide JAX fixture (40- and 64-node
+    cliques under each protocol branch, flooding on
+    preferential_attachment(40, 2), the attacker at gamma 0.97 with 34
+    defenders, at its default queue and at one that drops, 100- and
+    130-node cliques) through its widened kernel: integers exact, times
+    within NET_TIME_RTOL. Their launches count nowhere."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.netsim import engine as E
+    names = sorted(k[:-len("_mode")] for k in wfx if k.endswith("_mode"))
+    kernels.reset_launches()
+    for name in names:
+        got = wide_fixture_run(wfx, name, dev)
+        skip = ("_net_", "_seeds", "_delays", "_alphas", "_pids", "_A",
+                "_mode", "_protocol", "_k", "_queue")
+        # attack_sm35's keys, not attack_sm35_q64's
+        longer = [m + "_" for m in names if m.startswith(name + "_")]
+        want = {k[len(name) + 1:]: wfx[k] for k in wfx
+                if k.startswith(name + "_")
+                and not any(k.startswith(m) for m in longer)
+                and not any(k == name + s or k.startswith(name + s)
+                            for s in skip)}
+        compare_netsim(got, want, f"{name} vs the wide JAX fixture",
+                       NET_TIME_RTOL)
+    buckets = sorted({E.kernel_name("K", int(wfx[f"{n}_net_n"]))
+                      for n in names})
+    ran = nonzero(kernels.launches)
+    kernels.reset_launches()
+    dropped = {n: int(wfx[f"{n}_drop_q"].sum() + wfx[f"{n}_drop_p"].sum())
+               for n in names if wfx[f"{n}_drop_q"].sum()}
+    check(dropped, "no wide fixture case drops")
+    say("wide_fixture", cases=len(names), buckets=json.dumps(buckets),
+        dropped=json.dumps(dropped), launches=json.dumps(ran), ok=True)
+
+
+def hold_wide(dev, report, ahead, prefix):
+    """The `wide_holds` entries whose name starts with `prefix`: each
+    kernel on the hold's inputs against the plain outputs from
+    `plain_ahead`'s child, exactly; the rows' plain ms (the first hold a
+    row, the sweep's chunks apart) and errors; the `WIDE_DROP_HOLDS`
+    drop queue entries and parked blocks. Launches count nowhere."""
+    from cpr_tpu_torch import kernels
+    secs = {}
+    for name, row, spec in wide_holds():
+        if not name.startswith(prefix):
+            continue
+        eng, inputs = wide_hold_inputs(spec, dev)
+        got = eng.lanes(*inputs)
+        want, secs[name] = ahead_plain(ahead, f"wide {name}")
+        err = compare_netsim(got, want, f"{row} {name} vs plain")
+        r = report[row]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if "plain_ms" not in r:
+            r["plain_ms"] = secs[name] * 1e3
+            r["plain_shape"] = name
+        check(int(want["steps"].max()) > 0, f"{name} ran no step")
+        if name in WIDE_DROP_HOLDS:  # the queue full, every lane parking
+            check(want["drop_q"].sum() > 0 and np.all(want["drop_p"] > 0),
+                  f"{name}: no queue drop or a lane without parked-block "
+                  f"drops: {want['drop_q']}, {want['drop_p']}")
+            secs[f"{name}_drops"] = [int(want["drop_q"].sum()),
+                                     int(want["drop_p"].sum())]
+    kernels.reset_launches()
+    return secs
+
+
+def phase_wide_honest_net(dev, report, ahead):
+    """Phase 75, path (a): `honest_net_rows(engine="jax", n_nodes=64)` at
+    the reference's defaults, then Spar k=4 under both schemes, a warm
+    and a timed round with the counters zeroed before each call and read
+    after it (K12-scan, -eth, -bk at 2 node slots; -spar); the sweep's
+    guards; then each kernel's first configuration held to its plain
+    version (`wide_holds`)."""
+    from cpr_tpu_torch import kernels, telemetry
+    from cpr_tpu_torch.experiments import honest_net_rows
+    counts = {k: 0 for k in kernels.launches}
+    secs, spar_secs = [], []
+    for _ in range(2):
+        buf = io.StringIO()
+        telemetry.configure(stream=buf)
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            rows = honest_net_rows(engine="jax", n_nodes=WIDE_HN_NODES)
+            secs.append(time.perf_counter() - t0)
+            c1 = dict(kernels.launches)
+            path_launches(c1, ("K12-scan-n64", "K12-event-eth-n64",
+                               "K12-event-bk-n64"), "wide honest-net")
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            spar_rows = honest_net_rows(protocols=HN_SPAR, engine="jax",
+                                        n_nodes=WIDE_HN_NODES)
+            spar_secs.append(time.perf_counter() - t0)
+            c2 = dict(kernels.launches)
+            path_launches(c2, ("K12-event-spar-n64",),
+                          "wide honest-net spar")
+        finally:
+            telemetry.configure()
+        for c in (c1, c2):
+            for k, n in c.items():
+                counts[k] += n
+        events = [json.loads(line) for line in buf.getvalue().splitlines()]
+        nets = [e for e in events if e.get("name") == "netsim"
+                and e.get("kind") == "event"]
+        check(len(nets) == 8 and all(e["drops"] == 0 for e in nets),
+              f"wide honest-net calls dropped or missed: {nets}")
+        orphan = hn_guards(rows, spar_rows, none_ok=True)
+    check(all(r["backend"] == "cuda" and r["network"]
+              == f"honest_clique_{WIDE_HN_NODES}" for r in rows),
+          "wide rows not on the card or not the 64-node clique")
+    check(all(len(r["node_activations"].split("|")) == WIDE_HN_NODES
+              for r in rows + spar_rows if "error" not in r),
+          "wide rows without 64 nodes' activations")
+    hold = hold_wide(dev, report, ahead, "a-")
+    say("wide_honest_net", nodes=WIDE_HN_NODES,
+        rows=len(rows) + len(spar_rows), call_s=secs, spar_call_s=spar_secs,
+        orphan=json.dumps({w: [round(by[d], 6) for d in HN_DELAYS]
+                           for w, by in orphan.items()}),
+        plain_s=json.dumps(hold),
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    return counts
+
+
+def phase_wide_flood(dev, report, ahead):
+    """Phase 76, path (b): flooding on preferential_attachment(100, 2,
+    distribution="exponential", seed=42) through Engine.run: Nakamoto
+    PA_LANES x PA_ACTS, then Bk k=8 constant PA_BK_LANES x PA_BK_ACTS, each
+    with its own launch counts (K12-event, -bk at 4 node slots); no
+    drop, miss or exhausted lane, every activation counted, rewards
+    summing to the progress; then both held to their plain versions on
+    all their lanes (`wide_holds`)."""
+    from cpr_tpu_torch import kernels
+    cn = pa_net()
+    counts = {k: 0 for k in kernels.launches}
+    res = {}
+    for proto, k, lanes, acts, row in PA_RUNS:
+        eng = pa_engine(cn, proto, k, acts)
+        check(eng.mode == "event", "flooding runs the event engine")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = eng.run(range(lanes), [cn.activation_delay] * lanes)
+        call_s = time.perf_counter() - t0
+        c = dict(kernels.launches)
+        path_launches(c, (row,), f"wide flood {proto}")
+        for kk, n in c.items():
+            counts[kk] += n
+        check(drops(out) == 0 and not out["exhausted"].any(),
+              f"wide flood {proto} dropped or exhausted")
+        check(np.all(out["node_act"].sum(1) == acts), "activations lost")
+        check(np.allclose(out["reward"].sum(1), out["progress"]),
+              f"wide flood {proto}: rewards do not sum to the progress")
+        check(np.all(np.isfinite(out["sim_time"])), "non-finite sim_time")
+        res[proto] = dict(call_s=call_s, orphan=orphan_rate(out, acts),
+                          steps_max=int(out["steps"].max()),
+                          head_height_mean=float(out["head_height"].mean()))
+        report[row]["steps"] = int(out["steps"].sum())
+    hold = hold_wide(dev, report, ahead, "b-")
+    say("wide_flood", nodes=cn.n, links=int((cn.kind >= 0).sum()),
+        activation_delay=cn.activation_delay, runs=json.dumps(res),
+        plain_s=json.dumps(hold),
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    return counts
+
+
+def phase_wide_attack(dev, report, ahead):
+    """Phase 77, path (c): the attacker on selfish_mining at gamma 0.99
+    (100 defenders, 101 nodes), alpha in ATK_ALPHAS x {honest, SM1},
+    the default queue: AttackEngine.run SM_LANES x SM_ACTS, then
+    `attack_sweep` at SM_SWEEP_LANES x SM_SWEEP_ACTS, each with its own
+    launch counts (K13 at 4 node slots); every activation counted, the
+    rewards summing to the chain, the drops printed; then the path's and
+    the sweep's lanes held to the plain version (`wide_holds`)."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.netsim import attack_sweep
+    cn = sm_net()
+    check(cn.n == SM_DEFENDERS + 1, f"{cn.n} nodes")
+    eng = sm_engine(cn, SM_ACTS)
+    al, pi, lanes = attack_lanes(SM_LANES)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.run(range(SM_LANES), [SM_DELAY] * SM_LANES, al, pi)
+    call_s = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K13-n128",), "wide attack")
+    check(np.all(out["node_act"].sum(1) == SM_ACTS), "activations lost")
+    check(np.allclose(out["reward_attacker"] + out["reward_defender"],
+                      out["head_height"]), "rewards do not sum to the chain")
+    check(not out["exhausted"].any(), "wide attack exhausted")
+    report["K13-n128"]["steps"] = int(out["steps"].sum())
+    rel = relative_revenue(out)
+    cells = {f"{a}/{ATK_POLICIES[p]}": round(float(np.mean(
+        [rel[i] for i, ln in enumerate(lanes) if ln == (a, p)])), 5)
+        for a in ATK_ALPHAS for p in range(len(ATK_POLICIES))}
+    path_drops = {k: int(np.sum(out[k])) for k in ("drop_q", "drop_p",
+                                                   "drop_b", "win_miss")}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rows = attack_sweep([("selfish-mining-gamma0.99", cn)],
+                        policies=ATK_POLICIES, alphas=ATK_ALPHAS,
+                        activation_delays=(SM_DELAY,),
+                        activations=SM_SWEEP_ACTS, reps=SM_SWEEP_REPS)
+    sweep_s = time.perf_counter() - t0
+    c = dict(kernels.launches)
+    path_launches(c, ("K13-n128",), "wide attack sweep")
+    counts["K13-n128"] += c["K13-n128"]
+    check(len(rows) == len(ATK_ALPHAS) * len(ATK_POLICIES)
+          and not any("error" in r for r in rows)
+          and all(r["n_nodes"] == cn.n for r in rows),
+          f"wide attack sweep rows: {rows[:2]}")
+    check(all(0.0 <= r["relative_reward"] <= 1.0 for r in rows),
+          "relative rewards outside [0, 1]")
+    hold = hold_wide(dev, report, ahead, "c-")
+    say("wide_attack", nodes=cn.n, lanes=SM_LANES, activations=SM_ACTS,
+        call_s=call_s, rel_by_cell=json.dumps(cells),
+        drops_at_default_queue=json.dumps(path_drops), queue=eng.M,
+        sweep_lanes=SM_SWEEP_LANES, sweep_activations=SM_SWEEP_ACTS,
+        sweep_s=sweep_s, sweep_rel=json.dumps(
+            {r["attack"] + "@" + str(r["alpha"]): round(r["relative_reward"],
+                                                        5) for r in rows}),
+        plain_s=json.dumps(hold), launches=json.dumps(nonzero(counts)))
+    return counts
+
+
+def phase_wide_limit(dev, report, ahead):
+    """Phase 78, path (e): a WIDE_MAX_NODES-node clique through Engine.run
+    in scan and event mode, WIDE_MAX_LANES x WIDE_MAX_ACTS, each with its
+    own launch counts (K12-scan, K12-event at 8 node slots), held to
+    their plain versions; then one node more, refused by name, naming
+    the limit and item 11b, by Engine and AttackEngine before any launch
+    (every counter 0)."""
+    from cpr_tpu_torch import kernels, netsim
+    from cpr_tpu_torch.netsim import engine as E
+    cn = bench_clique(WIDE_MAX_NODES, NET_PROP)
+    counts = {k: 0 for k in kernels.launches}
+    for mode, row in (("scan", "K12-scan-n256"), ("event", "K12-event-n256")):
+        eng = netsim.Engine(cn, activations=WIDE_MAX_ACTS, mode=mode)
+        kernels.reset_launches()
+        out = eng.run(range(WIDE_MAX_LANES), [NET_ACT_DELAY] * WIDE_MAX_LANES)
+        c = dict(kernels.launches)
+        path_launches(c, (row,), f"wide limit {mode}")
+        for k, n in c.items():
+            counts[k] += n
+        check(drops(out) == 0 and not out["exhausted"].any(),
+              f"{WIDE_MAX_NODES}-node {mode} dropped or exhausted")
+        check(np.all(out["node_act"].sum(1) == WIDE_MAX_ACTS),
+              "activations lost")
+        check(np.allclose(out["reward"].sum(1), out["progress"]),
+              "rewards do not sum to the chain")
+        report[row]["steps"] = int(out["steps"].sum())
+    over = bench_clique(WIDE_MAX_NODES + 1, NET_PROP)
+    kernels.reset_launches()
+    refused = []
+    for make in (lambda: netsim.Engine(over, activations=10, mode="scan"),
+                 lambda: netsim.Engine(over, activations=10, mode="event"),
+                 lambda: netsim.Engine(over, protocol="bk", k=2,
+                                       activations=10),
+                 lambda: netsim.AttackEngine(over, activations=10)):
+        try:
+            make()
+        except NotImplementedError as e:
+            refused.append(str(e))
+        else:
+            raise AssertionError(f"{over.n} nodes accepted on the card")
+    check(all("item 11b" in r and f"at most {E.KERNEL_MAX_NODES}" in r
+              and r.startswith("K1") for r in refused),
+          f"refusals: {refused}")
+    check(not nonzero(kernels.launches), "a refused network launched")
+    hold = hold_wide(dev, report, ahead, "e-")
+    say("wide_limit", nodes=WIDE_MAX_NODES, refused_nodes=over.n,
+        refusal=json.dumps(refused[0]), plain_s=json.dumps(hold),
+        launches=json.dumps(nonzero(counts)))
+    return counts
+
+
+def phase_wide_times(dev, report):
+    """Phase 79: each widened kernel's device time a launch at its path's
+    shape, the L2 scrubbed, by CUDA events around the wrapper call (3
+    calls); the bound: the threefry work of the run's steps (a 5- or
+    4-way split a step, N + 1 blocks an activation and, Bk, one more for
+    the vote's hash, 2 at init; K12-scan the gaps, the Gumbel rows and
+    the key splits) and the lanes' inputs and outputs."""
+    from cpr_tpu_torch import kernels, netsim
+    hn = lane_inputs([HN_SEED] * len(HN_DELAYS), HN_DELAYS, dev)
+    c64 = bench_clique(WIDE_HN_NODES, HN_PROP)
+    # per lane: key and delay in; nine int32 counters, exhausted,
+    # sim_time, node_act and reward [N] out
+    io_bytes = lambda lanes, n: lanes * (61 + n * 8)  # noqa: E731
+
+    def event_bound(eng, inputs, split, per_act, steps=None):
+        lanes = inputs[0].shape[0]
+        if steps is None:
+            steps = int(eng.lanes(*inputs)["steps"].sum())
+        return bound_ms(io_bytes(lanes, eng.net.n), THREEFRY_OPS * (
+            split * steps + lanes * eng.activations * per_act + 2 * lanes))
+
+    cases = []
+    eng = proto_engine("nakamoto", 1, "constant", HN_ACTS, c64)
+    cases.append(("K12-scan-n64", eng, hn, bound_ms(
+        io_bytes(5, c64.n), 5 * THREEFRY_OPS * (5 + (HN_ACTS + 1)
+                                                + HN_ACTS * c64.n))))
+    for kern, cfgs in PROTO_CONFIGS.items():
+        proto, k, scheme = cfgs[0]
+        eng = proto_engine(proto, k, scheme, HN_ACTS, c64)
+        cases.append((f"{kern}-n64", eng, hn, event_bound(
+            eng, hn, 5, c64.n + (2 if proto == "bk" else 1))))
+    cn = pa_net()
+    # paths (b), (c) and (e): the steps of the path's own run
+    for proto, k, lanes, acts, row in PA_RUNS:
+        eng = pa_engine(cn, proto, k, acts)
+        inputs = lane_inputs(range(lanes), [cn.activation_delay] * lanes, dev)
+        cases.append((row, eng, inputs, event_bound(
+            eng, inputs, 5, cn.n + (2 if proto == "bk" else 1),
+            report[row]["steps"])))
+    eng = sm_engine(sm_net(), SM_ACTS)
+    al, pi, _ = attack_lanes(SM_LANES)
+    inputs = sm_inputs(range(SM_LANES), al, pi, dev)
+    cases.append(("K13-n128", eng, inputs, event_bound(
+        eng, inputs, 4, eng.net.n + 1, report["K13-n128"]["steps"])))
+    cm = bench_clique(WIDE_MAX_NODES, NET_PROP)
+    mi = lane_inputs(range(WIDE_MAX_LANES), [NET_ACT_DELAY] * WIDE_MAX_LANES,
+                     dev)
+    eng = netsim.Engine(cm, activations=WIDE_MAX_ACTS, mode="scan")
+    cases.append(("K12-scan-n256", eng, mi, bound_ms(
+        io_bytes(WIDE_MAX_LANES, cm.n), WIDE_MAX_LANES * THREEFRY_OPS
+        * (5 + (WIDE_MAX_ACTS + 1) + WIDE_MAX_ACTS * cm.n))))
+    eng = netsim.Engine(cm, activations=WIDE_MAX_ACTS, mode="event")
+    cases.append(("K12-event-n256", eng, mi, event_bound(
+        eng, mi, 5, cm.n + 1, report["K12-event-n256"]["steps"])))
+    for row, eng, inputs, (bound, by) in cases:
+        r = report[row]
+        # the paths ran these shapes: Bk's 4 s launch once, unwarmed
+        heavy = row == "K12-event-bk-n128"
+        r["ms"] = event_ms(lambda: eng.lanes(*inputs), 1 if heavy else 3,
+                           warm=not heavy)
+        r["bound_ms"], r["bound_by"] = bound, by
+    kernels.reset_launches()
+    say("wide_times", **{k: json.dumps(
+        {f: report[k].get(f) for f in ("ms", "plain_ms", "plain_shape",
+                                       "bound_ms", "bound_by")})
+        for k, *_ in cases})
+
+
 def parametric_capstone():
     """The capstone's structure, compiled once at the probe point with
     its exponent columns; returns (ParamMDP, host seconds)."""
@@ -6906,6 +7554,7 @@ def main() -> int:
                         max_abs_err=0.0),
     }
     netsim_rows = ("K12-scan", "K12-event", "K13", *PROTO_KERNELS)
+    wide_rows(report)
     phase_k1(dev, fx, report)
     phase_k3(dev, fx)
     phase_k2(dev, fx)
@@ -6980,12 +7629,12 @@ def main() -> int:
     phase_k11_times(dev, report, bench_carry)
     phase_k1_f64(dev, nfx, report)
     phase_k12_scan(dev, nfx, report, ahead)
-    net_counts, scan_orphan = phase_netsim_path(dev, report)
+    net_counts, scan_orphan = phase_netsim_path(dev, report, ahead)
     phase_k12_event(dev, nfx, report, ahead)
     event_counts, event_steps = phase_k12_event_path(dev, report,
                                                      scan_orphan)
-    phase_k13(dev, nfx, report)
-    attack_counts, attack_steps = phase_attack_path(dev, report)
+    phase_k13(dev, nfx, report, ahead)
+    attack_counts, attack_steps = phase_attack_path(dev, report, ahead)
     phase_netsim_times(dev, report, event_steps, attack_steps)
     phase_proto_fixture(dev, prfx)
     phase_proto_plain(dev, report, ahead)
@@ -7018,6 +7667,17 @@ def main() -> int:
     serve_counts.extend(phase_metrics_serve(dev, report))
     serve_counts.append(phase_metrics_ppo(dev, report))
     phase_metrics_netsim(dev, report)
+    # the netsim past 32 nodes (phases 74-79)
+    with np.load(WIDE_FIXTURE) as f:
+        wfx = {k: f[k] for k in f.files}
+    phase_wide_fixture(dev, wfx)
+    wide_counts = (phase_wide_honest_net(dev, report, ahead),
+                   phase_wide_flood(dev, report, ahead),
+                   phase_wide_attack(dev, report, ahead),
+                   phase_wide_limit(dev, report, ahead))
+    phase_wide_times(dev, report)
+    for k in WIDE_KERNELS:
+        report[k]["launches"] = sum(c.get(k, 0) for c in wide_counts)
     for k, r in report.items():
         r["launches"] = r.get("launches", 0) + sum(c.get(k, 0)
                                                    for c in serve_counts)

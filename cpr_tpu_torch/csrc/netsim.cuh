@@ -10,10 +10,14 @@
 // `sample_delay_matrix`, engine.py `scan_plain`/`event_plain`,
 // attack.py `attack_plain`.
 //
-// Layout: one warp per lane, one node per thread (N <= 32; the wrappers
-// refuse more). Float64 arithmetic is written with __dadd_rn/__dmul_rn so
-// nvcc forms no FMA the plain versions do not; log, log1p and ceil may
-// differ from the host's by an ULP.
+// Layout: one warp per lane; node n lives on thread n % 32 in slot n / 32,
+// NS slots a thread, NS a compile-time bucket (1, 2, 4 or 8: up to 32, 64,
+// 128 or 256 nodes; `node_slots`, the wrappers refuse more). A reduction
+// over the nodes runs over a thread's slots in node order, then across the
+// warp, the lowest node winning a tie as jnp.argmax does; NS = 1 is the
+// node-a-thread code. Float64 arithmetic is written with __dadd_rn/
+// __dmul_rn so nvcc forms no FMA the plain versions do not; log, log1p
+// and ceil may differ from the host's by an ULP.
 
 #pragma once
 
@@ -28,6 +32,24 @@ namespace netsim {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr double kGeomTailClamp = 1e-12;  // distributions.GEOM_TAIL_CLAMP
+constexpr int kMaxSlots = 8;              // nodes a thread: N <= 256
+constexpr int kNoNode = 1 << 30;          // above every node index
+
+// The slot bucket of an N-node network (cpr_tpu_torch/netsim/engine.py
+// `node_slots`).
+__host__ __device__ inline int node_slots(int n) {
+  return n <= 32 ? 1 : (n <= 64 ? 2 : (n <= 128 ? 4 : 8));
+}
+
+// a[n / 32] of thread n % 32, for every thread (n warp-uniform).
+template <int NS>
+__device__ __forceinline__ int slot_value(const int (&a)[NS], int n) {
+  int v = a[0];
+#pragma unroll
+  for (int s = 1; s < NS; ++s)
+    if ((n >> 5) == s) v = a[s];
+  return __shfl_sync(kFull, v, n & 31);
+}
 
 // The topology's per-link delay planes, row-major src * n + dst.
 struct Planes {
@@ -151,15 +173,23 @@ __device__ __forceinline__ double warp_max(double v) {
 // jax.random.categorical(key, logw) at draw offset `base`: argmax over
 // nodes of gumbel(bits(key, base + node)) + logw[node], the first node
 // among equals. Every thread returns the miner.
+template <int NS>
 __device__ __forceinline__ int draw_miner(uint2 key, uint32_t base,
                                           const float* logw, int n) {
   const int t = threadIdx.x & 31;
   float v = -INFINITY;
-  int i = 32;
-  if (t < n) {
-    v = __fadd_rn(gumbel_of_bits(random_bits(key, base + (uint32_t)t)),
-                  logw[t]);
-    i = t;
+  int i = NS == 1 ? 32 : kNoNode;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int nd = s * 32 + t;
+    if (nd < n) {
+      const float x = __fadd_rn(
+          gumbel_of_bits(random_bits(key, base + (uint32_t)nd)), logw[nd]);
+      if (s == 0 || x > v) {  // a thread's slots in node order
+        v = x;
+        i = nd;
+      }
+    }
   }
   warp_argmax(v, i);
   return i;
@@ -168,15 +198,18 @@ __device__ __forceinline__ int draw_miner(uint2 key, uint32_t base,
 // The reward walk down the chain of `head`: block ids 1..top, each with
 // its parent (a smaller id) and miner at par[id - shift], mnr[id - shift].
 // Ids are read 32 at a time from the top; the chain pointer moves through
-// each chunk in order and skips the ids above it. Thread n (< n_nodes)
-// returns the number of chain blocks node n mined.
-__device__ __forceinline__ int chain_rewards(int head, int top,
-                                             const int32_t* par,
-                                             const int32_t* mnr, int shift,
-                                             int n_nodes) {
+// each chunk in order and skips the ids above it. count[s] of thread t
+// (node s * 32 + t < n_nodes) gets the number of chain blocks that node
+// mined.
+template <int NS>
+__device__ __forceinline__ void chain_rewards(int head, int top,
+                                              const int32_t* par,
+                                              const int32_t* mnr, int shift,
+                                              int n_nodes, int (&count)[NS]) {
   const int t = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) count[s] = 0;
   int cur = head;
-  int count = 0;
   int hi = cur < top ? cur : top;
   while (cur > 0) {
     const int id = hi - t;
@@ -193,13 +226,15 @@ __device__ __forceinline__ int chain_rewards(int head, int top,
         cur = pk;
       }
     }
-    for (int nn = 0; nn < n_nodes; ++nn) {
-      const unsigned b = __ballot_sync(kFull, hit && m == nn);
-      if (t == nn) count += __popc(b);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      for (int tt = 0; tt < 32 && s * 32 + tt < n_nodes; ++tt) {
+        const unsigned b = __ballot_sync(kFull, hit && m == s * 32 + tt);
+        if (t == tt) count[s] += __popc(b);
+      }
     }
     hi = cur;  // every id of the chunk is above the pointer now
   }
-  return count;
 }
 
 }  // namespace netsim

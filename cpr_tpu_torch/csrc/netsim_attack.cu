@@ -35,6 +35,15 @@ cudaError_t cpr_k13_attack(const LaneIn* in, const Ledger* led,
                                          (cudaStream_t)stream);
 }
 
+// The static shared memory of the kernel's instantiation for `ns`
+// node slots a thread and the most a block of the current card may
+// have, for the wrapper's node limit.
+cudaError_t cpr_k13_smem(int ns, int* static_bytes,
+                         int* block_bytes) {
+  return cpr::netsim::event_smem_limits<true, cpr::netsim::kNak>(
+      ns, static_bytes, block_bytes);
+}
+
 const char* cpr_k13_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

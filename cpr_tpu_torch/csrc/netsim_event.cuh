@@ -43,17 +43,23 @@
 // an uncle scan that cannot see the whole range or (whitepaper) more
 // than U candidates counts in `win_miss`.
 //
-// Design: one warp per lane, node n on thread n (N <= 32). The queue
-// (time, block << 5 | node, sequence) and the pending buffers live in
-// the warp's shared memory, the queue scanned M / 32 entries a thread
-// with warp reductions for the earliest time and lowest sequence; the
-// protocols' window scans compact their candidates into shared scratch
-// with ballots and take the smallest by warp reductions, one a round.
-// The ledger lives in global memory per lane: parent, height and miner
-// [B] int32, and the nodes' visible and known bits as one 32-bit mask
-// per block; the protocol's per-block fields [B] and per-(block, node)
-// tallies [B, N] (node t reads its own column of a block's row), Bk's
-// failed-proposal marks as one mask per block. A block's protocol row is
+// Design: one warp per lane, node n on thread n % 32 in slot n / 32, NS
+// slots a thread (N <= 32 * NS, NS in 1, 2, 4, 8; netsim.cuh): a node's
+// preference and activation count live in its thread's registers, and a
+// node set (a delivery wave's nodes, the senders) is NS warp-uniform
+// 32-bit words, node n bit n % 32 of word n / 32. The queue (time, block
+// << kNodeBits | node, sequence) and the pending buffers [32 * NS, F]
+// live in the warp's shared memory, the queue scanned M / 32 entries a
+// thread with warp reductions for the earliest time and lowest sequence;
+// the protocols' window scans compact their candidates into shared
+// scratch with ballots and take the smallest by warp reductions, one a
+// round. New queue entries take their ranks in node order: slot 0's
+// nodes by thread, then slot 1's, and so on. The ledger lives in global
+// memory per lane: parent, height and miner [B] int32, and the nodes'
+// visible and known bits as NS 32-bit words per block; the protocol's
+// per-block fields [B] and per-(block, node) tallies [B, N] (a node
+// reads its own column of a block's row), Bk's failed-proposal marks as
+// NS words per block. A block's protocol row is
 // written when it is appended, so no plane needs clearing. The JAX
 // package's per-node arrival times (`vis_at`) are written and never read
 // there, so the port carries none. The attacker's withheld blocks are a
@@ -75,13 +81,14 @@ namespace netsim {
 
 enum : int { kNak = 0, kBk = 1, kEth = 2, kSpar = 3 };
 
-// Per-lane global planes ([lanes, B] each) and sizes.
+// Per-lane global planes ([lanes, B] each; vis and known [lanes, B, NS])
+// and sizes.
 struct Ledger {
   int32_t* parent;
   int32_t* height;
   int32_t* miner;
-  uint32_t* vis;    // bit n: visible at node n
-  uint32_t* known;  // bit n: known (arrived) at node n
+  uint32_t* vis;    // word n / 32, bit n % 32: visible at node n
+  uint32_t* known;  // the same: known (arrived) at node n
   int32_t* wq;      // K13: withheld FIFO
   int32_t B, M, F, S, A, WA;
 };
@@ -98,7 +105,7 @@ struct Proto {
   int32_t* conf_own;  // Bk, Spar [B, n]: node n's own votes on the block
   float* mybest;      // Bk [B, n]: node n's best own vote hash
   float* repl;        // Bk [B, n]: the best replacement visible at n
-  uint32_t* noprop;   // Bk: bit n, node n's proposal search failed
+  uint32_t* noprop;   // Bk [B, NS]: node n's proposal search failed
   int32_t* quorum;    // Bk, Spar [B, qw]: a block's quorum (-1 padded)
   int32_t* work;      // Ethereum: cumulative work
   int32_t* uncles;    // Ethereum [B, U] (-1 padded)
@@ -147,14 +154,18 @@ __host__ __device__ inline int scratch_len(const Proto& p) {
   return n > p.U ? n : p.U;
 }
 
-template <bool kAttack, int kProto = kNak>
+template <bool kAttack, int kProto = kNak, int NS = 1>
 struct EventLane {
+  // a queue entry's node field (N <= 256)
+  static constexpr int kNodeBits = 8;
+  static constexpr int kNodeMask = (1 << kNodeBits) - 1;
+
   // shared memory of this warp
   double* qt;
-  int32_t* qbd;  // block << 5 | destination node
+  int32_t* qbd;  // block << kNodeBits | destination node
   int32_t* qs;
   int32_t* fl;   // free slots in index order, built per push
-  int32_t* pend; // [32, F]
+  int32_t* pend; // [32 * NS, F]
   float* sk;     // scratch: compacted keys
   int32_t* si;   // scratch: compacted block ids
   int32_t* sc;   // scratch: a row being built
@@ -171,26 +182,60 @@ struct EventLane {
   int n_act = 0, nb = 1, seq = 0, steps = 0;
   int drop_q = 0, drop_p = 0, drop_b = 0;
   bool live = true;
-  int pref = 0, node_act = 0;  // node t's
-  unsigned want = 0;           // Bk: the nodes that would propose
+  int pref[NS], node_act[NS];  // node s * 32 + t's
+  unsigned want[NS];           // Bk: the nodes that would propose
   // K13
   int priv = 0, pub = 0, rel_h = -1, win_miss = 0, wq_head = 0,
       wq_tail = 0, pid = 0;
   bool strict = true;
 
+  __device__ int node(int s) const { return s * 32 + t; }
+
+  // Node n's bit of a block's words (n warp-uniform or not).
+  __device__ bool bit_of(const uint32_t* words, int b, int n) const {
+    if (NS == 1) return (words[b] >> n) & 1u;
+    return (words[b * NS + (n >> 5)] >> (n & 31)) & 1u;
+  }
+
+  // The preference of node n (warp-uniform), for every thread.
+  __device__ int pref_of(int n) const { return slot_value<NS>(pref, n); }
+
+  __device__ void set_pref(int n, int id) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      if (node(s) == n) pref[s] = id;
+  }
+
+  // The node set {n}.
+  __device__ static void only(unsigned (&set)[NS], int n) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      set[s] = (NS == 1 || (n >> 5) == s) ? 1u << (n & 31) : 0u;
+  }
+
   __device__ void init(uint2 lane_key) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      pref[s] = 0;
+      node_act[s] = 0;
+      want[s] = 0u;
+    }
     const int kq = (g.M + 31) / 32;
     for (int j = 0; j < kq; ++j) {
       const int e = j * 32 + t;
       if (e < g.M) qt[e] = INFINITY;
     }
-    for (int f = 0; f < g.F; ++f) pend[t * g.F + f] = -1;
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      for (int f = 0; f < g.F; ++f) pend[node(s) * g.F + f] = -1;
     if (t == 0) {
       g.parent[0] = -1;
       g.height[0] = 0;
       g.miner[0] = -1;
-      g.vis[0] = kFull;
-      g.known[0] = kFull;
+    }
+    if (t < NS) {
+      g.vis[t] = kFull;
+      g.known[t] = kFull;
     }
     proto_row(0, false, 2.0f, 2.0f);
     if (kProto == kEth) {
@@ -208,9 +253,12 @@ struct EventLane {
   // and an empty quorum; Bk's hashes and marks.
   __device__ void proto_row(int id, bool vote, float ph, float lh) {
     if (kProto == kBk || kProto == kSpar) {
-      if (t < N) {
-        p.conf[id * N + t] = 0;
-        p.conf_own[id * N + t] = 0;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        if (node(s) < N) {
+          p.conf[id * N + node(s)] = 0;
+          p.conf_own[id * N + node(s)] = 0;
+        }
       }
       if (t == 0) {
         p.is_vote[id] = vote;
@@ -219,15 +267,18 @@ struct EventLane {
       for (int i = t; i < p.qw; i += 32) p.quorum[id * p.qw + i] = -1;
     }
     if (kProto == kBk) {
-      if (t < N) {
-        p.mybest[id * N + t] = 2.0f;
-        p.repl[id * N + t] = 2.0f;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        if (node(s) < N) {
+          p.mybest[id * N + node(s)] = 2.0f;
+          p.repl[id * N + node(s)] = 2.0f;
+        }
       }
       if (t == 0) {
         p.powh[id] = ph;
         p.lhash[id] = lh;
-        p.noprop[id] = 0u;
       }
+      if (t < NS) p.noprop[id * NS + t] = 0u;
     }
   }
 
@@ -238,13 +289,13 @@ struct EventLane {
   }
 
   // The wave at tmin: pops it and returns its block and the nodes it
-  // reaches (a mask).
-  __device__ void pop_wave(int& b, unsigned& dmask) {
+  // reaches (a node set).
+  __device__ void pop_wave(int& b, unsigned (&dmask)[NS]) {
     int s_best = 0x7FFFFFFF, b_best = 0;
     for (int e = t; e < g.M; e += 32)
       if (qt[e] == tmin && qs[e] < s_best) {
         s_best = qs[e];
-        b_best = qbd[e] >> 5;
+        b_best = qbd[e] >> kNodeBits;
       }
     for (int o = 16; o > 0; o >>= 1) {
       const int s2 = __shfl_xor_sync(kFull, s_best, o);
@@ -255,71 +306,94 @@ struct EventLane {
       }
     }
     b = b_best;
-    unsigned mask = 0;
+    unsigned mask[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) mask[s] = 0u;
     for (int e = t; e < g.M; e += 32)
-      if (qt[e] == tmin && (qbd[e] >> 5) == b) {
-        mask |= 1u << (qbd[e] & 31);
+      if (qt[e] == tmin && (qbd[e] >> kNodeBits) == b) {
+        const int d = qbd[e] & kNodeMask;
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          if (NS == 1 || (d >> 5) == s) mask[s] |= 1u << (d & 31);
         qt[e] = INFINITY;
       }
-    dmask = __reduce_or_sync(kFull, mask);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) dmask[s] = __reduce_or_sync(kFull, mask[s]);
   }
 
   // Delivery of block b to the nodes in dmask at tmin: known/vis bits,
-  // parking, preference. Returns whether node t delivered (`deliver`).
-  __device__ bool deliver_wave(int b, unsigned dmask) {
-    const bool dm = (dmask >> t) & 1u;
+  // parking, preference. Returns which of this thread's nodes delivered
+  // (bit s: node s * 32 + t).
+  __device__ unsigned deliver_wave(int b, const unsigned (&dmask)[NS]) {
     const int pb = g.parent[b];
-    const bool pv = pb < 0 || ((g.vis[pb] >> t) & 1u);
-    const uint32_t vis_b = g.vis[b], known_b = g.known[b];
-    const bool deliver = dm && !((vis_b >> t) & 1u) && pv;
-    const bool blocked = dm && !((known_b >> t) & 1u) && !pv;
-    const unsigned dl = __ballot_sync(kFull, deliver);
-    __syncwarp();
-    if (t == 0) {
-      g.known[b] = known_b | dmask;
-      g.vis[b] = vis_b | dl;
+    unsigned deliver = 0u;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const bool dm = (dmask[s] >> t) & 1u;
+      const bool pv = pb < 0 || ((g.vis[pb * NS + s] >> t) & 1u);
+      const uint32_t vis_b = g.vis[b * NS + s], known_b = g.known[b * NS + s];
+      const bool dlv = dm && !((vis_b >> t) & 1u) && pv;
+      const bool blocked = dm && !((known_b >> t) & 1u) && !pv;
+      const unsigned dl = __ballot_sync(kFull, dlv);
+      __syncwarp();
+      if (t == 0) {
+        g.known[b * NS + s] = known_b | dmask[s];
+        g.vis[b * NS + s] = vis_b | dl;
+      }
+      int* mine = pend + node(s) * g.F;
+      int slot = -1;
+      for (int f = 0; f < g.F && slot < 0; ++f)
+        if (mine[f] < 0) slot = f;
+      if (blocked && slot >= 0) mine[slot] = b;
+      drop_p += __popc(__ballot_sync(kFull, blocked && slot < 0));
+      if (dlv) deliver |= 1u << s;
     }
-    int* mine = pend + t * g.F;
-    int slot = -1;
-    for (int f = 0; f < g.F && slot < 0; ++f)
-      if (mine[f] < 0) slot = f;
-    if (blocked && slot >= 0) mine[slot] = b;
-    drop_p += __popc(__ballot_sync(kFull, blocked && slot < 0));
     prefer(b, pb, deliver);
     __syncwarp();
     return deliver;
   }
 
-  // Node t's preference after block b (parent pb) reached it
-  // (engine.py:245-286); Bk and Spar tally a delivered vote first, and Bk
-  // clears the voters' failed marks and lowers the replacement floor by a
-  // delivered proposal's hash.
-  __device__ void prefer(int b, int pb, bool deliver) {
+  // The preference of this thread's nodes in `deliver` after block b
+  // (parent pb) reached them (engine.py:245-286); Bk and Spar tally a
+  // delivered vote first, and Bk clears the voters' failed marks and
+  // lowers the replacement floor by a delivered proposal's hash.
+  __device__ void prefer(int b, int pb, unsigned deliver) {
     if (kProto == kNak) {
-      if (deliver && g.height[b] > g.height[pref]) pref = b;
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        if (((deliver >> s) & 1u) && g.height[b] > g.height[pref[s]])
+          pref[s] = b;
     } else if (kProto == kEth) {
       const int32_t* key_of = p.byz ? g.height : p.work;
-      if (deliver && key_of[b] > key_of[pref]) pref = b;
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        if (((deliver >> s) & 1u) && key_of[b] > key_of[pref[s]])
+          pref[s] = b;
     } else {
       const int pbc = pb > 0 ? pb : 0;
       const bool is_v = p.is_vote[b] != 0;
-      if (deliver && is_v) p.conf[pbc * N + t] += 1;
-      if (kProto == kBk) {
-        const unsigned dv = __ballot_sync(kFull, deliver && is_v);
-        if (t == 0 && dv) p.noprop[pbc] &= ~dv;
-        if (deliver && !is_v) {
-          const int e = pbc * N + t;
-          p.repl[e] = fminf(p.repl[e], p.lhash[b]);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const bool dlv = (deliver >> s) & 1u;
+        if (dlv && is_v) p.conf[pbc * N + node(s)] += 1;
+        if (kProto == kBk) {
+          const unsigned dv = __ballot_sync(kFull, dlv && is_v);
+          if (t == 0 && dv) p.noprop[pbc * NS + s] &= ~dv;
+          if (dlv && !is_v) {
+            const int e = pbc * N + node(s);
+            p.repl[e] = fminf(p.repl[e], p.lhash[b]);
+          }
         }
-      }
-      if (deliver) {
-        const int bb = is_v ? pbc : b;
-        const int hb = g.height[bb], hp = g.height[pref];
-        const int cb = p.conf[bb * N + t], cp = p.conf[pref * N + t];
-        bool tie = cb > cp;
-        if (kProto == kBk)
-          tie = tie || (cb == cp && p.lhash[bb] < p.lhash[pref]);
-        if (hb > hp || (hb == hp && tie)) pref = bb;
+        if (dlv) {
+          const int bb = is_v ? pbc : b;
+          const int hb = g.height[bb], hp = g.height[pref[s]];
+          const int cb = p.conf[bb * N + node(s)],
+                    cp = p.conf[pref[s] * N + node(s)];
+          bool tie = cb > cp;
+          if (kProto == kBk)
+            tie = tie || (cb == cp && p.lhash[bb] < p.lhash[pref[s]]);
+          if (hb > hp || (hb == hp && tie)) pref[s] = bb;
+        }
       }
     }
   }
@@ -327,14 +401,25 @@ struct EventLane {
   // Bk: the nodes whose preferred block has k visible confirming votes,
   // one of them their own, their best own hash below the best visible
   // replacement's, and no failed search since their last vote there.
-  __device__ unsigned bk_want() const {
-    bool w = false;
-    if (t < N) {
-      const int e = pref * N + t;
-      w = p.conf[e] >= p.k && p.conf_own[e] >= 1 && p.mybest[e] < p.repl[e] &&
-          !((p.noprop[pref] >> t) & 1u);
+  __device__ void bk_want() {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      bool w = false;
+      if (node(s) < N) {
+        const int e = pref[s] * N + node(s);
+        w = p.conf[e] >= p.k && p.conf_own[e] >= 1 &&
+            p.mybest[e] < p.repl[e] &&
+            !((p.noprop[pref[s] * NS + s] >> t) & 1u);
+      }
+      want[s] = __ballot_sync(kFull, w);
     }
-    return __ballot_sync(kFull, w);
+  }
+
+  __device__ bool any_want() const {
+    unsigned w = 0u;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) w |= want[s];
+    return w != 0u;
   }
 
   // The r smallest of the n compacted (sk, si), by key then block id (a
@@ -375,8 +460,12 @@ struct EventLane {
       g.parent[id] = parent;
       g.height[id] = height;
       g.miner[id] = src;
-      g.vis[id] = 1u << src;
-      g.known[id] = 1u << src;
+    }
+    if (t < NS) {
+      const uint32_t bit =
+          (NS == 1 || (src >> 5) == t) ? 1u << (src & 31) : 0u;
+      g.vis[id * NS + t] = bit;
+      g.known[id * NS + t] = bit;
     }
   }
 
@@ -415,7 +504,7 @@ struct EventLane {
         const int ep = g.parent[w];
         bool pa = false;
         for (int i = 1; i < 7; ++i) pa = pa || (inch[i] >= 0 && ep == inch[i]);
-        if (pa && ((g.vis[w] >> m) & 1u)) {
+        if (pa && bit_of(g.vis, w, m)) {
           bool in = false;
           for (int i = 0; i < n_in; ++i) in = in || inch[i] == w;
           cand = !in;
@@ -452,7 +541,7 @@ struct EventLane {
       const int w = start + j + t;
       bool on = false, mine = false;
       if (j + t < W && w < nb) {
-        on = g.parent[w] == pj && p.is_vote[w] && ((g.vis[w] >> m) & 1u);
+        on = g.parent[w] == pj && p.is_vote[w] && bit_of(g.vis, w, m);
         mine = on && g.miner[w] == m;
       }
       const unsigned lt = lanemask_lt();
@@ -487,9 +576,12 @@ struct EventLane {
 
   // Bk's proposal step (engine.py:409-458, :460-509): the lowest node
   // that wants proposes on its preferred block, or marks it failed.
-  __device__ void propose(unsigned& send, int& s_blk) {
-    const int js = __ffs(want) - 1;
-    const int pjs = __shfl_sync(kFull, pref, js);
+  __device__ void propose(unsigned (&send)[NS], int& s_blk) {
+    int js = -1;
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      if (js < 0 && want[s]) js = s * 32 + __ffs(want[s]) - 1;
+    const int pjs = pref_of(js);
     const int B = g.B, W = p.W, k = p.k;
     const int start = clampi(pjs + 1, 0, B - W > 0 ? B - W : 0);
     const int ce = pjs * N + js;
@@ -500,7 +592,7 @@ struct EventLane {
       bool on = false, mine = false, cand = false;
       float ph = 0.0f;
       if (j + t < W && w < nb) {
-        on = g.parent[w] == pjs && p.is_vote[w] && ((g.vis[w] >> js) & 1u);
+        on = g.parent[w] == pjs && p.is_vote[w] && bit_of(g.vis, w, js);
         if (on) {
           mine = g.miner[w] == js;
           ph = p.powh[w];
@@ -529,7 +621,7 @@ struct EventLane {
     const bool feasible = n_mine >= k || n_mine + n_cand >= k;
     const int id = nb;
     if (!feasible || id >= B) {
-      if (t == 0) p.noprop[pjs] |= 1u << js;
+      if (t == 0) p.noprop[pjs * NS + (js >> 5)] |= 1u << (js & 31);
       __syncwarp();
       return;
     }
@@ -544,15 +636,15 @@ struct EventLane {
     __syncwarp();
     for (int i = t; i < k; i += 32) p.quorum[id * p.qw + i] = sc[i];
     if (t == 0) p.repl[ce] = fminf(p.repl[ce], mb);
-    if (t == js) pref = id;
+    set_pref(js, id);
     ++nb;
-    send = 1u << js;
+    only(send, js);
     s_blk = id;
     __syncwarp();
   }
 
   // A mint by m on `parent` under Bk, Ethereum or Spar.
-  __device__ void mint(int m, int parent, uint2 k_pow, unsigned& send,
+  __device__ void mint(int m, int parent, uint2 k_pow, unsigned (&send)[NS],
                        int& s_blk) {
     const int id = nb;
     if (kProto == kBk) {
@@ -569,7 +661,7 @@ struct EventLane {
         p.conf[e] += 1;
         p.conf_own[e] += 1;
         p.mybest[e] = fminf(p.mybest[e], ph);
-        p.noprop[parent] &= ~(1u << m);
+        p.noprop[parent * NS + (m >> 5)] &= ~(1u << (m & 31));
         p.nvotes[parent] += 1;
       }
     } else if (kProto == kEth) {
@@ -583,7 +675,7 @@ struct EventLane {
       append_at(id, parent, g.height[parent] + 1, m);
       if (t == 0) p.work[id] = p.work[parent] + 1 + n_unc;
       for (int i = t; i < p.U; i += 32) p.uncles[id * p.U + i] = sc[i];
-      if (t == m) pref = id;
+      set_pref(m, id);
     } else {
       const bool block = spar_draft(m, parent);
       if (id >= g.B) {
@@ -595,7 +687,7 @@ struct EventLane {
       __syncwarp();
       if (block) {
         for (int i = t; i < p.qw; i += 32) p.quorum[id * p.qw + i] = sc[i];
-        if (t == m) pref = id;
+        set_pref(m, id);
       } else if (t == 0) {
         const int e = parent * N + m;
         p.conf[e] += 1;
@@ -604,7 +696,7 @@ struct EventLane {
       }
     }
     ++nb;
-    send = 1u << m;
+    only(send, m);
     s_blk = id;
     __syncwarp();
   }
@@ -631,63 +723,83 @@ struct EventLane {
     if (rank < n_place) {
       const int e = fl[rank];
       qt[e] = time;
-      qbd[e] = (blk << 5) | dst;
+      qbd[e] = (blk << kNodeBits) | dst;
       qs[e] = seq + rank + 1;
     }
   }
 
-  // Push: node t's parked children unlocked by its delivery (when
-  // `deliver`), re-queued at now2, then block s_blk down the links of
-  // every node in `send` at now2 + the link's delay.
-  __device__ void push(bool deliver, unsigned send, int s_blk, double now2,
-                       uint2 k_delay) {
-    int* mine = pend + t * g.F;
-    int n_unl = 0;
-    if (deliver)
-      for (int f = 0; f < g.F; ++f) {
-        const int c = mine[f];
-        if (c >= 0) {
-          const int par = g.parent[c];
-          if (par < 0 || ((g.vis[par] >> t) & 1u)) ++n_unl;
-        }
-      }
-    const int unl_end = warp_scan(n_unl);
-    const int n_unl_all = __shfl_sync(kFull, unl_end, 31);
-    int n_send = 0;
-    for (unsigned s = send; s; s &= s - 1) {
-      const int src = __ffs(s) - 1;
-      n_send += __popc(__ballot_sync(
-          kFull, t < N && pl.kind[src * N + t] >= 0));
+  // Whether this thread's node s parks a child in slot f that the node's
+  // delivery unlocked.
+  __device__ bool unlocked(int c, int s) const {
+    if (c < 0) return false;
+    const int par = g.parent[c];
+    return par < 0 || ((g.vis[par * NS + s] >> t) & 1u);
+  }
+
+  // Push: the parked children of this thread's delivering nodes that
+  // their delivery unlocked (`deliver`), re-queued at now2, then block
+  // s_blk down the links of every node in `send` at now2 + the link's
+  // delay; ranks in node order.
+  __device__ void push(unsigned deliver, const unsigned (&send)[NS],
+                       int s_blk, double now2, uint2 k_delay) {
+    int rank0[NS];
+    int n_unl_all = 0;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int* mine = pend + node(s) * g.F;
+      int n_unl = 0;
+      if ((deliver >> s) & 1u)
+        for (int f = 0; f < g.F; ++f) n_unl += unlocked(mine[f], s) ? 1 : 0;
+      const int unl_end = warp_scan(n_unl);
+      rank0[s] = n_unl_all + unl_end - n_unl;
+      n_unl_all += __shfl_sync(kFull, unl_end, 31);
     }
+    int n_send = 0;
+#pragma unroll
+    for (int w = 0; w < NS; ++w)
+      for (unsigned bits = send[w]; bits; bits &= bits - 1) {
+        const int src = w * 32 + __ffs(bits) - 1;
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          n_send += __popc(__ballot_sync(
+              kFull, node(s) < N && pl.kind[src * N + node(s)] >= 0));
+      }
     const int n_valid = n_unl_all + n_send;
     if (n_valid == 0) return;
     const int n_place = free_slots(n_valid);
-    int rank = unl_end - n_unl;
-    if (deliver)
-      for (int f = 0; f < g.F; ++f) {
-        const int c = mine[f];
-        if (c >= 0) {
-          const int par = g.parent[c];
-          if (par < 0 || ((g.vis[par] >> t) & 1u)) {
-            put(rank++, n_place, now2, c, t);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      if ((deliver >> s) & 1u) {
+        int* mine = pend + node(s) * g.F;
+        int rank = rank0[s];
+        for (int f = 0; f < g.F; ++f) {
+          const int c = mine[f];
+          if (unlocked(c, s)) {
+            put(rank++, n_place, now2, c, node(s));
             mine[f] = -1;
           }
         }
       }
-    if (send) {
+    }
+    if (n_send) {
       const uint2 k_u = split_key(k_delay, 0), k_e = split_key(k_delay, 1);
-      rank = n_unl_all;
-      for (unsigned s = send; s; s &= s - 1) {
-        const int src = __ffs(s) - 1;
-        const int e = src * N + t;
-        const bool linked = t < N && pl.kind[e] >= 0;
-        const unsigned lb = __ballot_sync(kFull, linked);
-        if (linked)
-          put(rank + __popc(lb & lanemask_lt()), n_place,
-              __dadd_rn(now2, link_delay(pl, e, k_u, k_e, (uint32_t)e)),
-              s_blk, t);
-        rank += __popc(lb);
-      }
+      int rank = n_unl_all;
+#pragma unroll
+      for (int w = 0; w < NS; ++w)
+        for (unsigned bits = send[w]; bits; bits &= bits - 1) {
+          const int src = w * 32 + __ffs(bits) - 1;
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const int e = src * N + node(s);
+            const bool linked = node(s) < N && pl.kind[e] >= 0;
+            const unsigned lb = __ballot_sync(kFull, linked);
+            if (linked)
+              put(rank + __popc(lb & lanemask_lt()), n_place,
+                  __dadd_rn(now2, link_delay(pl, e, k_u, k_e, (uint32_t)e)),
+                  s_blk, node(s));
+            rank += __popc(lb);
+          }
+        }
     }
     seq += n_valid;
     drop_q += n_valid - n_place;
@@ -721,32 +833,37 @@ struct EventLane {
       rb = g.wq[wq_head];
       is_rel = g.height[rb] <= rel_h;
     }
-    const bool is_prop = kProto == kBk && want != 0u;
+    const bool is_prop = kProto == kBk && any_want();
     const bool act_now = can_act && next_act <= tmin;
     const bool recv_ok = has_q && !(!can_act && tmin >= next_act);
     const bool is_act = !is_rel && !is_prop && act_now;
     const bool is_recv = !is_rel && !is_prop && !act_now && recv_ok;
     const double now2 = is_act ? next_act : (is_recv ? tmin : now);
 
-    bool deliver = false;
+    unsigned deliver = 0u;
     int b = 0;
     if (is_recv) {
-      unsigned dmask;
+      unsigned dmask[NS];
       pop_wave(b, dmask);
       deliver = deliver_wave(b, dmask);
     }
-    unsigned send = 0;
+    unsigned send[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) send[s] = 0u;
     int s_blk = 0;
     if (is_recv) {
       s_blk = b;
       if (flooding) {
         const int mb = g.miner[b];
-        send = __ballot_sync(kFull, deliver && mb != t);
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          send[s] = __ballot_sync(kFull, ((deliver >> s) & 1u) &&
+                                             mb != node(s));
       }
     }
     if (kAttack) {
       if (is_recv) {
-        const bool d0 = __shfl_sync(kFull, deliver, 0);
+        const bool d0 = __shfl_sync(kFull, deliver & 1u, 0);
         if (d0 && g.height[b] > g.height[pub]) {
           pub = b;
           handle(kEvNetwork);
@@ -756,19 +873,21 @@ struct EventLane {
         ++wq_head;
         if (wq_head == wq_tail || g.height[g.wq[wq_head]] > rel_h) rel_h = -1;
         if (g.height[rb] > g.height[pub]) pub = rb;
-        send = 1u;
+        only(send, 0);
         s_blk = rb;
       }
     }
     if (is_prop) propose(send, s_blk);
     if (is_act) {
       const float* lw = logw;
-      const int m = draw_miner(k_mine, 0, lw, N);
+      const int m = draw_miner<NS>(k_mine, 0, lw, N);
       next_act = __dadd_rn(next_act, __dmul_rn(exponential64(k_next, 0), ad));
       ++n_act;
-      if (t == m) ++node_act;
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        if (node(s) == m) ++node_act[s];
       const bool atk = kAttack && m == 0;
-      const int parent = atk ? priv : __shfl_sync(kFull, pref, m);
+      const int parent = atk ? priv : pref_of(m);
       if (kProto != kNak) {
         mint(m, parent, k_pow, send, s_blk);
       } else {
@@ -782,8 +901,8 @@ struct EventLane {
             __syncwarp();
             handle(kEvPow);
           } else {
-            if (t == m) pref = id;
-            send = 1u << m;
+            set_pref(m, id);
+            only(send, m);
             s_blk = id;
           }
         }
@@ -799,9 +918,9 @@ struct EventLane {
       rel_pending = g.height[g.wq[wq_head]] <= rel_h;
     if (kProto == kBk) {
       __syncwarp();
-      want = bk_want();
+      bk_want();
     }
-    live = (kProto == kBk && want != 0u) || rel_pending || n_act < g.A ||
+    live = (kProto == kBk && any_want()) || rel_pending || n_act < g.A ||
            (tmin < next_act && isfinite(tmin));
   }
 
@@ -836,58 +955,90 @@ struct EventLane {
   // The winner and the reward walk under Bk, Ethereum or Spar
   // (engine.py:599-704): Bk and Spar score a preferred block by
   // h * (A + 1) + its votes in float64, Ethereum by its preference key,
-  // the first maximum wins; node t's float32 reward (every amount is
+  // the first maximum wins; each node's float32 reward (every amount is
   // dyadic, so the sum is exact in any order) and the lane's progress
   // and on_chain.
   __device__ void finalize(const Out& out, int64_t lane) {
     double sc_t = -INFINITY;
-    int j = t < N ? t : 32;
+    int j = NS == 1 ? 32 : kNoNode;
     const int32_t* key_of = p.byz ? g.height : p.work;
-    if (t < N) {
-      if (kProto == kEth)
-        sc_t = (double)key_of[pref];
-      else
-        sc_t = __dadd_rn(__dmul_rn((double)g.height[pref], (double)g.A + 1.0),
-                         (double)p.nvotes[pref]);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      if (node(s) < N) {
+        double v;
+        if (kProto == kEth)
+          v = (double)key_of[pref[s]];
+        else
+          v = __dadd_rn(__dmul_rn((double)g.height[pref[s]],
+                                  (double)g.A + 1.0),
+                        (double)p.nvotes[pref[s]]);
+        if (s == 0 || v > sc_t) {
+          sc_t = v;
+          j = node(s);
+        }
+      }
     }
     warp_argmax(sc_t, j);
-    const int head = __shfl_sync(kFull, pref, j);
+    const int head = pref_of(j);
     const int hh = g.height[head];
     const int walk = kProto == kEth ? g.A + 2 : g.A / (p.k > 1 ? p.k : 1) + 3;
-    float rew = 0.0f;
+    float rew[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) rew[s] = 0.0f;
     int onc = 0;
     int cur = head;
-    for (int s = 0; s < walk && cur > 0; ++s) {
+    for (int st = 0; st < walk && cur > 0; ++st) {
       const int mn = g.miner[cur];
       if (kProto == kEth) {
         const int32_t* urow = p.uncles + (int64_t)cur * p.U;
         int nu = 0;
         for (int i = 0; i < p.U; ++i) nu += urow[i] >= 0 ? 1 : 0;
-        if (t == mn)
-          rew = __fadd_rn(rew, __fadd_rn(1.0f, __fmul_rn((float)nu, 0.03125f)));
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          if (node(s) == mn)
+            rew[s] = __fadd_rn(
+                rew[s], __fadd_rn(1.0f, __fmul_rn((float)nu, 0.03125f)));
         for (int i = 0; i < p.U; ++i) {
           const int u = urow[i];
-          if (u >= 0 && g.miner[u] == t)
-            rew = __fadd_rn(
-                rew, p.byz ? __fdiv_rn(__fsub_rn(8.0f, (float)(g.height[cur] -
-                                                                 g.height[u])),
-                                       8.0f)
-                           : 0.9375f);
+          if (u < 0) continue;
+          const int mu = g.miner[u];
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            if (mu == node(s))
+              rew[s] = __fadd_rn(
+                  rew[s],
+                  p.byz ? __fdiv_rn(__fsub_rn(8.0f, (float)(g.height[cur] -
+                                                            g.height[u])),
+                                    8.0f)
+                        : 0.9375f);
         }
         onc += 1 + nu;
       } else if (p.block_scheme) {
-        if (t == mn) rew = __fadd_rn(rew, (float)p.k);
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          if (node(s) == mn) rew[s] = __fadd_rn(rew[s], (float)p.k);
       } else {
-        if (kProto == kSpar && t == mn) rew = __fadd_rn(rew, 1.0f);
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          if (kProto == kSpar && node(s) == mn)
+            rew[s] = __fadd_rn(rew[s], 1.0f);
         const int32_t* q = p.quorum + (int64_t)cur * p.qw;
-        for (int i = 0; i < p.qw; ++i)
-          if (q[i] >= 0 && g.miner[q[i]] == t) rew = __fadd_rn(rew, 1.0f);
+        for (int i = 0; i < p.qw; ++i) {
+          if (q[i] < 0) continue;
+          const int mq = g.miner[q[i]];
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            if (mq == node(s)) rew[s] = __fadd_rn(rew[s], 1.0f);
+        }
       }
       cur = g.parent[cur];
     }
-    if (t < N) {
-      out.node_act[lane * N + t] = node_act;
-      out.reward[lane * N + t] = rew;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      if (node(s) < N) {
+        out.node_act[lane * N + node(s)] = node_act[s];
+        out.reward[lane * N + node(s)] = rew[s];
+      }
     }
     if (t == 0) {
       out.head[lane] = head;
@@ -906,10 +1057,11 @@ struct EventLane {
 };
 
 // Dynamic shared memory of one warp (one block) for queue capacity M,
-// pending capacity F and (protocols but Nakamoto) the scratch.
-__host__ __device__ inline size_t event_smem(int M, int F) {
+// pending capacity F and NS node slots a thread (32 * NS pending
+// buffers); the protocols but Nakamoto add `proto_smem`.
+__host__ __device__ inline size_t event_smem(int M, int F, int NS) {
   return (size_t)M * (sizeof(double) + 3 * sizeof(int32_t)) +
-         (size_t)32 * F * sizeof(int32_t);
+         (size_t)32 * NS * F * sizeof(int32_t);
 }
 
 __host__ __device__ inline size_t proto_smem(const Proto& p) {
@@ -918,14 +1070,14 @@ __host__ __device__ inline size_t proto_smem(const Proto& p) {
 
 // One warp (one block) a lane: init, steps while live and under S, then
 // the winner and the reward walk.
-template <bool kAttack, int kProto>
+template <bool kAttack, int kProto, int NS>
 __global__ void __launch_bounds__(32)
 event_kernel(LaneIn in, Ledger led, Planes pl, int flooding, Proto pr,
              Out out) {
   const int64_t lane = blockIdx.x;
   if (lane >= in.n_lanes) return;
   extern __shared__ double smem[];
-  EventLane<kAttack, kProto> L;
+  EventLane<kAttack, kProto, NS> L;
   L.qt = smem;
   L.qbd = reinterpret_cast<int32_t*>(smem + led.M);
   L.qs = L.qbd + led.M;
@@ -936,8 +1088,8 @@ event_kernel(LaneIn in, Ledger led, Planes pl, int flooding, Proto pr,
   L.g.parent += row;
   L.g.height += row;
   L.g.miner += row;
-  L.g.vis += row;
-  L.g.known += row;
+  L.g.vis += row * NS;
+  L.g.known += row * NS;
   if (kAttack) {
     L.g.wq += row;
     L.pid = in.policy[lane];
@@ -945,7 +1097,7 @@ event_kernel(LaneIn in, Ledger led, Planes pl, int flooding, Proto pr,
   }
   if (kProto != kNak) {
     const int S1 = scratch_len(pr);
-    L.sk = reinterpret_cast<float*>(L.pend + 32 * led.F);
+    L.sk = reinterpret_cast<float*>(L.pend + 32 * NS * led.F);
     L.si = reinterpret_cast<int32_t*>(L.sk + S1);
     L.sc = L.si + S1;
     L.sx = L.sc + S1;
@@ -956,7 +1108,7 @@ event_kernel(LaneIn in, Ledger led, Planes pl, int flooding, Proto pr,
     advance(L.p.nvotes, row);
     advance(L.p.powh, row);
     advance(L.p.lhash, row);
-    advance(L.p.noprop, row);
+    advance(L.p.noprop, row * NS);
     advance(L.p.work, row);
     advance(L.p.conf, row * n);
     advance(L.p.conf_own, row * n);
@@ -978,18 +1130,31 @@ event_kernel(LaneIn in, Ledger led, Planes pl, int flooding, Proto pr,
   if (kProto != kNak) {
     L.finalize(out, lane);
   } else {
-    int hp = -1, j = t < N ? t : 32;
-    if (t < N && (!kAttack || t >= 1)) hp = L.g.height[L.pref];
-    int best = hp;
+    int best = -1, j = NS == 1 ? 32 : kNoNode;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int nd = L.node(s);
+      if (nd < N && (!kAttack || nd >= 1)) {
+        const int hp = L.g.height[L.pref[s]];
+        if (hp > best) {
+          best = hp;
+          j = nd;
+        }
+      }
+    }
     warp_argmax(best, j);
-    int head = __shfl_sync(kFull, L.pref, j);
+    int head = L.pref_of(j);
     if (kAttack && L.g.height[L.priv] >= best) head = L.priv;
     const int32_t head_height = L.g.height[head];
-    const int count =
-        chain_rewards(head, L.nb - 1, L.g.parent, L.g.miner, 0, N);
-    if (t < N) {
-      out.node_act[lane * N + t] = L.node_act;
-      out.reward[lane * N + t] = (float)count;
+    int count[NS];
+    chain_rewards<NS>(head, L.nb - 1, L.g.parent, L.g.miner, 0, N, count);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int nd = L.node(s);
+      if (nd < N) {
+        out.node_act[lane * N + nd] = L.node_act[s];
+        out.reward[lane * N + nd] = (float)count[s];
+      }
     }
     if (t == 0) {
       out.head[lane] = head;
@@ -1009,22 +1174,46 @@ event_kernel(LaneIn in, Ledger led, Planes pl, int flooding, Proto pr,
   }
 }
 
+template <bool kAttack, int kProto, int NS>
+cudaError_t launch_event_ns(const LaneIn& in, const Ledger& led,
+                            const Planes& pl, int flooding, const Proto& pr,
+                            const Out& out, cudaStream_t stream) {
+  const size_t smem =
+      event_smem(led.M, led.F, NS) + (kProto == kNak ? 0 : proto_smem(pr));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        event_kernel<kAttack, kProto, NS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  event_kernel<kAttack, kProto, NS>
+      <<<(unsigned)in.n_lanes, 32, smem, stream>>>(in, led, pl, flooding, pr,
+                                                   out);
+  return cudaGetLastError();
+}
+
+// The launch at the network's node bucket (N <= 256, B < 2^23: a queue
+// entry's block field; checked by the wrapper).
 template <bool kAttack, int kProto>
 cudaError_t launch_event(const LaneIn& in, const Ledger& led,
                          const Planes& pl, int flooding, const Proto& pr,
                          const Out& out, cudaStream_t stream) {
   if (in.n_lanes <= 0) return cudaSuccess;
-  const size_t smem =
-      event_smem(led.M, led.F) + (kProto == kNak ? 0 : proto_smem(pr));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        event_kernel<kAttack, kProto>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+  if (pl.n > 32 * kMaxSlots) return cudaErrorInvalidValue;
+  switch (node_slots(pl.n)) {
+    case 1:
+      return launch_event_ns<kAttack, kProto, 1>(in, led, pl, flooding, pr,
+                                                 out, stream);
+    case 2:
+      return launch_event_ns<kAttack, kProto, 2>(in, led, pl, flooding, pr,
+                                                 out, stream);
+    case 4:
+      return launch_event_ns<kAttack, kProto, 4>(in, led, pl, flooding, pr,
+                                                 out, stream);
+    default:
+      return launch_event_ns<kAttack, kProto, 8>(in, led, pl, flooding, pr,
+                                                 out, stream);
   }
-  event_kernel<kAttack, kProto><<<(unsigned)in.n_lanes, 32, smem, stream>>>(
-      in, led, pl, flooding, pr, out);
-  return cudaGetLastError();
 }
 
 // The Nakamoto engine (K12-event, K13): no protocol planes.
@@ -1034,6 +1223,35 @@ cudaError_t launch_event(const LaneIn& in, const Ledger& led,
                          cudaStream_t stream) {
   return launch_event<kAttack, kNak>(in, led, pl, flooding, Proto{}, out,
                                      stream);
+}
+
+// The static shared memory of the NS-slot instantiation and the most a
+// block of the current card may have (the wrappers' node limit).
+template <bool kAttack, int kProto>
+cudaError_t event_smem_limits(int ns, int* static_bytes, int* block_bytes) {
+  cudaFuncAttributes attr;
+  cudaError_t err;
+  switch (ns) {
+    case 1:
+      err = cudaFuncGetAttributes(&attr, event_kernel<kAttack, kProto, 1>);
+      break;
+    case 2:
+      err = cudaFuncGetAttributes(&attr, event_kernel<kAttack, kProto, 2>);
+      break;
+    case 4:
+      err = cudaFuncGetAttributes(&attr, event_kernel<kAttack, kProto, 4>);
+      break;
+    default:
+      err = cudaFuncGetAttributes(&attr, event_kernel<kAttack, kProto, 8>);
+  }
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(block_bytes,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *static_bytes = (int)attr.sharedSizeBytes;
+  return err;
 }
 
 }  // namespace netsim

@@ -1,6 +1,6 @@
 // Kernel K12-event-bk: the netsim's event engine running Bk (k votes a
 // proposal; `constant` and `block` rewards), one lane a (seed, activation
-// delay) simulation of `activations` votes on up to 32 nodes.
+// delay) simulation of `activations` votes on up to 256 nodes.
 //
 // Replaces: cpr_tpu/netsim/engine.py:153-188, :245-263, :409-509 and
 // :578-650 (`_lane_fn`, its Bk branch). Plain twin:
@@ -38,6 +38,15 @@ cudaError_t cpr_k12_event_bk(const LaneIn* in, const Ledger* led,
                              void* stream) {
   return cpr::netsim::launch_event<false, cpr::netsim::kBk>(
       *in, *led, *pl, flooding, *pr, *out, (cudaStream_t)stream);
+}
+
+// The static shared memory of the kernel's instantiation for `ns`
+// node slots a thread and the most a block of the current card may
+// have, for the wrapper's node limit.
+cudaError_t cpr_k12_event_bk_smem(int ns, int* static_bytes,
+                                  int* block_bytes) {
+  return cpr::netsim::event_smem_limits<false, cpr::netsim::kBk>(
+      ns, static_bytes, block_bytes);
 }
 
 const char* cpr_k12_event_bk_error_string(int err) {

@@ -1,7 +1,7 @@
 // Kernel K12-event-eth: the netsim's event engine running Ethereum
 // (whitepaper: preference by work, up to U uncles; Byzantium: by height,
 // at most 2 uncles), one lane a (seed, activation delay) simulation of
-// `activations` blocks on up to 32 nodes.
+// `activations` blocks on up to 256 nodes.
 //
 // Replaces: cpr_tpu/netsim/engine.py:164-169, :264-269, :311-366,
 // :510-515 and :611-683 (`_lane_fn`, its Ethereum branch). Plain twin:
@@ -40,6 +40,15 @@ cudaError_t cpr_k12_event_eth(const LaneIn* in, const Ledger* led,
                               void* stream) {
   return cpr::netsim::launch_event<false, cpr::netsim::kEth>(
       *in, *led, *pl, flooding, *pr, *out, (cudaStream_t)stream);
+}
+
+// The static shared memory of the kernel's instantiation for `ns`
+// node slots a thread and the most a block of the current card may
+// have, for the wrapper's node limit.
+cudaError_t cpr_k12_event_eth_smem(int ns, int* static_bytes,
+                                   int* block_bytes) {
+  return cpr::netsim::event_smem_limits<false, cpr::netsim::kEth>(
+      ns, static_bytes, block_bytes);
 }
 
 const char* cpr_k12_event_eth_error_string(int err) {

@@ -1,7 +1,7 @@
 // Kernel K12-event-spar: the netsim's event engine running Spar (a block
 // once k - 1 confirming votes are visible, else a vote; `constant` and
 // `block` rewards), one lane a (seed, activation delay) simulation of
-// `activations` mints on up to 32 nodes.
+// `activations` mints on up to 256 nodes.
 //
 // Replaces: cpr_tpu/netsim/engine.py:170-178, :270-282, :368-407,
 // :472-530 and :622-663 (`_lane_fn`, its Spar branch). Plain twin:
@@ -39,6 +39,15 @@ cudaError_t cpr_k12_event_spar(const LaneIn* in, const Ledger* led,
                                void* stream) {
   return cpr::netsim::launch_event<false, cpr::netsim::kSpar>(
       *in, *led, *pl, flooding, *pr, *out, (cudaStream_t)stream);
+}
+
+// The static shared memory of the kernel's instantiation for `ns`
+// node slots a thread and the most a block of the current card may
+// have, for the wrapper's node limit.
+cudaError_t cpr_k12_event_spar_smem(int ns, int* static_bytes,
+                                    int* block_bytes) {
+  return cpr::netsim::event_smem_limits<false, cpr::netsim::kSpar>(
+      ns, static_bytes, block_bytes);
 }
 
 const char* cpr_k12_event_spar_error_string(int err) {

@@ -19,12 +19,14 @@
 //
 // Design: one warp per lane; ring slot q of the window is held by thread
 // q % 32 (q / 32 < KS slots a thread, L <= 32 * KS): its height, mint
-// time, miner and block index. Nothing is presampled: the gaps are drawn
-// 32 at a time and summed in order through shuffles (a first pass finds
-// t[A], which the preference key's scale and the drain need), the miner's
-// Gumbel row is drawn when its step comes, one node per thread, and a
-// random link delay is drawn where an arrival is asked for, from its
-// counter (block * N + node) of the same key. The old-best fold stays in
+// time, miner and block index. Node n is held by thread n % 32 in its
+// slot n / 32 (NS node slots a thread, N <= 32 * NS; netsim.cuh). Nothing
+// is presampled: the gaps are drawn 32 at a time and summed in order
+// through shuffles (a first pass finds t[A], which the preference key's
+// scale and the drain need), the miner's Gumbel row is drawn when its
+// step comes, NS nodes a thread, and a random link delay is drawn where
+// an arrival is asked for, from its counter (block * N + node) of the
+// same key. The old-best fold stays in
 // registers; the parents and miners go to a [lanes, A] scratch for the
 // reward walk. Where every link is one constant D (the symmetric
 // cliques; `kConst`) an arrival is t + D off the miner's node.
@@ -101,7 +103,7 @@ __device__ __forceinline__ double pref_key(int h, double big, double a) {
   return __dsub_rn(__dmul_rn((double)h, big), a);
 }
 
-template <bool kConst, int KS>
+template <bool kConst, int KS, int NS>
 __global__ void __launch_bounds__(32 * kWarps)
 scan_kernel(ScanArgs a, Planes pl, Out out) {
   const int64_t lane = blockIdx.x * (int64_t)kWarps + (threadIdx.x >> 5);
@@ -131,7 +133,9 @@ scan_kernel(ScanArgs a, Planes pl, Out out) {
   for (int k = 0; k < KS; ++k) sg[k] = -1;
   int hmax_old = 0, bidx_old = 0, m_old = -1;
   double t_old = 0.0;
-  int node_act = 0, miss = 0;
+  int node_act[NS], miss = 0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) node_act[s] = 0;
   double sim_max = -INFINITY, t_i = 0.0;
   double gap = 0.0;
   cum = 0.0;
@@ -143,13 +147,17 @@ scan_kernel(ScanArgs a, Planes pl, Out out) {
       gap = i + t <= A ? cpr::netsim::exponential64(k_gap, i + t) : 0.0;
     cum = __dadd_rn(cum, __shfl_sync(kFull, gap, i & 31));
     t_i = __dmul_rn(cum, ad);
-    const int mi = cpr::netsim::draw_miner(k_mine, (uint32_t)(i * N), pl.logw,
-                                           N);
-    if (t == mi) ++node_act;
-    if (t < N) {  // this block's arrival here, for sim_time
-      const double ar =
-          arrival<kConst>(pl, k_u, k_e, a.D, i, t_i, mi, t);
-      if (ar < tA) sim_max = fmax(sim_max, ar);
+    const int mi = cpr::netsim::draw_miner<NS>(k_mine, (uint32_t)(i * N),
+                                               pl.logw, N);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int nd = s * 32 + t;
+      if (nd == mi) ++node_act[s];
+      if (nd < N) {  // this block's arrival at node nd, for sim_time
+        const double ar =
+            arrival<kConst>(pl, k_u, k_e, a.D, i, t_i, mi, nd);
+        if (ar < tA) sim_max = fmax(sim_max, ar);
+      }
     }
 
     // the window's best visible block at the miner
@@ -194,9 +202,14 @@ scan_kernel(ScanArgs a, Planes pl, Out out) {
       tl = __shfl_sync(kFull, tl, owner);
       const int r = i - L;
       bool late = false;
-      if (t < N) {
-        const double ar = arrival<kConst>(pl, k_u, k_e, a.D, r, tl, ml, t);
-        late = isfinite(ar) && ar > t_i;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int nd = s * 32 + t;
+        if (nd < N) {
+          const double ar =
+              arrival<kConst>(pl, k_u, k_e, a.D, r, tl, ml, nd);
+          late = late || (isfinite(ar) && ar > t_i);
+        }
       }
       if (__any_sync(kFull, late)) ++miss;
       if (hl > hmax_old) {
@@ -219,8 +232,14 @@ scan_kernel(ScanArgs a, Planes pl, Out out) {
   }
 
   // drain: each node's best at the cutoff, the window against the old best
-  double kb = -INFINITY;
-  int gb = A, hb = 0;
+  double kb[NS];
+  int gb[NS], hb[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    kb[s] = -INFINITY;
+    gb[s] = A;
+    hb[s] = 0;
+  }
 #pragma unroll
   for (int k = 0; k < KS; ++k) {
     for (int src = 0; src < 32; ++src) {
@@ -229,33 +248,52 @@ scan_kernel(ScanArgs a, Planes pl, Out out) {
       const int h = __shfl_sync(kFull, sh[k], src);
       const int mg = __shfl_sync(kFull, sm[k], src);
       const double tg = __shfl_sync(kFull, st[k], src);
-      if (t < N) {
-        const double ar = arrival<kConst>(pl, k_u, k_e, a.D, g, tg, mg, t);
-        const double key = ar < tA ? pref_key(h, big, ar) : -INFINITY;
-        take_best(kb, gb, hb, key, g, h);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int nd = s * 32 + t;
+        if (nd < N) {
+          const double ar = arrival<kConst>(pl, k_u, k_e, a.D, g, tg, mg, nd);
+          const double key = ar < tA ? pref_key(h, big, ar) : -INFINITY;
+          take_best(kb[s], gb[s], hb[s], key, g, h);
+        }
       }
     }
   }
-  int bh = -1, bidx = 0;
-  if (t < N) {
-    const double arr_old =
-        bidx_old == 0 ? 0.0
-                      : arrival<kConst>(pl, k_u, k_e, a.D, bidx_old - 1,
-                                        t_old, m_old, t);
-    const bool use_old = pref_key(hmax_old, big, arr_old) >= kb;
-    bh = use_old ? hmax_old : hb;
-    bidx = use_old ? bidx_old : gb + 1;
+  // each node's best height and block; the first node of the best height
+  int best = -1, j_star = NS == 1 ? 32 : cpr::netsim::kNoNode;
+  int bidx[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int nd = s * 32 + t;
+    bidx[s] = 0;
+    if (nd < N) {
+      const double arr_old =
+          bidx_old == 0 ? 0.0
+                        : arrival<kConst>(pl, k_u, k_e, a.D, bidx_old - 1,
+                                          t_old, m_old, nd);
+      const bool use_old = pref_key(hmax_old, big, arr_old) >= kb[s];
+      const int bh = use_old ? hmax_old : hb[s];
+      bidx[s] = use_old ? bidx_old : gb[s] + 1;
+      if (s == 0 || bh > best) {
+        best = bh;
+        j_star = nd;
+      }
+    }
   }
-  int best = bh, j_star = t < N ? t : 32;
   cpr::netsim::warp_argmax(best, j_star);
-  const int head = __shfl_sync(kFull, bidx, j_star);
+  const int head = cpr::netsim::slot_value<NS>(bidx, j_star);
   __syncwarp();  // the scratch rows are read back by other threads
 
-  const int count = cpr::netsim::chain_rewards(head, A, par, mnr, 1, N);
+  int count[NS];
+  cpr::netsim::chain_rewards<NS>(head, A, par, mnr, 1, N, count);
   sim_max = cpr::netsim::warp_max(sim_max);
-  if (t < N) {
-    out.node_act[lane * N + t] = node_act;
-    out.reward[lane * N + t] = (float)count;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int nd = s * 32 + t;
+    if (nd < N) {
+      out.node_act[lane * N + nd] = node_act[s];
+      out.reward[lane * N + nd] = (float)count[s];
+    }
   }
   if (t == 0) {
     out.head[lane] = head;
@@ -272,21 +310,43 @@ scan_kernel(ScanArgs a, Planes pl, Out out) {
   }
 }
 
-template <bool kConst, int KS>
+template <bool kConst, int KS, int NS>
 cudaError_t launch(const ScanArgs& a, const Planes& pl, const Out& out,
                    cudaStream_t stream) {
   const unsigned blocks = (unsigned)((a.n_lanes + kWarps - 1) / kWarps);
-  scan_kernel<kConst, KS><<<blocks, 32 * kWarps, 0, stream>>>(a, pl, out);
+  scan_kernel<kConst, KS, NS><<<blocks, 32 * kWarps, 0, stream>>>(a, pl,
+                                                                 out);
   return cudaGetLastError();
 }
 
-template <bool kConst>
+// The window's ring slots a thread: 1, 2, 4 or 8 up to 32 nodes; past
+// them 1 or 8 (a lookback over 32 on a wide network scans 8 slots, the
+// unused ones empty), which keeps the instantiations, and nvcc's time,
+// down.
+template <bool kConst, int NS>
 cudaError_t launch_ks(const ScanArgs& a, const Planes& pl, const Out& out,
                       cudaStream_t stream) {
-  if (a.L <= 32) return launch<kConst, 1>(a, pl, out, stream);
-  if (a.L <= 64) return launch<kConst, 2>(a, pl, out, stream);
-  if (a.L <= 128) return launch<kConst, 4>(a, pl, out, stream);
-  return launch<kConst, 8>(a, pl, out, stream);
+  if (a.L <= 32) return launch<kConst, 1, NS>(a, pl, out, stream);
+  if constexpr (NS == 1) {
+    if (a.L <= 64) return launch<kConst, 2, NS>(a, pl, out, stream);
+    if (a.L <= 128) return launch<kConst, 4, NS>(a, pl, out, stream);
+  }
+  return launch<kConst, 8, NS>(a, pl, out, stream);
+}
+
+template <bool kConst>
+cudaError_t launch_ns(const ScanArgs& a, const Planes& pl, const Out& out,
+                      cudaStream_t stream) {
+  switch (cpr::netsim::node_slots(pl.n)) {
+    case 1:
+      return launch_ks<kConst, 1>(a, pl, out, stream);
+    case 2:
+      return launch_ks<kConst, 2>(a, pl, out, stream);
+    case 4:
+      return launch_ks<kConst, 4>(a, pl, out, stream);
+    default:
+      return launch_ks<kConst, 8>(a, pl, out, stream);
+  }
 }
 
 }  // namespace
@@ -296,7 +356,7 @@ extern "C" {
 // K12-scan launch: keys [lanes, 2] uint32 (64-bit mode keys), delays
 // [lanes] f64, the planes (logw [N] f32), scratch parents/miners [lanes, A]
 // int32; `uniform_const` with the constant delay D where every link is D.
-// A >= 1, 1 <= L <= min(A, 256), N <= 32 (checked by the wrapper).
+// A >= 1, 1 <= L <= min(A, 256), N <= 256 (checked by the wrapper).
 cudaError_t cpr_k12_scan(const void* keys, const void* delays, void* parents,
                          void* miners, int64_t n_lanes, int A, int L,
                          int uniform_const, double D, const Planes* pl,
@@ -308,8 +368,9 @@ cudaError_t cpr_k12_scan(const void* keys, const void* delays, void* parents,
              static_cast<int32_t*>(miners),
              n_lanes, A, L, D};
   cudaStream_t s = (cudaStream_t)stream;
-  return uniform_const ? launch_ks<true>(a, *pl, *out, s)
-                       : launch_ks<false>(a, *pl, *out, s);
+  if (pl->n > 32 * cpr::netsim::kMaxSlots) return cudaErrorInvalidValue;
+  return uniform_const ? launch_ns<true>(a, *pl, *out, s)
+                       : launch_ns<false>(a, *pl, *out, s);
 }
 
 const char* cpr_k12_scan_error_string(int err) {

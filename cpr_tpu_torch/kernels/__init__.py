@@ -61,7 +61,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # K9-full their check kernels' launches in full mode (either lifting),
 # K10-<env>-full the env streams' launches in full mode.
 # K12-event-bk/-eth/-spar count the protocol kernels of the event engine
-# (csrc/netsim_event_{bk,eth,spar}.cu). K15 (csrc/exp_ring.cuh) runs
+# (csrc/netsim_event_{bk,eth,spar}.cu). Past 32 nodes every netsim kernel
+# counts under its name and node bucket, `<name>-n64`, `-n128`, `-n256`
+# (`netsim.engine.kernel_name`: the instantiation with 2, 4 or 8 node
+# slots a thread). K15 (csrc/exp_ring.cuh) runs
 # inside K14 too: a burst launch with the experience rings adds one to it
 # as well as to K14, and so does each launch of its check kernel
 # (csrc/exp_check.cu); a burst launch with a net adds one to K11-act.
@@ -78,6 +81,10 @@ launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K11-gae": 0, "K11-loss": 0,
             "K11-adam": 0, "K12-scan": 0, "K12-event": 0, "K13": 0,
             "K12-event-bk": 0, "K12-event-eth": 0, "K12-event-spar": 0,
+            **{f"{k}-n{w}": 0
+               for k in ("K12-scan", "K12-event", "K13", "K12-event-bk",
+                         "K12-event-eth", "K12-event-spar")
+               for w in (64, 128, 256)},
             "K14": 0, "K15": 0, "K17": 0,
             **{f"K14-dag-{lib}{m}": 0
                for lib in ("bk", "eth", "ts", "stree", "spar", "sdag")
@@ -90,6 +97,9 @@ _lock = threading.Lock()
 _p = ctypes.c_void_p
 _i64 = ctypes.c_int64
 _int = ctypes.c_int
+# (node slots, static bytes out, block bytes out): the netsim event
+# kernels' shared-memory limits (csrc/netsim_event.cuh event_smem_limits)
+_SMEM_ARGS = [_int, ctypes.POINTER(_int), ctypes.POINTER(_int)]
 
 
 def reset_launches() -> None:
@@ -434,25 +444,7 @@ def _load() -> dict[str, ctypes.CDLL]:
             getattr(lib, err).argtypes = [_int]
             getattr(lib, err).restype = ctypes.c_char_p
         _libs.update(actor=act, gae=gae_lib, loss=loss, adam=adam_lib)
-        plp, outp = ctypes.POINTER(_NetPlanes), ctypes.POINTER(_NetOut)
-        scan = ctypes.CDLL(str(paths["netsim_scan.cu"]))
-        scan.cpr_k12_scan.argtypes = [_p, _p, _p, _p, _i64, _int, _int, _int,
-                                      ctypes.c_double, plp, outp, _p]
-        ev_args = [ctypes.POINTER(_LaneIn), ctypes.POINTER(_Ledger), plp,
-                   _int, outp, _p]
-        event = ctypes.CDLL(str(paths["netsim_event.cu"]))
-        event.cpr_k12_event.argtypes = ev_args
-        attack = ctypes.CDLL(str(paths["netsim_attack.cu"]))
-        attack.cpr_k13_attack.argtypes = ev_args
-        for lib, fn, err in ((scan, "cpr_k12_scan", "cpr_k12_scan_error_string"),
-                             (event, "cpr_k12_event",
-                              "cpr_k12_event_error_string"),
-                             (attack, "cpr_k13_attack", "cpr_k13_error_string")):
-            getattr(lib, fn).restype = _int
-            getattr(lib, err).argtypes = [_int]
-            getattr(lib, err).restype = ctypes.c_char_p
-        _libs.update(netsim_scan=scan, netsim_event=event,
-                     netsim_attack=attack)
+        _libs.update(_load_netsim(paths))
         exp = ctypes.CDLL(str(paths["exp_check.cu"]))
         exp.cpr_k15_record.argtypes = [ctypes.POINTER(_ExpPtrs),
                                        ctypes.POINTER(_ExpStepIn), _i64, _p]
@@ -463,15 +455,6 @@ def _load() -> dict[str, ctypes.CDLL]:
         exp.cpr_k15_error_string.restype = ctypes.c_char_p
         _libs["exp"] = exp
         _libs["metrics"] = _metrics_lib(paths["metrics.cu"])
-        for name in PROTOCOL_KERNELS.values():
-            lib = ctypes.CDLL(str(paths[f"netsim_event_{name}.cu"]))
-            fn = getattr(lib, f"cpr_k12_event_{name}")
-            fn.argtypes = ev_args[:4] + [ctypes.POINTER(_Proto)] + ev_args[4:]
-            fn.restype = _int
-            err = getattr(lib, f"cpr_k12_event_{name}_error_string")
-            err.argtypes = [_int]
-            err.restype = ctypes.c_char_p
-            _libs[f"netsim_event_{name}"] = lib
         _loaded.set()
         return _libs
 
@@ -479,6 +462,45 @@ def _load() -> dict[str, ctypes.CDLL]:
 K10_SOURCES = {"bk": "bk_stream.cu", "eth": "ethereum_stream.cu",
                "ts": "tailstorm_stream.cu", "stree": "stree_stream.cu",
                "spar": "spar_stream.cu", "sdag": "sdag_stream.cu"}
+
+
+def _load_netsim(paths) -> dict[str, ctypes.CDLL]:
+    """The netsim libraries (K12-scan, K12-event, K13 and the protocol
+    kernels) from their built paths, their entry points typed."""
+    plp, outp = ctypes.POINTER(_NetPlanes), ctypes.POINTER(_NetOut)
+    scan = ctypes.CDLL(str(paths["netsim_scan.cu"]))
+    scan.cpr_k12_scan.argtypes = [_p, _p, _p, _p, _i64, _int, _int, _int,
+                                  ctypes.c_double, plp, outp, _p]
+    ev_args = [ctypes.POINTER(_LaneIn), ctypes.POINTER(_Ledger), plp,
+               _int, outp, _p]
+    event = ctypes.CDLL(str(paths["netsim_event.cu"]))
+    event.cpr_k12_event.argtypes = ev_args
+    attack = ctypes.CDLL(str(paths["netsim_attack.cu"]))
+    attack.cpr_k13_attack.argtypes = ev_args
+    for lib, fn, err in ((scan, "cpr_k12_scan", "cpr_k12_scan_error_string"),
+                         (event, "cpr_k12_event",
+                          "cpr_k12_event_error_string"),
+                         (attack, "cpr_k13_attack", "cpr_k13_error_string")):
+        getattr(lib, fn).restype = _int
+        getattr(lib, err).argtypes = [_int]
+        getattr(lib, err).restype = ctypes.c_char_p
+    for lib, fn in ((event, "cpr_k12_event_smem"), (attack, "cpr_k13_smem")):
+        getattr(lib, fn).argtypes = _SMEM_ARGS
+        getattr(lib, fn).restype = _int
+    libs = dict(netsim_scan=scan, netsim_event=event, netsim_attack=attack)
+    for name in PROTOCOL_KERNELS.values():
+        lib = ctypes.CDLL(str(paths[f"netsim_event_{name}.cu"]))
+        fn = getattr(lib, f"cpr_k12_event_{name}")
+        fn.argtypes = ev_args[:4] + [ctypes.POINTER(_Proto)] + ev_args[4:]
+        fn.restype = _int
+        err = getattr(lib, f"cpr_k12_event_{name}_error_string")
+        err.argtypes = [_int]
+        err.restype = ctypes.c_char_p
+        sm = getattr(lib, f"cpr_k12_event_{name}_smem")
+        sm.argtypes = _SMEM_ARGS
+        sm.restype = _int
+        libs[f"netsim_event_{name}"] = lib
+    return libs
 
 
 def _load_dag(paths) -> dict[str, ctypes.CDLL]:
@@ -1762,12 +1784,42 @@ PROTOCOL_KERNELS = {"bk": "bk", "ethereum-whitepaper": "eth",
 def _net_planes(cn, logw, dev):
     """The topology's planes on `dev` and their struct (the caller keeps
     the tensors alive until the launch is queued)."""
-    from cpr_tpu_torch.netsim.engine import check_kernel_nodes, planes
-    check_kernel_nodes(cn.n, "the netsim")
+    from cpr_tpu_torch.netsim.engine import planes
     kind, p0, p1 = planes(cn, dev)
     logw = logw.to(dev, torch.float32).contiguous()
     keep = (kind, p0, p1, logw)
     return _NetPlanes(*(t.data_ptr() for t in keep), cn.n), keep
+
+
+_netsim_smem: dict[tuple, tuple[int, int]] = {}
+
+
+def netsim_smem(lib_key: str, fn: str, slots: int) -> tuple[int, int]:
+    """(The static shared memory of an event kernel's instantiation for
+    `slots` node slots a thread, the most a block of the current card may
+    have), as the compiled kernel and the card report them (asked once a
+    process and device)."""
+    at = (lib_key, slots, torch.cuda.current_device())
+    if at not in _netsim_smem:
+        lib = _load()[lib_key]
+        static, block = _int(), _int()
+        _check(getattr(lib, f"{fn}_smem")(slots, ctypes.byref(static),
+                                          ctypes.byref(block)), lib,
+               f"{fn}_error_string", f"{fn} shared memory")
+        _netsim_smem[at] = (static.value, block.value)
+    return _netsim_smem[at]
+
+
+def _net_kernel(base, cn, B=None, lane=None, lib_key=None, fn=None):
+    """The launch counter of kernel `base` on `cn` (its node bucket past 32
+    nodes), after `netsim.engine.check_kernel_nodes` (an event kernel's
+    `lane` sizing against the compiled kernel's and the card's shared
+    memory; `fn`: the library's entry prefix, its `<fn>_smem`)."""
+    from cpr_tpu_torch.netsim.engine import check_kernel_nodes, kernel_name
+    smem = None if lane is None else (
+        lambda ns: netsim_smem(lib_key, fn, ns))
+    check_kernel_nodes(cn.n, base, lane, smem, B)
+    return kernel_name(base, cn.n)
 
 
 def _net_out(n_lanes, n, dev):
@@ -1801,6 +1853,7 @@ def netsim_scan(cn, A: int, L: int, keys, delays) -> dict:
     if A < 1 or not 1 <= L <= SCAN_MAX_LOOKBACK:
         raise ValueError(f"K12-scan: activations {A} >= 1 and lookback "
                          f"{L} in [1, {SCAN_MAX_LOOKBACK}] needed")
+    name = _net_kernel("K12-scan", cn)
     pl, keep = _net_planes(cn, log_compute(cn, dev), dev)
     D = uniform_const_delay(cn)
     parents = torch.empty((n, A), dtype=torch.int32, device=dev)
@@ -1813,38 +1866,42 @@ def netsim_scan(cn, A: int, L: int, keys, delays) -> dict:
                               int(D is not None), D or 0.0,
                               ctypes.byref(pl), ctypes.byref(ptrs),
                               _stream(dev))
-    _check(rc, lib, "cpr_k12_scan_error_string", "K12-scan")
+    _check(rc, lib, "cpr_k12_scan_error_string", name)
     del keep
-    launches["K12-scan"] += 1
+    launches[name] += 1
     return out
 
 
-def event_smem(M: int, F: int) -> int:
+def event_smem(M: int, F: int, slots: int = 1) -> int:
     """Shared memory of one K12-event/K13 lane (csrc/netsim_event.cuh
     `event_smem`): the queue (time, block/node, sequence, free list) and
-    32 pending buffers."""
-    return M * (8 + 3 * 4) + 32 * F * 4
+    32 pending buffers a node slot."""
+    return M * (8 + 3 * 4) + 32 * slots * F * 4
 
 
-def _ledger(n, B, M, F, S, A, WA, dev, attack):
-    smem = event_smem(M, F)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"netsim queue {M} and pending {F} need {smem} "
-                         f"bytes of shared memory a lane, over "
-                         f"{SMEM_PER_BLOCK}")
-    planes = [torch.empty((n, B), dtype=torch.int32, device=dev)
-              for _ in range(6 if attack else 5)]
+def _ledger(n, B, M, F, S, A, WA, slots, dev, attack):
+    """The ledger planes [lanes, B] (vis and known [lanes, B, slots]) and
+    their struct."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    planes = [torch.empty((n, B), **i32) for _ in range(3)]
+    planes += [torch.empty((n, B, slots), **i32) for _ in range(2)]
+    if attack:
+        planes.append(torch.empty((n, B), **i32))
     ptrs = [t.data_ptr() for t in planes] + ([] if attack else [None])
     return _Ledger(*ptrs, B, M, F, S, A, WA), planes
 
 
-def _event_launch(name, lib_key, fn, errfn, cn, logw, A, B, M, F, S, WA,
+def _event_launch(name, lib_key, fn, prefix, cn, logw, A, B, M, F, S, WA,
                   keys, delays, policy=None, strict=True):
     dev, n = _lane_inputs(keys, delays, name)
     if policy is not None:
         _want(policy, "policy", torch.int32, (n,), dev)
+    from cpr_tpu_torch.netsim.engine import node_slots
+    counter = _net_kernel(name, cn, B, (M, F, 0), lib_key, prefix)
+    slots = node_slots(cn.n)
     pl, keep = _net_planes(cn, logw, dev)
-    led, planes = _ledger(n, B, M, F, S, A, WA, dev, policy is not None)
+    led, planes = _ledger(n, B, M, F, S, A, WA, slots, dev,
+                          policy is not None)
     lane_in = _LaneIn(keys.data_ptr(), delays.data_ptr(),
                       None if policy is None else policy.data_ptr(), n,
                       int(bool(strict)))
@@ -1854,9 +1911,9 @@ def _event_launch(name, lib_key, fn, errfn, cn, logw, A, B, M, F, S, WA,
         rc = getattr(lib, fn)(ctypes.byref(lane_in), ctypes.byref(led),
                               ctypes.byref(pl), int(cn.flooding),
                               ctypes.byref(ptrs), _stream(dev))
-    _check(rc, lib, errfn, name)
+    _check(rc, lib, f"{prefix}_error_string", counter)
     del keep, planes
-    launches[name] += 1
+    launches[counter] += 1
     return out
 
 
@@ -1866,9 +1923,8 @@ def netsim_event(cn, A, B, M, F, S, keys, delays) -> dict:
     step cap S -> the lanes' outputs."""
     from cpr_tpu_torch.netsim.engine import log_compute
     return _event_launch("K12-event", "netsim_event", "cpr_k12_event",
-                         "cpr_k12_event_error_string", cn,
-                         log_compute(cn, keys.device), A, B, M, F, S, 0,
-                         keys, delays)
+                         "cpr_k12_event", cn, log_compute(cn, keys.device),
+                         A, B, M, F, S, 0, keys, delays)
 
 
 def proto_smem(W: int, QW: int, U: int) -> int:
@@ -1884,20 +1940,19 @@ def netsim_event_protocol(cn, proto, A, B, M, F, S, keys, delays) -> dict:
     `keys` [lanes, 2] and `delays` [lanes] f64 on CUDA, ledger capacity B,
     queue M, pending F, step cap S -> the lanes' outputs with progress and
     on_chain."""
-    from cpr_tpu_torch.netsim.engine import log_compute
+    from cpr_tpu_torch.netsim.engine import log_compute, node_slots
     name = PROTOCOL_KERNELS.get(proto.protocol)
     if name is None:
         raise ValueError(f"no event kernel runs '{proto.protocol}'")
     kernel = f"K12-event-{name}"
     dev, n = _lane_inputs(keys, delays, kernel)
     N, QW, W, U = cn.n, proto.QW, proto.W, proto.U
-    smem = event_smem(M, F) + proto_smem(W, QW, U)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"{kernel}: queue {M}, pending {F} and window {W} "
-                         f"need {smem} bytes of shared memory a lane, over "
-                         f"{SMEM_PER_BLOCK}")
+    lib_key, prefix = f"netsim_event_{name}", f"cpr_k12_event_{name}"
+    counter = _net_kernel(kernel, cn, B, (M, F, proto_smem(W, QW, U)),
+                          lib_key, prefix)
+    slots = node_slots(N)
     pl, keep = _net_planes(cn, log_compute(cn, dev), dev)
-    led, planes = _ledger(n, B, M, F, S, A, 0, dev, False)
+    led, planes = _ledger(n, B, M, F, S, A, 0, slots, dev, False)
     i32, f32 = torch.int32, torch.float32
     shapes = {"is_vote": ((n, B), i32), "nvotes": ((n, B), i32),
               "conf": ((n, B, N), i32), "conf_own": ((n, B, N), i32),
@@ -1905,7 +1960,7 @@ def netsim_event_protocol(cn, proto, A, B, M, F, S, keys, delays) -> dict:
     if name == "bk":
         shapes.update(powh=((n, B), f32), lhash=((n, B), f32),
                       mybest=((n, B, N), f32), repl=((n, B, N), f32),
-                      noprop=((n, B), i32))
+                      noprop=((n, B, slots), i32))
     if name == "eth":
         shapes = {"work": ((n, B), i32), "uncles": ((n, B, U), i32)}
     bufs = {f: torch.empty(shape, dtype=dt, device=dev)
@@ -1918,15 +1973,15 @@ def netsim_event_protocol(cn, proto, A, B, M, F, S, keys, delays) -> dict:
                 proto.k, QW, W, U, int(proto.byz),
                 int(proto.scheme == "block"))
     lane_in = _LaneIn(keys.data_ptr(), delays.data_ptr(), None, n, 1)
-    lib = _load()[f"netsim_event_{name}"]
+    lib = _load()[lib_key]
     with torch.cuda.device(dev):
-        rc = getattr(lib, f"cpr_k12_event_{name}")(
+        rc = getattr(lib, prefix)(
             ctypes.byref(lane_in), ctypes.byref(led), ctypes.byref(pl),
             int(cn.flooding), ctypes.byref(pr), ctypes.byref(ptrs),
             _stream(dev))
-    _check(rc, lib, f"cpr_k12_event_{name}_error_string", kernel)
+    _check(rc, lib, f"{prefix}_error_string", counter)
     del keep, planes, bufs
-    launches[kernel] += 1
+    launches[counter] += 1
     return out
 
 
@@ -1936,9 +1991,9 @@ def netsim_attack(cn, A, B, M, F, S, WA, keys, delays, alphas, policy,
     policy ids [lanes] int32 (`envs.nakamoto.POLICY_NAMES` order) on
     CUDA; walk cap WA. Adds reward_attacker and reward_defender."""
     from cpr_tpu_torch.netsim.attack import attack_logits
-    out = _event_launch("K13", "netsim_attack", "cpr_k13_attack",
-                        "cpr_k13_error_string", cn, attack_logits(cn, alphas),
-                        A, B, M, F, S, WA, keys, delays, policy, strict_match)
+    out = _event_launch("K13", "netsim_attack", "cpr_k13_attack", "cpr_k13",
+                        cn, attack_logits(cn, alphas), A, B, M, F, S, WA,
+                        keys, delays, policy, strict_match)
     out["reward_attacker"] = out["reward"][:, 0]
     out["reward_defender"] = out["reward"][:, 1:].sum(1)
     return out

@@ -329,7 +329,7 @@ class AttackEngine:
         self.n_devices = 1
         self.device = _device.resolve(device)
         if self.device.type == "cuda":
-            check_kernel_nodes(n, "the attack netsim")
+            check_kernel_nodes(n, "K13", (self.M, self.F, 0), B=self.B)
         self._seen = set()  # lane counts run
 
     def _branches(self):

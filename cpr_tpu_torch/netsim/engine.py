@@ -38,9 +38,13 @@ the lanes); `AttackEngine.run` runs as without it, as the reference's
 does.
 
 Not ported: `x64=False` (float32 clocks, ROADMAP item 11b) and `mesh=`
-(item 13): each raises, naming its item. The kernels hold one node per
-thread of a warp, so they take N <= 32 nodes (item 11b); the plain
-versions take any N.
+(item 13): each raises, naming its item. The kernels hold a lane in one
+warp, node n on thread n % 32 in slot n / 32 of up to 8 (`node_slots`):
+they take up to 256 nodes, fewer where a lane's queue and pending
+buffers outgrow a block's shared memory (`check_kernel_nodes` names the
+limit and item 11b); the plain versions take any N. Launches past 32
+nodes count under the kernel's name and its node bucket
+(`kernel_name`: K12-event-n128 for 100 nodes).
 """
 
 from __future__ import annotations
@@ -60,8 +64,11 @@ SUPPORTED_PROTOCOLS = ("nakamoto", "bk", "ethereum-whitepaper",
                        "ethereum-byzantium", "spar")
 _SCHEMES = ("constant", "block")
 _ETH = ("ethereum-whitepaper", "ethereum-byzantium")
-# the kernels hold one node per thread of a warp (csrc/netsim.cuh)
-KERNEL_MAX_NODES = 32
+# nodes a thread of the kernels' warp holds (csrc/netsim.cuh node_slots)
+KERNEL_NODE_SLOTS = (1, 2, 4, 8)
+KERNEL_MAX_NODES = 32 * KERNEL_NODE_SLOTS[-1]
+# a queue entry packs block << 8 | node (csrc/netsim_event.cuh)
+KERNEL_MAX_BLOCKS = 1 << 23
 
 F64, F32, I32 = torch.float64, torch.float32, torch.int32
 INT_MAX = 2**31 - 1
@@ -1041,12 +1048,62 @@ def _finalize(led, st, A, S):
 
 # -- the engine ---------------------------------------------------------------
 
-def check_kernel_nodes(n: int, what: str) -> None:
-    if n > KERNEL_MAX_NODES:
+def node_slots(n: int) -> int:
+    """The kernels' node bucket of an n-node network: nodes a thread of
+    the lane's warp holds (csrc/netsim.cuh `node_slots`); 0 past
+    KERNEL_MAX_NODES."""
+    return next((s for s in KERNEL_NODE_SLOTS if n <= 32 * s), 0)
+
+
+def kernel_name(base: str, n: int) -> str:
+    """The launch counter of kernel `base` on n nodes: `base` up to 32
+    nodes, `base-n<32 * slots>` past them (K13-n128 for 101 nodes)."""
+    s = node_slots(n)
+    return base if s == 1 else f"{base}-n{32 * max(s, 1)}"
+
+
+def kernel_node_limit(lane=None, smem=None) -> int:
+    """The most nodes a netsim kernel takes: KERNEL_MAX_NODES (8 node
+    slots a thread); for an event kernel whose lane holds `lane` = (queue
+    M, F pending blocks a node, protocol scratch bytes), the largest n
+    whose lane's shared memory (`kernels.event_smem` at n's node slots,
+    plus the scratch) fits a block beside the kernel's static shared
+    memory: `smem(slots)` gives (static bytes, a block's bytes) of the
+    compiled kernel on the current card (`kernels.netsim_smem`); without
+    it, none static and an H100's 227 KB a block."""
+    if lane is None:
+        return KERNEL_MAX_NODES
+    from cpr_tpu_torch.kernels import SMEM_PER_BLOCK, event_smem
+    M, F, extra = lane
+    n = KERNEL_MAX_NODES
+    while n > 0:
+        static, block = (smem(node_slots(n)) if smem is not None
+                         else (0, SMEM_PER_BLOCK))
+        if static + event_smem(M, F, node_slots(n)) + extra <= block:
+            break
+        n -= 1
+    return n
+
+
+def check_kernel_nodes(n: int, what: str, lane=None, smem=None,
+                       B=None) -> None:
+    """Refuses before any launch: NotImplementedError naming `what`, the
+    limit and ROADMAP item 11b where n nodes exceed `kernel_node_limit(
+    lane, smem)`; ValueError where a ledger of B blocks outgrows a queue
+    entry's block field."""
+    limit = kernel_node_limit(lane, smem)
+    if n > limit:
+        why = ("8 node slots a thread of the lane's warp"
+               if limit == KERNEL_MAX_NODES else
+               "the lane's queue and pending buffers in a block's shared "
+               "memory")
         raise NotImplementedError(
-            f"{what} on the card holds one node per thread of a warp: "
-            f"{n} nodes exceed {KERNEL_MAX_NODES} (ROADMAP item 11b); "
-            f"device='cpu' runs the plain version")
+            f"{what} on the card takes at most {limit} nodes ({why}); "
+            f"{n} nodes are queued (ROADMAP item 11b); device='cpu' runs "
+            f"the plain version")
+    if B is not None and B >= KERNEL_MAX_BLOCKS:
+        raise ValueError(f"{what}: a ledger of {B} blocks exceeds the "
+                         f"queue's block field (< {KERNEL_MAX_BLOCKS})")
 
 
 def lane_keys(seeds, device) -> torch.Tensor:
@@ -1162,8 +1219,30 @@ class Engine:
         self.lookback = int(lookback)
         self.device = _device.resolve(device)
         if self.device.type == "cuda":
-            check_kernel_nodes(n, "the netsim")
+            check_kernel_nodes(n, self.kernel, self.kernel_lane(),
+                               B=None if self.mode == "scan" else self.B)
         self._seen = set()  # lane counts run
+
+    @property
+    def kernel(self) -> str:
+        """The kernel this engine launches on the card (its base name)."""
+        if self.mode == "scan":
+            return "K12-scan"
+        if self.protocol == "nakamoto":
+            return "K12-event"
+        from cpr_tpu_torch.kernels import PROTOCOL_KERNELS
+        return f"K12-event-{PROTOCOL_KERNELS[self.protocol]}"
+
+    def kernel_lane(self):
+        """What sizes the event kernels' shared memory a lane at this
+        engine's sizing (`kernel_node_limit`'s `lane`): the queue, the
+        pending blocks a node and the protocol's scratch bytes; None for
+        the scan kernel, which takes none."""
+        if self.mode == "scan":
+            return None
+        from cpr_tpu_torch import kernels
+        return (self.M, self.F, 0 if self.protocol == "nakamoto" else
+                kernels.proto_smem(self.W, self.proto.QW, self.U))
 
     def run(self, seeds, activation_delays) -> dict:
         """Execute len(seeds) lanes (paired with activation_delays);

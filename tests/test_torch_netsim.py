@@ -321,12 +321,36 @@ def test_kernel_node_limit():
                                    propagation_delay=1.0)
     from cpr_tpu_torch import kernels
     cn = netsim.compile_network(big)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        E.check_kernel_nodes(cn.n, "the netsim")
+    # past 32 nodes the kernels hold two or more node slots a thread: a
+    # 33-node clique is accepted, in its own launch counter
+    E.check_kernel_nodes(cn.n, "K12-event")
+    assert E.node_slots(cn.n) == 2
+    assert E.kernel_name("K12-event", cn.n) == "K12-event-n64"
+    assert E.kernel_name("K12-event", 32) == "K12-event"
+    # the limit: 8 slots of 32 nodes, fewer where a lane's queue and
+    # pending buffers outgrow a block's shared memory; one node past it
+    # is refused by name, naming item 11b
+    lane = netsim.Engine(cn, activations=40, mode="event",
+                         device="cpu").kernel_lane()
+    limit = E.kernel_node_limit(lane)
+    assert limit == E.KERNEL_MAX_NODES == 256
+    E.check_kernel_nodes(limit, "K12-event", lane)
+    with pytest.raises(NotImplementedError,
+                       match=r"K12-event .*at most 256 .*item 11b"):
+        E.check_kernel_nodes(limit + 1, "K12-event", lane)
+    queue = (11500, 8, 0)
+    small = E.kernel_node_limit(queue)
+    assert 0 < small < 256 and kernels.event_smem(
+        11500, 8, E.node_slots(small + 1)) > kernels.SMEM_PER_BLOCK
+    with pytest.raises(NotImplementedError, match=f"at most {small} .*11b"):
+        E.check_kernel_nodes(small + 1, "K13", queue)
+    # a queue entry's block field: 2^23 blocks at any node count
+    E.check_kernel_nodes(10, "K12-event", lane, B=E.KERNEL_MAX_BLOCKS - 1)
+    with pytest.raises(ValueError, match="block field"):
+        E.check_kernel_nodes(10, "K12-event", lane, B=E.KERNEL_MAX_BLOCKS)
     # the plain version takes any N
     out = netsim.Engine(cn, activations=40, device="cpu").run([0], [50.0])
     assert out["node_act"].shape == (1, 33)
-    assert E.KERNEL_MAX_NODES == 32
     keys = E.lane_keys([0], "cpu")
     with pytest.raises(ValueError, match="CUDA"):  # before any launch
         kernels.netsim_scan(cn, 10, 32, keys, torch.ones(1, dtype=torch.float64))
