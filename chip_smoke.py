@@ -338,7 +338,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
      drain report with 0 <
      p50 <= p99 < the traffic's wall, exit 0; the child's launch counts
      (printed at its exit: K2, K3, K14, K11-act, K12-scan,
-     K12-scan-n64, and K1 allowed);
+     K12-scan-n256, and K1 allowed);
  55. the learning loop: `python -m cpr_tpu_torch.learn.learner` and a
      server with `--learner` and `--learn-watch` at tools/learn_smoke.
      py's shape (16 lanes, burst 64, max_steps 64, --n-envs 16 --n-steps
@@ -471,7 +471,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
      through the widened kernels;
  75. path (a): `honest_net_rows(engine="jax", n_nodes=64)` at the
      reference's defaults, then Spar k=4 under both schemes, a warm and a
-     timed round, each call with its own launch counts (K12-scan-n64,
+     timed round, each call with its own launch counts (K12-scan-n256,
      K12-event-eth-n64, K12-event-bk-n64; K12-event-spar-n64), phase 49's
      guards; each kernel's first configuration held to its plain version
      on the sweep's five lanes at WIDE_HN_PLAIN_ACTS activations;
@@ -494,7 +494,46 @@ Phases, one line each; any failure raises and the exit code is not 0:
      ROADMAP item 11b) by Engine and AttackEngine before any launch;
  79. each widened kernel's device time at its path's shape, L2 scrubbed,
      and its bound. Path (d), the server's netsim.query at 64 nodes
-     (K12-scan-n64), runs in phase 54's wire child.
+     (K12-scan-n256), runs in phase 54's wire child. K12-scan has one
+     build past 32 nodes, the 8-slot one: its row counts paths (a), (d)
+     and (e), its times are path (a)'s shape (path (e)'s printed).
+The sharded solvers and lanes of cpr_tpu_torch.parallel (K16), over a
+mesh of shards on the card (several shards on cuda:0, as the reference's
+tests run on virtual devices):
+ 80. each K16 kernel on the fixture's tables (tests/fixtures/
+     torch_port_shard_golden.npz, cpr_tpu's): the state-sharded solve at
+     4 shards (padded) and the grid x state solve at 2 x 2 bit for bit,
+     the transition-sharded while and chunked solves at 4 shards within
+     rtol 1e-6, atol 1e-7, the policy equal where the Q-gap > 1e-4;
+ 81. the capstone state-sharded at full width:
+     `sharded_state_value_iteration(tm, 4 shards, stop_delta=1e-6,
+     pad_states=True, chunk=MDP_CHUNK)` converges, equals the K4 chunked
+     solve at that chunk and the same solve at 1 shard bit for bit, its
+     revenue within 1e-5 of phase 8's, its `mdp_solve` event with
+     state_shards 4 and halo_bytes; 3 shards without padding refused,
+     naming both values; sweeps/s printed;
+ 82. the capstone transition-sharded: `sharded_value_iteration` while and
+     chunked with accel_m 3, revenues within 1e-5 of phase 8's, values
+     within rtol 1e-6, atol 1e-7 of phase 8's while solve, the policy
+     equal where the Q-gap decides (ties printed); one `measure_rows(
+     mesh=)` row against phase 9's;
+ 83. grid x state at phase 10's shape (12 points, 2 x 2 mesh
+     ("g", "s")) bit for bit against phase 10's K7 solve, then the 1-D
+     mesh over G at 4 shards (K7 a shard), bit for bit;
+ 84. `rtdp_sharded_polish` on the capstone: K6 then K16-state from its
+     warm start, converged, revenue within 1e-5, warm sweeps beside 81's
+     cold ones;
+ 85. lanes at full width: `make_sharded_lane_fns` over 4 shards, 131072
+     lanes, 64 ticks with holds and admission bit for bit against the
+     unsharded chain; `make_sharded_rollout_fn` at the SM1 shape,
+     unchunked and chunked, per-lane stats bit for bit against the
+     unsharded K2 call, metrics on equal to off (the accumulator the
+     unsharded one's), revenue in SM1_GUARD;
+ 86. each K16 kernel's device time a sweep at the capstone's shapes (L2
+     scrubbed), its bound, its plain twin's and cuSPARSE's times, and
+     the kernel held to its plain twin for MDP_TWIN_SWEEPS sweeps;
+ 87. with two or more cards, phase 81 over distinct cards; on one card a
+     line that says it did not run.
 Then the kernels line (JSON: launches summed over the main paths, the
 error of the main-shape comparison, the times and the bound) and the
 last line {"ok": true, "device": {...}}.
@@ -841,7 +880,7 @@ SM_SWEEP_LANES = 8 * SM_SWEEP_REPS  # ATK_ALPHAS x ATK_POLICIES x reps
 SM_SWEEP_CHUNK = 128
 WIDE_DROP_HOLDS = ("c-deep",)
 WIDE_MAX_NODES, WIDE_MAX_LANES, WIDE_MAX_ACTS = 256, 4, 1000
-WIDE_KERNELS = ("K12-scan-n64", "K12-event-eth-n64", "K12-event-bk-n64",
+WIDE_KERNELS = ("K12-event-eth-n64", "K12-event-bk-n64",
                 "K12-event-spar-n64", "K12-event-n128", "K12-event-bk-n128",
                 "K13-n128", "K12-scan-n256", "K12-event-n256")
 
@@ -940,10 +979,11 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps, kernel):
-    """Mean device time per launch of the CUDA kernel whose name contains
-    `kernel` (a string, or a tuple of strings it must all contain), from
-    torch.profiler's CUPTI trace of `reps` calls of `fn`.
+def device_ms(fn, reps, kernel, per_call=1):
+    """Mean device time per call of `fn`'s launches of the CUDA kernel
+    whose name contains `kernel` (a string, or a tuple of strings it must
+    all contain), `per_call` launches a call (one by default: the time
+    per launch), from torch.profiler's CUPTI trace of `reps` calls.
 
     Before each call a fill of L2_SCRUB_BYTES leaves the L2 cache full of
     dirty lines of another buffer: the kernel reads its inputs from HBM
@@ -979,17 +1019,17 @@ def device_ms(fn, reps, kernel):
 
     for _ in range(3):
         total_us, count = traced(reps)
-        if count == reps and total_us > 0:
-            return total_us / count / 1e3
+        if count == reps * per_call and total_us > 0:
+            return total_us / reps / 1e3
         say("device_ms", kernel=json.dumps(parts), traced=count,
-            expected=reps, retry=True)
+            expected=reps * per_call, retry=True)
     total_ms, alone = 0.0, 0
     while alone < reps:
         for _ in range(3):
             us, n = traced(1)
-            if n == 1 and us > 0:
+            if n == per_call and us > 0:
                 break
-        if n != 1 or us <= 0:
+        if n != per_call or us <= 0:
             break
         total_ms += us / 1e3
         alone += 1
@@ -1702,7 +1742,7 @@ def phase_mdp_main(dev, report, table_future):
     say("mdp_vs_plain", sweeps=MDP_TWIN_SWEEPS,
         k4_max_abs_err=report["K4"]["max_abs_err"],
         k5_max_abs_err=report["K5"]["max_abs_err"], ok=True)
-    return counts, tm, pol, table, rev
+    return counts, tm, pol, table, rev, vi
 
 
 def phase_mdp_battery(dev):
@@ -1726,6 +1766,7 @@ def phase_mdp_battery(dev):
               f"{row['model']}: revenue {row['revenue']} below alpha")
     say("battery", rows=len(rows), seconds=secs,
         launches=json.dumps(counts), ok=True)
+    return rows
 
 
 def csr_yardstick(tm, rows_mask=None, n_rows=None, row_of=None):
@@ -2017,7 +2058,7 @@ def phase_grid(dev, report, pm_future, table, capstone_rev):
                                                    MDP_TWIN_SWEEPS)
     say("grid_vs_plain", sweeps=MDP_TWIN_SWEEPS, points=probs.shape[0],
         rows=T, k7_max_abs_err=report["K7"]["max_abs_err"], ok=True)
-    return counts, tm, probs
+    return counts, tm, probs, vi, pm
 
 
 def hold_k6_to_plain(tm, key, steps, graph, rtol=1e-6):
@@ -5429,7 +5470,7 @@ def phase_wire(dev, report, tmp):
     finally:
         counts = stop_child(proc, tmp, "wire",
                             ("K2", "K3", "K14", "K11-act", "K12-scan",
-                             "K12-scan-n64"), ("K1",))
+                             "K12-scan-n256"), ("K1",))
     base_sps = rollout_baseline(dev)
     serve_sps = flood["steps_per_busy_s"]
     frac = serve_sps / base_sps
@@ -6751,11 +6792,6 @@ def wide_rows(report):
     node bucket the paths run (`netsim.engine.kernel_name`)."""
     csrc = "cpr_tpu_torch/csrc"
     rows = {
-        "K12-scan-n64": ("netsim_scan.cu", "cpr_tpu/netsim/engine.py:716",
-                         f"K12-scan at 2 node slots a thread (the honest-net "
-                         f"sweep's Nakamoto on the {WIDE_HN_NODES}-node "
-                         f"clique, 5 lanes x {HN_ACTS}; the server's "
-                         f"netsim.query at {WIDE_QUERY_NODES} nodes)"),
         "K12-event-eth-n64": ("netsim_event_eth.cu",
                               "cpr_tpu/netsim/engine.py:311",
                               f"K12-event-eth at 2 node slots (the sweep's "
@@ -6787,9 +6823,13 @@ def wide_rows(report):
                      f"lanes x {SM_ACTS}, the default queue; the sweep "
                      f"{SM_SWEEP_LANES} x {SM_SWEEP_ACTS})"),
         "K12-scan-n256": ("netsim_scan.cu", "cpr_tpu/netsim/engine.py:716",
-                          f"K12-scan at 8 node slots (a {WIDE_MAX_NODES}-"
-                          f"node clique, {WIDE_MAX_LANES} lanes x "
-                          f"{WIDE_MAX_ACTS})"),
+                          f"K12-scan at 8 node slots, its one build past 32 "
+                          f"nodes (the honest-net sweep's Nakamoto on the "
+                          f"{WIDE_HN_NODES}-node clique, 5 lanes x "
+                          f"{HN_ACTS}, the row's times; the server's "
+                          f"netsim.query at {WIDE_QUERY_NODES} nodes; a "
+                          f"{WIDE_MAX_NODES}-node clique, {WIDE_MAX_LANES} "
+                          f"lanes x {WIDE_MAX_ACTS})"),
         "K12-event-n256": ("netsim_event.cu", "cpr_tpu/netsim/engine.py:92",
                            f"K12-event at 8 node slots (a {WIDE_MAX_NODES}-"
                            f"node clique, {WIDE_MAX_LANES} lanes x "
@@ -6858,7 +6898,7 @@ def wide_holds():
     path's depth."""
     out = [(f"a-{proto}-{k}-{scheme}", row, ("hn", proto, k, scheme))
            for row, (proto, k, scheme) in (
-               ("K12-scan-n64", ("nakamoto", 1, "constant")),
+               ("K12-scan-n256", ("nakamoto", 1, "constant")),
                *((f"{kern}-n64", cfgs[0])
                  for kern, cfgs in PROTO_CONFIGS.items()))]
     out += [("b-nakamoto", "K12-event-n128", ("pa", "nakamoto", 1)),
@@ -7012,7 +7052,7 @@ def phase_wide_honest_net(dev, report, ahead):
     """Phase 75, path (a): `honest_net_rows(engine="jax", n_nodes=64)` at
     the reference's defaults, then Spar k=4 under both schemes, a warm
     and a timed round with the counters zeroed before each call and read
-    after it (K12-scan, -eth, -bk at 2 node slots; -spar); the sweep's
+    after it (K12-scan at 8 node slots, -eth, -bk at 2; -spar); the sweep's
     guards; then each kernel's first configuration held to its plain
     version (`wide_holds`)."""
     from cpr_tpu_torch import kernels, telemetry
@@ -7028,7 +7068,7 @@ def phase_wide_honest_net(dev, report, ahead):
             rows = honest_net_rows(engine="jax", n_nodes=WIDE_HN_NODES)
             secs.append(time.perf_counter() - t0)
             c1 = dict(kernels.launches)
-            path_launches(c1, ("K12-scan-n64", "K12-event-eth-n64",
+            path_launches(c1, ("K12-scan-n256", "K12-event-eth-n64",
                                "K12-event-bk-n64"), "wide honest-net")
             kernels.reset_launches()
             t0 = time.perf_counter()
@@ -7239,7 +7279,7 @@ def phase_wide_times(dev, report):
 
     cases = []
     eng = proto_engine("nakamoto", 1, "constant", HN_ACTS, c64)
-    cases.append(("K12-scan-n64", eng, hn, bound_ms(
+    cases.append(("K12-scan-n256", eng, hn, bound_ms(
         io_bytes(5, c64.n), 5 * THREEFRY_OPS * (5 + (HN_ACTS + 1)
                                                 + HN_ACTS * c64.n))))
     for kern, cfgs in PROTO_CONFIGS.items():
@@ -7264,14 +7304,15 @@ def phase_wide_times(dev, report):
     mi = lane_inputs(range(WIDE_MAX_LANES), [NET_ACT_DELAY] * WIDE_MAX_LANES,
                      dev)
     eng = netsim.Engine(cm, activations=WIDE_MAX_ACTS, mode="scan")
-    cases.append(("K12-scan-n256", eng, mi, bound_ms(
+    cases.append(("K12-scan-n256@256", eng, mi, bound_ms(
         io_bytes(WIDE_MAX_LANES, cm.n), WIDE_MAX_LANES * THREEFRY_OPS
         * (5 + (WIDE_MAX_ACTS + 1) + WIDE_MAX_ACTS * cm.n))))
     eng = netsim.Engine(cm, activations=WIDE_MAX_ACTS, mode="event")
     cases.append(("K12-event-n256", eng, mi, event_bound(
         eng, mi, 5, cm.n + 1, report["K12-event-n256"]["steps"])))
+    side = {}  # K12-scan-n256 at path (e)'s shape, printed beside its row
     for row, eng, inputs, (bound, by) in cases:
-        r = report[row]
+        r = report[row] if row in report else side.setdefault(row, {})
         # the paths ran these shapes: Bk's 4 s launch once, unwarmed
         heavy = row == "K12-event-bk-n128"
         r["ms"] = event_ms(lambda: eng.lanes(*inputs), 1 if heavy else 3,
@@ -7279,9 +7320,690 @@ def phase_wide_times(dev, report):
         r["bound_ms"], r["bound_by"] = bound, by
     kernels.reset_launches()
     say("wide_times", **{k: json.dumps(
-        {f: report[k].get(f) for f in ("ms", "plain_ms", "plain_shape",
-                                       "bound_ms", "bound_by")})
+        {f: (report[k] if k in report else side[k]).get(f)
+         for f in ("ms", "plain_ms", "plain_shape", "bound_ms", "bound_by")})
         for k, *_ in cases})
+
+
+# -- the sharded solvers and lanes (K16, phases 80-87) ---------------------------
+
+SHARD_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port_shard_golden.npz"
+SHARDS = 4  # the mesh's shards, all on the card
+# the transition-sharded solves' tolerance against cpr_tpu and the
+# single-device solve: the reference's own (tests/test_mdp.py:105-129)
+SHARD_RTOL, SHARD_ATOL, SHARD_GAP = 1e-6, 1e-7, 1e-4
+SHARD_TICKS = 64
+SHARD_STREAM_CHUNK = 550  # 4 chunks of the SM1 stream
+SHARD_FX_TABLES = ("fc16", "aft20", "gd5")
+SHARD_FX_PSUM = ("fc16_25", "gd5")
+SHARD_FX_GRID = ((0.3, 0.4), (0.25, 0.75))
+
+
+def card_mesh(dev, n=SHARDS):
+    from cpr_tpu_torch.parallel import default_mesh
+    return default_mesh(devices=[dev] * n)
+
+
+def grid_mesh(dev):
+    """The 2 x 2 ("g", "s") mesh of grid x state shards on one card."""
+    from cpr_tpu_torch.parallel import Mesh
+    return Mesh(np.array([[dev] * 2] * 2, dtype=object), ("g", "s"))
+
+
+def fixture_table(fx, pre, dev):
+    from cpr_tpu_torch import convert
+    S, A = (int(x) for x in fx[f"{pre}_shape"])
+    return convert.tensor_mdp(S, A, *(fx[f"{pre}_{f}"] for f in (
+        "start", "src", "act", "dst", "prob", "reward", "progress")),
+        device=dev)
+
+
+def arrays_digest(*arrays):
+    import hashlib
+    h = hashlib.sha256()
+    for x in arrays:
+        h.update(np.ascontiguousarray(x).tobytes())
+    return np.frombuffer(h.digest(), np.uint8)
+
+
+def k16_rows(report):
+    csrc = "cpr_tpu_torch/csrc/shard_sweep.cu"
+    report["K16-state"] = dict(
+        name=f"K16-state state-sharded Bellman sweep ({SHARDS} shards on "
+             "one card, one launch a shard a sweep; ms: a sweep of the "
+             "capstone's blocks, padded to 1,188,252 states)",
+        route="cuda", source=csrc,
+        replaces="cpr_tpu/parallel/state_shard.py:195", max_abs_err=0.0)
+    report["K16-psum"] = dict(
+        name=f"K16-psum transition-sharded sweep ({SHARDS} shards' partial "
+             "Q planes, then their sum in shard order and the backup; ms: "
+             "a sweep of the capstone, 5 launches)",
+        route="cuda", source=csrc,
+        replaces="cpr_tpu/parallel/__init__.py:196", max_abs_err=0.0)
+    report["K16-grid"] = dict(
+        name="K16-grid grid x state sweep (2 x 2 shards; ms: a sweep of "
+             "the 12-point grid over the capstone's structure, 4 launches)",
+        route="cuda", source=csrc,
+        replaces="cpr_tpu/parallel/state_shard.py:319", max_abs_err=0.0)
+
+
+def phase_shard_fixture(dev, fx):
+    """Phase 80: each K16 kernel on the fixture's tables against
+    cpr_tpu's results (tests/fixtures/torch_port_shard_golden.npz)."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.mdp.grid import (compile_protocol,
+                                        grid_value_iteration, param_ptmdp)
+    from cpr_tpu_torch.parallel import (sharded_state_value_iteration,
+                                        sharded_value_iteration)
+    kernels.reset_launches()
+    mesh = card_mesh(dev)
+    sweeps, err, ties = {}, 0.0, 0
+    for name in SHARD_FX_TABLES:
+        tm = fixture_table(fx, name, dev)
+        got = sharded_state_value_iteration(tm, mesh, stop_delta=MDP_STOP,
+                                            pad_states=True)
+        for k in ("value", "progress", "policy", "residuals"):
+            check(np.array_equal(got[f"vi_{k}"], fx[f"{name}_state_{k}"]),
+                  f"K16-state {name}: {k} differs from cpr_tpu's")
+        check(got["vi_iter"] == int(fx[f"{name}_state_iter"]),
+              f"K16-state {name}: {got['vi_iter']} sweeps, cpr_tpu "
+              f"{int(fx[f'{name}_state_iter'])}")
+        sweeps[f"state_{name}"] = got["vi_iter"]
+    pm = param_ptmdp(compile_protocol("aft20", cutoff=6), horizon=20)
+    check(np.array_equal(arrays_digest(
+        *pm.mdp.arrays(), pm.coef, pm.expo, pm.start_ids, pm.start_coef,
+        pm.start_expo), fx["grid_digest"]),
+        "shard fixture: the port's parametric compile differs")
+    vi = grid_value_iteration(pm, *SHARD_FX_GRID, stop_delta=MDP_STOP,
+                              mesh=grid_mesh(dev), axis="g", state_axis="s")
+    for k in ("grid_value", "grid_progress", "grid_policy", "grid_iter",
+              "vi_residuals"):
+        check(np.array_equal(vi[k], fx[f"grid_{k}"]),
+              f"K16-grid: {k} differs from cpr_tpu's")
+    check(vi["vi_iter"] == int(fx["grid_vi_iter"]), "K16-grid: sweeps")
+    sweeps["grid"] = vi["vi_iter"]
+    for name in SHARD_FX_PSUM:
+        pre = f"psum_{name}"
+        tm = fixture_table(fx, pre, dev)
+        sure = fx[f"{pre}_gap"] > SHARD_GAP
+        for impl in ("while", "chunked"):
+            got = sharded_value_iteration(tm, mesh, stop_delta=MDP_STOP,
+                                          impl=impl)
+            for k in ("value", "progress"):
+                want = fx[f"{pre}_{impl}_{k}"]
+                d = np.abs(got[f"vi_{k}"] - want)
+                check(bool((d <= SHARD_ATOL + SHARD_RTOL
+                            * np.abs(want)).all()),
+                      f"K16-psum {name} {impl}: {k} beyond rtol "
+                      f"{SHARD_RTOL} of cpr_tpu's ({float(d.max())})")
+                err = max(err, float(d.max()))
+            check(np.array_equal(got["vi_policy"][sure],
+                                 fx[f"{pre}_{impl}_policy"][sure]),
+                  f"K16-psum {name} {impl}: policy differs where the "
+                  "Q-gap decides")
+            ties += int((~sure).sum())
+            sweeps[f"psum_{name}_{impl}"] = [
+                got["vi_iter"], int(fx[f"{pre}_{impl}_iter"])]
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K16-state", "K16-grid", "K16-psum"),
+                  "shard fixture")
+    say("shard_fixture", shards=SHARDS, psum_max_abs_err=err,
+        psum_policy_ties=ties, sweeps=json.dumps(sweeps), ok=True)
+
+
+def phase_shard_capstone(dev, tm, capstone_rev):
+    """Phase 81: the capstone state-sharded at full width, against the
+    K4 chunked solve at the same chunk and the 1-shard solve, bit for
+    bit; its event; the uneven refusal."""
+    from cpr_tpu_torch import kernels, telemetry
+    from cpr_tpu_torch.mdp.explicit import vi_chunked
+    from cpr_tpu_torch.parallel import (sharded_state_value_iteration,
+                                        state_halo_bytes)
+    S = tm.n_states
+    stop = tm._cast(MDP_STOP)
+    t0 = time.perf_counter()
+    v, p, pol, _, it, _ = vi_chunked(tm, 1.0, stop, 1 << 30,
+                                     chunk=MDP_CHUNK)
+    torch.cuda.synchronize()
+    k4_s = time.perf_counter() - t0
+    want = dict(vi_value=v.cpu().numpy(), vi_progress=p.cpu().numpy(),
+                vi_policy=pol.cpu().numpy())
+    buf = io.StringIO()
+    telemetry.configure(stream=buf)
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = sharded_state_value_iteration(
+            tm, card_mesh(dev), stop_delta=MDP_STOP, pad_states=True,
+            chunk=MDP_CHUNK, protocol="ghostdag", cutoff=MDP_CUTOFF)
+        solve_s = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+    finally:
+        telemetry.configure()
+    path_launches(counts, ("K16-state",), "state-sharded capstone")
+    check(got["vi_delta"] <= stop, f"state-sharded capstone: delta "
+          f"{got['vi_delta']} after {got['vi_iter']} sweeps")
+    for k in want:
+        check(np.array_equal(got[k], want[k]),
+              f"state-sharded capstone: {k} differs from K4's chunked solve")
+    check(got["vi_iter"] == it, f"state-sharded capstone: {got['vi_iter']} "
+          f"sweeps, K4 {it}")
+    S_pad = S + (-S % SHARDS)
+    events = [json.loads(line) for line in buf.getvalue().splitlines()]
+    solves = [e for e in events if e.get("name") == "mdp_solve"]
+    check(len(solves) == 1 and solves[0]["state_shards"] == SHARDS
+          and solves[0]["halo_bytes"] == state_halo_bytes(
+              S_pad, SHARDS, torch.float32) > 0,
+          f"state-sharded capstone: its mdp_solve event {solves}")
+    one = sharded_state_value_iteration(tm, card_mesh(dev, 1),
+                                        stop_delta=MDP_STOP,
+                                        chunk=MDP_CHUNK)
+    check(all(np.array_equal(one[k], got[k]) for k in want)
+          and one["vi_iter"] == got["vi_iter"],
+          "state-sharded capstone: 1 shard differs from 4")
+    rev = mdp_revenue(tm, got["vi_value"], got["vi_progress"])
+    check(abs(rev - capstone_rev) <= 1e-5
+          and abs(rev - MDP_REVENUE) <= MDP_REVENUE_TOL,
+          f"state-sharded revenue {rev} vs {capstone_rev}")
+    try:
+        sharded_state_value_iteration(tm, card_mesh(dev, 3),
+                                      stop_delta=MDP_STOP)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check(f"cannot shard {S} states" in refused and "3 devices" in refused,
+          f"3 shards without padding not refused by name: {refused!r}")
+    say("shard_state", states=S, padded=S_pad, shards=SHARDS,
+        sweeps=got["vi_iter"], solve_s=solve_s,
+        sweeps_per_s=got["vi_iter"] / solve_s, k4_chunked_s=k4_s,
+        revenue=rev, halo_bytes=solves[0]["halo_bytes"],
+        refused=json.dumps(refused), launches=json.dumps(nonzero(counts)), ok=True)
+    return counts, got["vi_iter"]
+
+
+def phase_shard_psum(dev, tm, capstone_vi, capstone_rev, battery_rows):
+    """Phase 82: the capstone transition-sharded, while and chunked with
+    Anderson mixing, against phase 8's while solve; one measure_rows row
+    over the mesh against phase 9's."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.experiments import measure_rows, model_battery
+    from cpr_tpu_torch.parallel import sharded_value_iteration
+    mesh = card_mesh(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    w = sharded_value_iteration(tm, mesh, stop_delta=MDP_STOP)
+    while_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c = sharded_value_iteration(tm, mesh, stop_delta=MDP_STOP,
+                                impl="chunked", accel_m=3, chunk=MDP_CHUNK)
+    chunked_s = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K16-psum",), "transition-sharded capstone")
+    stop = tm._cast(MDP_STOP)
+    revs = {}
+    for tag, r in (("while", w), ("chunked", c)):
+        check(r["vi_delta"] <= stop, f"psum {tag}: delta {r['vi_delta']}")
+        revs[tag] = mdp_revenue(tm, r["vi_value"], r["vi_progress"])
+        check(abs(revs[tag] - capstone_rev) <= 1e-5,
+              f"psum {tag} revenue {revs[tag]} vs {capstone_rev}")
+    err = 0.0
+    for k in ("vi_value", "vi_progress"):
+        want = capstone_vi[k]
+        d = np.abs(w[k] - want)
+        check(bool((d <= SHARD_ATOL + SHARD_RTOL * np.abs(want)).all()),
+              f"psum while: {k} beyond rtol {SHARD_RTOL} of the single "
+              f"device's ({float(d.max())})")
+        err = max(err, float(d.max()))
+    mask = tm.valid_actions()
+    qv = q_planes(tm, 1.0, torch.from_numpy(capstone_vi["vi_value"]).to(dev))
+    sure = sure_states(mask[0], qv, SHARD_GAP).cpu().numpy()
+    check(np.array_equal(w["vi_policy"][sure],
+                         capstone_vi["vi_policy"][sure]),
+          "psum while: policy differs where the Q-gap decides")
+    chunked_rel = float(np.max(np.abs(c["vi_value"] - capstone_vi["vi_value"])
+                               / (1 + np.abs(capstone_vi["vi_value"]))))
+    kernels.reset_launches()
+    entry = model_battery(alphas=(0.33,), gamma=MDP_GAMMA)[0]
+    t0 = time.perf_counter()
+    (row,) = measure_rows([entry], horizon=MDP_HORIZON, stop_delta=MDP_STOP,
+                          mesh=mesh)
+    row_s = time.perf_counter() - t0
+    rc = dict(kernels.launches)
+    path_launches(rc, ("K16-psum",), "measure_rows(mesh=)")
+    (base,) = [r for r in battery_rows if r["model"] == row["model"]]
+    check(abs(row["revenue"] - base["revenue"]) <= 1e-5,
+          f"measure_rows(mesh=) {row['model']}: {row['revenue']} vs "
+          f"{base['revenue']}")
+    for k, n in rc.items():
+        counts[k] += n
+    say("shard_psum", shards=SHARDS, while_sweeps=w["vi_iter"],
+        while_s=while_s, chunked_sweeps=c["vi_iter"], chunked_s=chunked_s,
+        revenue=json.dumps(revs), while_max_abs_err=err,
+        chunked_max_rel_vs_while=chunked_rel,
+        policy_ties=int((~sure).sum()), row=json.dumps(row), row_s=row_s,
+        launches=json.dumps(nonzero(counts)), ok=True)
+    return counts, err
+
+
+def phase_shard_grid(dev, grid_vi, grid_pm):
+    """Phase 83: the grid x state 2-D mesh at phase 10's shape against
+    phase 10's K7 solve, then the 1-D mesh over G, bit for bit."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.mdp.grid import grid_value_iteration
+    keys = ("grid_value", "grid_progress", "grid_policy", "grid_iter",
+            "vi_residuals")
+    out, secs = [], {}
+    for tag, kw, ran in (
+            ("grid_x_state", dict(mesh=grid_mesh(dev), axis="g",
+                                  state_axis="s"), "K16-grid"),
+            ("grid_1d", dict(mesh=card_mesh(dev)), "K7")):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        vi = grid_value_iteration(grid_pm, GRID_ALPHAS, GRID_GAMMAS,
+                                  stop_delta=MDP_STOP, chunk=GRID_CHUNK,
+                                  **kw)
+        secs[tag] = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        path_launches(counts, (ran,), tag)
+        for k in keys:
+            check(np.array_equal(vi[k], grid_vi[k]),
+                  f"{tag}: {k} differs from the K7 grid solve")
+        check(vi["vi_iter"] == grid_vi["vi_iter"], f"{tag}: sweeps")
+        out.append(counts)
+    say("shard_grid", points=len(GRID_ALPHAS) * len(GRID_GAMMAS),
+        sweeps=grid_vi["vi_iter"], solve_s=json.dumps(secs),
+        launches=json.dumps([{k: v for k, v in c.items() if v}
+                             for c in out]), ok=True)
+    return out
+
+
+def phase_shard_rtdp(dev, tm, capstone_rev, cold_sweeps):
+    """Phase 84: `rtdp_sharded_polish` on the capstone (K6, then
+    K16-state from its warm start)."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.mdp.rtdp_graph import rtdp_sharded_polish
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    vi = rtdp_sharded_polish(
+        tm, card_mesh(dev), rnd.PRNGKey(RTDP_SEED, device="cpu"),
+        rtdp_steps=RTDP_STEPS, batch=RTDP_BATCH, buffer=RTDP_BUFFER,
+        eps=RTDP_EPS, restart_p=RTDP_RESTART_P, rtdp_stop_delta=RTDP_STOP,
+        stop_delta=MDP_STOP, pad_states=True, chunk=MDP_CHUNK)
+    secs = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    path_launches(counts, ("K6", "K16-state"), "rtdp_sharded_polish")
+    check(vi["vi_delta"] <= tm._cast(MDP_STOP), "polish did not converge")
+    rev = mdp_revenue(tm, vi["vi_value"], vi["vi_progress"])
+    check(abs(rev - capstone_rev) <= 1e-5,
+          f"polished revenue {rev} vs {capstone_rev}")
+    say("shard_rtdp", rtdp_steps=vi["rtdp_steps"], warm_sweeps=vi["vi_iter"],
+        cold_sweeps=cold_sweeps, revenue=rev, seconds=secs,
+        launches=json.dumps(nonzero(counts)), ok=True)
+    return counts
+
+
+def phase_shard_lanes(dev):
+    """Phase 85: the sharded lanes and the sharded SM1 streams at full
+    width against the unsharded chains, bit for bit."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch import random as rnd
+    from cpr_tpu_torch.envs.base import EPISODE_KEYS, map_state
+    from cpr_tpu_torch.envs.nakamoto import NakamotoSSZ
+    from cpr_tpu_torch.params import make_params
+    from cpr_tpu_torch.parallel import (make_sharded_lane_fns,
+                                        make_sharded_rollout_fn)
+    env = NakamotoSSZ()
+    params = make_params(alpha=0.35, gamma=0.5, max_steps=MAIN_MAX_STEPS)
+    sm1 = env.policies["sapirshtein-2016-sm1"]
+    L, mesh = MAIN_LANES, card_mesh(dev)
+    keys = rnd.split(rnd.PRNGKey(5, dev), L)
+    fkeys = rnd.split(rnd.PRNGKey(6, dev), L)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(85)
+    ticks = [(torch.randint(0, env.n_actions, (L,), generator=gen,
+                            device=dev, dtype=torch.int32),
+              torch.rand(L, generator=gen, device=dev) < 0.1,
+              torch.rand(L, generator=gen, device=dev) < 0.7)
+             for _ in range(SHARD_TICKS)]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    fns = make_sharded_lane_fns(env, mesh)
+    t0 = time.perf_counter()
+    carry = fns.init_lanes(keys, params)
+    fresh = fns.init_lanes(fkeys, params)
+    outs = [fns.step_lanes(carry, a, ad, fresh, st, params)[1]
+            for a, ad, st in ticks]
+    torch.cuda.synchronize()
+    lanes_s = time.perf_counter() - t0
+    lane_counts = dict(kernels.launches)
+    path_launches(lane_counts, ("K2", "K3"), "sharded lanes")
+    check(lane_counts["K3"] == SHARDS * SHARD_TICKS,
+          f"K3 launched {lane_counts['K3']} times for {SHARD_TICKS} ticks "
+          f"of {SHARDS} shards")
+    single = env.init_lanes(keys, params)
+    fresh1 = env.init_lanes(fkeys, params)
+    for t, (a, ad, st) in enumerate(ticks):
+        _, o1 = env.step_lanes(single, a, ad, fresh1, st, params)
+        o = outs[t]
+        check(all(torch.equal(x, y) for x, y in zip(o[:3], o1[:3]))
+              and all(torch.equal(o[3][k], o1[3][k]) for k in o1[3]),
+              f"sharded step_lanes tick {t}: outputs differ")
+    same = []
+    map_state(lambda x, y: same.append(torch.equal(x, y)),
+              fns.gather(carry), single)
+    check(all(same), "sharded lanes: the carry differs after "
+          f"{SHARD_TICKS} ticks")
+    held = int(sum(int((~ad & ~st).sum()) for _, ad, st in ticks))
+    del outs, ticks
+
+    kernels.reset_launches()
+    secs = {}
+    runs = {}
+    for tag, kw in (("whole", {}), ("chunked", dict(chunk=SHARD_STREAM_CHUNK)),
+                    ("metrics", dict(collect_metrics=True))):
+        fn = make_sharded_rollout_fn(env, mesh, params, sm1, MAIN_STEPS, **kw)
+        t0 = time.perf_counter()
+        runs[tag] = fn(keys)
+        torch.cuda.synchronize()
+        secs[tag] = time.perf_counter() - t0
+        if tag == "metrics":
+            spec = fn.metrics_spec
+    stream_counts = dict(kernels.launches)
+    path_launches(stream_counts, ("K2", "K17"), "sharded streams")
+    s4m, acc4 = runs["metrics"]
+    base = {"whole": env.make_episode_stats_fn(params, sm1, MAIN_STEPS)(keys),
+            "chunked": env.make_episode_stats_fn(
+                params, sm1, MAIN_STEPS, chunk=SHARD_STREAM_CHUNK)(keys)}
+    s1m, acc1 = env.make_episode_stats_fn(params, sm1, MAIN_STEPS,
+                                          collect_metrics=True)(keys)
+    for tag in ("whole", "chunked"):
+        check(all(torch.equal(runs[tag][k], base[tag][k])
+                  for k in base[tag]),
+              f"sharded stream ({tag}): per-lane stats differ from the "
+              "unsharded K2 call")
+    check(all(torch.equal(s4m[k], runs["whole"][k]) for k in s4m)
+          and torch.equal(acc4, acc1),
+          "sharded stream with metrics: stats or accumulator differ")
+    st = runs["whole"]
+    atk = float(st["episode_reward_attacker"].mean())
+    dfn = float(st["episode_reward_defender"].mean())
+    rel = atk / (atk + dfn)
+    check(SM1_GUARD[0] < rel < SM1_GUARD[1] and all(
+        torch.isfinite(st[k]).all() for k in EPISODE_KEYS),
+        f"sharded SM1 revenue {rel} outside {SM1_GUARD}")
+    say("shard_lanes", lanes=L, shards=SHARDS, ticks=SHARD_TICKS,
+        held_lane_ticks=held, lanes_s=lanes_s, stream_s=json.dumps(secs),
+        env_steps_per_s=L * MAIN_STEPS / secs["whole"], rel_revenue=rel,
+        metrics=json.dumps(spec.summarize(acc4)["env_steps"]),
+        launches=json.dumps([nonzero(lane_counts), nonzero(stream_counts)]), ok=True)
+    return [lane_counts, stream_counts]
+
+
+def block_csr(block, n_vec):
+    """cuSPARSE's yardstick of a state block: its real rows' probabilities
+    as a [s_blk * A, n_vec] CSR matrix (a row a segment key)."""
+    t, r = block.table, slice(0, block.n_real)
+    seg = t.src[r].to(torch.int64) * t.n_actions + t.act[r]
+    n_rows = t.n_states * t.n_actions
+    crow = torch.zeros(n_rows + 1, dtype=torch.int64, device=t.device)
+    crow[1:] = torch.cumsum(torch.bincount(seg, minlength=n_rows), 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(crow.to(torch.int32),
+                                       t.dst[r].contiguous(),
+                                       t.prob[r].contiguous(),
+                                       size=(n_rows, n_vec),
+                                       check_invariants=False)
+
+
+def hold_sweeps(kernel, plain, tm, S, sweeps, rtol=1e-5):
+    """`sweeps` sweeps of `kernel(v, p) -> (v, p, pol)` from zero, each
+    also run by `plain` from the kernel's input: the value within rtol,
+    the progress and policy where the Q-gap over `tm` exceeds it (as
+    hold_k4_to_plain); the largest difference."""
+    mask = tm.valid_actions()
+    z = torch.zeros(S, dtype=tm.prob.dtype, device=tm.device)
+    v, p, err = z, z.clone(), 0.0
+    for j in range(sweeps):
+        kv, kp, kpol = kernel(v, p)
+        pv, pp, ppol = plain(v, p)
+        dv = (kv - pv).abs()
+        check(bool((dv <= rtol * (1 + pv.abs())).all()),
+              f"sweep {j}: value beyond rtol {rtol} of the plain twin")
+        n = tm.n_states
+        sure = sure_states(mask[0], q_planes(tm, 1.0, v[:n]), rtol)
+        dp = (kp[:n] - pp[:n]).abs()[sure]
+        check(bool((dp <= rtol * (1 + pp[:n][sure].abs())).all()),
+              f"sweep {j}: progress beyond rtol {rtol} of the plain twin")
+        check(torch.equal(kpol[:n][sure], ppol[:n][sure]),
+              f"sweep {j}: policy differs from the plain twin")
+        err = max(err, float(dv.max()), float(dp.max()) if dp.numel()
+                  else 0.0)
+        v, p = kv, kp
+    return err
+
+
+def phase_shard_times(dev, report, tm, grid_table, probs):
+    """Phase 86: each K16 kernel's device time a sweep at the capstone's
+    shapes, L2 scrubbed; the bound, the plain twin's and cuSPARSE's
+    times; then each kernel against its plain twin for MDP_TWIN_SWEEPS
+    sweeps (launches count nowhere)."""
+    from cpr_tpu_torch import kernels
+    from cpr_tpu_torch.mdp import explicit as E
+    from cpr_tpu_torch.parallel import (partition_by_state_block,
+                                        psum_ranges)
+    from cpr_tpu_torch.parallel import state_shard as SS
+    from cpr_tpu_torch.parallel import _PsumPlain
+    S, A, dt = tm.n_states, tm.n_actions, tm.prob.dtype
+    T, item = int(tm.prob.shape[0]), tm.prob.element_size()
+    n = SHARDS
+    S_pad = S + (-S % n)
+    cols, _, t_blk = partition_by_state_block(tm, n, S_pad)
+    blocks = SS.make_blocks(cols, n, t_blk, S_pad // n, A, [dev] * n)
+    masks = [SS._block_mask(b) for b in blocks]
+    v = [torch.rand(S_pad, dtype=dt, device=dev),
+         torch.empty(S_pad, dtype=dt, device=dev)]
+    p = [torch.rand(S_pad, dtype=dt, device=dev), torch.empty_like(v[1])]
+    pol = torch.empty(S_pad, dtype=torch.int32, device=dev)
+    dbits = torch.zeros((n, 1), dtype=torch.int64, device=dev)
+    ks = report["K16-state"]
+    ks["ms"] = device_ms(lambda: kernels.state_block_sweeps(
+        blocks, 1.0, v, p, pol, dbits, 0, 1), 20, "state_block_kernel",
+        per_call=n)
+    ks["plain_ms"] = event_ms(lambda: [SS._state_block_sweep_plain(
+        b, m, 1.0, v[0], p[0]) for b, m in zip(blocks, masks)], 5)
+    spmvs = [block_csr(b, S_pad) for b in blocks]
+    ks["library_ms"] = event_ms(lambda: [m @ v[0] for m in spmvs], 20)
+    seg_index = sum(4 * (b.n_states + 1) + 8 * (b.table.n_segments + 1)
+                    + b.table.n_segments for b in blocks)
+    # every real row once (dst, prob, reward, progress), the blocks'
+    # segment index, V and P read once; V', P' and the policy written
+    ks_bytes = T * (4 + 3 * item) + seg_index + 2 * S_pad * item \
+        + 2 * S_pad * item + 4 * S_pad
+    ks["bound_ms"], ks["bound_by"] = bound_ms(ks_bytes, 8 * T)
+
+    def state_kernel(v0, p0):
+        vb = [v0.contiguous().clone(), torch.empty_like(v0)]
+        pb = [p0.contiguous().clone(), torch.empty_like(p0)]
+        po = torch.empty(S_pad, dtype=torch.int32, device=dev)
+        kernels.state_block_sweeps(blocks, 1.0, vb, pb, po, torch.zeros(
+            (n, 1), dtype=torch.int64, device=dev), 0, 1)
+        return vb[1], pb[1], po
+
+    def state_plain(v0, p0):
+        v2, p2 = torch.empty_like(v0), torch.empty_like(p0)
+        po = torch.empty(S_pad, dtype=torch.int32, device=dev)
+        for b, m in zip(blocks, masks):
+            s = slice(b.off, b.off + b.n_states)
+            v2[s], p2[s], po[s] = SS._state_block_sweep_plain(b, m, 1.0, v0,
+                                                              p0)
+        return v2, p2, po
+
+    ks["max_abs_err"] = hold_sweeps(state_kernel, state_plain, tm, S_pad,
+                                    MDP_TWIN_SWEEPS)
+
+    rows, ranges = psum_ranges(tm, n)
+    n_seg = tm.n_segments
+    qv = [torch.zeros(n_seg, dtype=dt, device=dev) for _ in range(n)]
+    qp = [torch.zeros(n_seg, dtype=dt, device=dev) for _ in range(n)]
+    vs = [v[0][:S].contiguous(), torch.empty(S, dtype=dt, device=dev)]
+    ps = [p[0][:S].contiguous(), torch.empty(S, dtype=dt, device=dev)]
+    pols = torch.empty(S, dtype=torch.int32, device=dev)
+    c = E._Ctl(dt, dev, 0)
+    kp = report["K16-psum"]
+
+    def psum_launch(vb=vs, pb=ps, po=pols):
+        kernels.psum_sweeps(tm, ranges, True, rows, 1.0, qv, qp, vb, pb, po,
+                            c.ctl, c.delta, None, 0, 0, 1, stop_delta=0.0,
+                            max_iter=1 << 62, can_stop=False)
+
+    kp["ms"] = device_ms(psum_launch, 20, "psum_", per_call=n + 1)
+    twin = _PsumPlain(tm, ranges)
+    kp["plain_ms"] = event_ms(lambda: twin.sweep(1.0, vs[0], ps[0]), 5)
+    row_seg = twin.row_seg
+    libs = []
+    for _, r0, r1, k0, k1 in ranges:
+        local = row_seg[r0:r1] - k0
+        crow = torch.zeros(k1 - k0 + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(torch.bincount(local, minlength=k1 - k0), 0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            libs.append(torch.sparse_csr_tensor(
+                crow.to(torch.int32), tm.dst[r0:r1].contiguous(),
+                tm.prob[r0:r1].contiguous(), size=(k1 - k0, S),
+                check_invariants=False))
+    kp["library_ms"] = event_ms(lambda: [m @ vs[0] for m in libs], 20)
+    touched = sum(k1 - k0 for *_, k0, k1 in ranges)
+    # every row once, the segment index, V and P read once, each shard's
+    # partial planes of the segments its rows touch written and read
+    # once, V', P' and the policy written
+    kp_bytes = (T * (4 + 3 * item) + 4 * (S + 1) + 8 * (n_seg + 1) + n_seg
+                + 2 * S * item + 4 * touched * item + 2 * S * item + 4 * S)
+    kp["bound_ms"], kp["bound_by"] = bound_ms(kp_bytes, 8 * T)
+
+    def psum_kernel(v0, p0):
+        vb = [v0.contiguous().clone(), torch.empty_like(v0)]
+        pb = [p0.contiguous().clone(), torch.empty_like(p0)]
+        po = torch.empty(S, dtype=torch.int32, device=dev)
+        c.reset()
+        psum_launch(vb, pb, po)
+        return vb[1], pb[1], po
+
+    kp["max_abs_err"] = hold_sweeps(
+        psum_kernel, lambda v0, p0: twin.sweep(1.0, v0, p0), tm, S,
+        MDP_TWIN_SWEEPS)
+
+    G = probs.shape[0]
+    shards, G_blk, _ = SS.grid_shards(grid_table, G, probs, grid_mesh(dev),
+                                      "g", "s")
+    Sg, Tg = grid_table.n_states, int(grid_table.prob.shape[0])
+    live = torch.arange(G_blk, dtype=torch.int32, device=dev)
+    vg = [torch.rand((G, Sg), device=dev), torch.empty((G, Sg), device=dev)]
+    pg = [torch.rand((G, Sg), device=dev), torch.empty((G, Sg), device=dev)]
+    polg = torch.empty((G, Sg), dtype=torch.int32, device=dev)
+
+    def grid_launch(vb=vg, pb=pg, po=polg):
+        kernels.grid_block_sweeps(
+            [(sh.block.table, sh.probs, sh.valid, live, sh.g0, sh.block.off,
+              torch.zeros((G_blk, 1), dtype=torch.int64, device=dev))
+             for sh in shards], 1.0, vb, pb, po, 0, 1, 1)
+
+    kg = report["K16-grid"]
+    kg["ms"] = device_ms(grid_launch, 20, "grid_block_kernel",
+                         per_call=len(shards))
+    gmasks = {(k, g): SS._block_mask(sh.block, sh.probs[g])
+              for k, sh in enumerate(shards) for g in range(G_blk)}
+
+    def grid_plain(vb, pb):
+        v2, p2 = torch.empty_like(vb), torch.empty_like(pb)
+        po = torch.empty(vb.shape, dtype=torch.int32, device=dev)
+        for k, sh in enumerate(shards):
+            b = sh.block
+            s = slice(b.off, b.off + b.n_states)
+            for g in range(G_blk):
+                gi = sh.g0 + g
+                v2[gi, s], p2[gi, s], po[gi, s] = SS._state_block_sweep_plain(
+                    b, gmasks[(k, g)], 1.0, vb[gi], pb[gi], prob=sh.probs[g])
+        return v2, p2, po
+
+    kg["plain_ms"] = event_ms(lambda: grid_plain(vg[0], pg[0]), 3)
+    gcsr = [(g, block_csr(dataclasses.replace(
+        sh.block, table=dataclasses.replace(sh.block.table,
+                                            prob=sh.probs[g])), Sg))
+            for sh in shards for g in range(G_blk)]
+    kg["library_ms"] = event_ms(lambda: [m @ vg[0][0] for _, m in gcsr], 5)
+    seg_g = sum(4 * (sh.block.n_states + 1) + 8 * (sh.block.table.n_segments
+                                                   + 1) for sh in shards)
+    nseg_g = sum(sh.block.table.n_segments for sh in shards) // 2
+    # each grid slice reads the shared columns (dst, reward, progress) of
+    # every block once and their segment index; each point's probability
+    # column and validity; each point's V and P read, V', P' and the
+    # policy written
+    kg_bytes = (2 * 12 * Tg + seg_g + G * (4 * Tg + nseg_g)
+                + G * Sg * (8 + 8 + 4))
+    kg["bound_ms"], kg["bound_by"] = bound_ms(kg_bytes, 8 * Tg * G)
+    err = 0.0
+    vz = torch.zeros((G, Sg), device=dev)
+    v0, p0 = vz, vz.clone()
+    gmask = [E._valid_actions(grid_table.src, grid_table.act, probs[g], Sg,
+                              grid_table.n_actions) for g in range(G)]
+    for j in range(MDP_TWIN_SWEEPS):
+        vb, pb = [v0.clone(), torch.empty_like(v0)], [p0.clone(),
+                                                      torch.empty_like(p0)]
+        po = torch.empty((G, Sg), dtype=torch.int32, device=dev)
+        grid_launch(vb, pb, po)
+        pv, pp, ppol = grid_plain(v0, p0)
+        dv = (vb[1] - pv).abs()
+        check(bool((dv <= 1e-5 * (1 + pv.abs())).all()),
+              f"K16-grid sweep {j}: value beyond rtol 1e-5 of its plain twin")
+        for g in range(G):
+            sure = sure_states(gmask[g][0], q_plane(grid_table, probs[g], 1.0,
+                                                    v0[g]), 1e-5)
+            dp = (pb[1][g] - pp[g]).abs()[sure]
+            check(bool((dp <= 1e-5 * (1 + pp[g][sure].abs())).all())
+                  and torch.equal(po[g][sure], ppol[g][sure]),
+                  f"K16-grid sweep {j} point {g}: progress or policy "
+                  "differ from its plain twin")
+            if dp.numel():
+                err = max(err, float(dp.max()))
+        err = max(err, float(dv.max()))
+        v0, p0 = vb[1], pb[1]
+    kg["max_abs_err"] = err
+    kernels.reset_launches()
+    say("shard_times", shards=n, grid_points=G,
+        hold_sweeps=MDP_TWIN_SWEEPS, **{k: json.dumps(
+            {f: report[k].get(f) for f in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by",
+                                           "max_abs_err")})
+            for k in ("K16-state", "K16-psum", "K16-grid")})
+
+
+def phase_shard_cards(dev, tm):
+    """Phase 87: phase 81's solve over distinct cards, where the process
+    sees two or more (the cross-card exchange); on one card a line that
+    says it did not run."""
+    from cpr_tpu_torch.mdp.explicit import vi_chunked
+    from cpr_tpu_torch.parallel import (default_mesh,
+                                        sharded_state_value_iteration)
+    n = torch.cuda.device_count()
+    if n < 2:
+        say("shard_cards", ran=False,
+            why=json.dumps(f"{n} card visible: the cross-card exchange "
+                           "needs two or more"))
+        return
+    mesh = default_mesh(devices=[torch.device("cuda", i)
+                                 for i in range(min(n, SHARDS))])
+    v, p, pol, _, it, _ = vi_chunked(tm, 1.0, tm._cast(MDP_STOP), 1 << 30,
+                                     chunk=MDP_CHUNK)
+    got = sharded_state_value_iteration(tm, mesh, stop_delta=MDP_STOP,
+                                        pad_states=True, chunk=MDP_CHUNK)
+    check(np.array_equal(got["vi_value"], v.cpu().numpy())
+          and np.array_equal(got["vi_policy"], pol.cpu().numpy())
+          and got["vi_iter"] == it,
+          "state-sharded capstone over distinct cards differs from K4's")
+    say("shard_cards", ran=True, cards=mesh.size, sweeps=got["vi_iter"],
+        ok=True)
 
 
 def parametric_capstone():
@@ -7330,6 +8052,10 @@ def main() -> int:
         kernels._load()
         host_lib = gxx.result()
     say("build", seconds=round(time.perf_counter() - t0, 2),
+        nvcc_cpu_s=round(sum(kernels.nvcc_cpu_s.values()), 1),
+        nvcc_cpu_s_by_source=json.dumps(
+            {k: round(v, 1) for k, v in sorted(
+                kernels.nvcc_cpu_s.items(), key=lambda kv: -kv[1])}),
         libs=",".join(p.name for p in (*paths.values(), host_lib)))
     # the exact-analysis paths' host compiles (the capstone and its
     # parametric cutoff-8 structure; ctypes releases the GIL) run on the
@@ -7581,11 +8307,11 @@ def main() -> int:
     phase_vote_variants(dev, report, PAR_VARIANTS)
     spar_counts, spar_gym = phase_dag_path(dev, report, "spar")
     sdag_counts, sdag_gym = phase_dag_path(dev, report, "sdag")
-    mdp_counts, table, policy, compiled, capstone_rev = phase_mdp_main(
-        dev, report, table_future)
-    phase_mdp_battery(dev)
-    grid_counts, grid_table, probs = phase_grid(dev, report, pm_future,
-                                                compiled, capstone_rev)
+    mdp_counts, table, policy, compiled, capstone_rev, capstone_vi = \
+        phase_mdp_main(dev, report, table_future)
+    battery_rows = phase_mdp_battery(dev)
+    grid_counts, grid_table, probs, grid_vi, grid_pm = phase_grid(
+        dev, report, pm_future, compiled, capstone_rev)
     compiler.shutdown()
     rtdp_counts = phase_rtdp(dev, report, table, capstone_rev)
     phase_k8_full(dev, ffx, report)
@@ -7678,6 +8404,24 @@ def main() -> int:
     phase_wide_times(dev, report)
     for k in WIDE_KERNELS:
         report[k]["launches"] = sum(c.get(k, 0) for c in wide_counts)
+    # the sharded solvers and lanes (phases 80-87)
+    t_shard = time.perf_counter()
+    k16_rows(report)
+    with np.load(SHARD_FIXTURE) as f:
+        shard_fx = {k: f[k] for k in f.files}
+    phase_shard_fixture(dev, shard_fx)
+    state_counts, cold_sweeps = phase_shard_capstone(dev, table,
+                                                     capstone_rev)
+    psum_counts, _ = phase_shard_psum(dev, table, capstone_vi, capstone_rev,
+                                      battery_rows)
+    serve_counts += [state_counts, psum_counts,
+                     *phase_shard_grid(dev, grid_vi, grid_pm),
+                     phase_shard_rtdp(dev, table, capstone_rev, cold_sweeps),
+                     *phase_shard_lanes(dev)]
+    phase_shard_times(dev, report, table, grid_table, probs)
+    say("shard_phases", phases="80-86",
+        seconds=round(time.perf_counter() - t_shard, 2))
+    phase_shard_cards(dev, table)
     for k, r in report.items():
         r["launches"] = r.get("launches", 0) + sum(c.get(k, 0)
                                                    for c in serve_counts)

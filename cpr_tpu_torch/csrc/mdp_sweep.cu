@@ -50,55 +50,15 @@
 
 #include "mdp_table.cuh"
 
-namespace cpr {
-
-struct LoopCtl {
-  int64_t* ctl;    // [4]: max-delta bits, sweeps done, stop flag, blocks done
-  void* delta;     // [1] the last sweep's delta
-  void* resid;     // [resid_len] ring of per-sweep deltas, or null
-  int32_t resid_len;
-  int32_t can_stop;
-  double stop_delta;
-  int64_t max_iter;
-};
-
-}  // namespace cpr
-
 namespace {
 
 using cpr::add_rn;
+using cpr::backup_state;
 using cpr::bits_of;
-using cpr::from_bits;
+using cpr::finish_sweep;
 using cpr::mul_rn;
 
-constexpr int kThreads = 256;
-
-// Reduce this thread's delta into the sweep's max; the last block to
-// finish closes the sweep. Every thread of the block must call it.
-template <typename T>
-__device__ void finish_sweep(T d, const cpr::LoopCtl& c) {
-  __shared__ unsigned long long warp_max[kThreads / 32];
-  unsigned long long b = bits_of(d);
-  for (int o = 16; o > 0; o >>= 1)
-    b = max(b, __shfl_down_sync(0xffffffffu, b, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = b;
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  for (int w = 1; w < kThreads / 32; ++w) b = max(b, warp_max[w]);
-  auto* ctl = reinterpret_cast<unsigned long long*>(c.ctl);
-  atomicMax(&ctl[0], b);
-  __threadfence();
-  if (atomicAdd(&ctl[3], 1ull) != gridDim.x - 1) return;
-  // the last block: every other block's max is in ctl[0]
-  const T delta = from_bits<T>(atomicExch(&ctl[0], 0ull));
-  const long long it = (long long)ctl[1] + 1;
-  ctl[1] = (unsigned long long)it;
-  static_cast<T*>(c.delta)[0] = delta;
-  if (c.resid_len > 0) static_cast<T*>(c.resid)[(it - 1) % c.resid_len] = delta;
-  if (c.can_stop && (!(delta > (T)c.stop_delta) || it >= c.max_iter))
-    ctl[2] = 1;
-  ctl[3] = 0;
-}
+constexpr int kThreads = cpr::kSweepThreads;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -110,29 +70,9 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t s = blockIdx.x * (int64_t)kThreads + threadIdx.x;
   T d = 0;
   if (s < tb.n_states) {
-    const T* __restrict__ prob = static_cast<const T*>(tb.prob);
-    const T* __restrict__ reward = static_cast<const T*>(tb.reward);
-    const T* __restrict__ progress = static_cast<const T*>(tb.progress);
-    int best = -1;
-    T bv = 0, bp = 0;
-    for (int k = tb.state_seg[s], ke = tb.state_seg[s + 1]; k < ke; ++k) {
-      if (!tb.seg_valid[k]) continue;
-      T qv = 0, qp = 0;
-      for (int r = tb.seg_ptr[k], re = tb.seg_ptr[k + 1]; r < re; ++r) {
-        const int j = tb.dst[r];
-        const T pr = prob[r];
-        qv = add_rn(qv, mul_rn(pr, add_rn(reward[r], mul_rn(discount, V[j]))));
-        qp = add_rn(qp,
-                    mul_rn(pr, add_rn(progress[r], mul_rn(discount, P[j]))));
-      }
-      // segments come in action order: a strict > keeps the lowest
-      // action among equal values
-      if (best < 0 || qv > bv) {
-        best = tb.seg_act[k];
-        bv = qv;
-        bp = qp;
-      }
-    }
+    T bv, bp;
+    const int best = backup_state<T>(tb, static_cast<const T*>(tb.prob),
+                                     tb.seg_valid, s, discount, V, P, bv, bp);
     V2[s] = bv;
     P2[s] = bp;
     pol[s] = best;
@@ -205,41 +145,16 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t off = g * S;
   T d = 0;
   if (s < S) {
-    const T* __restrict__ reward = static_cast<const T*>(tb.reward);
-    const T* __restrict__ progress = static_cast<const T*>(tb.progress);
-    const T* __restrict__ Vg = V + off;
-    const T* __restrict__ Pg = P + off;
-    int best = -1;
-    T bv = 0, bp = 0;
-    for (int k = tb.state_seg[s], ke = tb.state_seg[s + 1]; k < ke; ++k) {
-      if (!vld[k]) continue;
-      T qv = 0, qp = 0;
-      for (int r = tb.seg_ptr[k], re = tb.seg_ptr[k + 1]; r < re; ++r) {
-        const int t = tb.dst[r];
-        const T pr = prob[r];
-        qv = add_rn(qv, mul_rn(pr, add_rn(reward[r], mul_rn(discount, Vg[t]))));
-        qp = add_rn(qp,
-                    mul_rn(pr, add_rn(progress[r], mul_rn(discount, Pg[t]))));
-      }
-      if (best < 0 || qv > bv) {
-        best = tb.seg_act[k];
-        bv = qv;
-        bp = qp;
-      }
-    }
+    T bv, bp;
+    const int best =
+        backup_state<T>(tb, prob, vld, s, discount, V + off, P + off, bv, bp);
     V2[off + s] = bv;
     P2[off + s] = bp;
     pol[off + s] = best;
-    d = fabs(bv - Vg[s]);
+    d = fabs(bv - V[off + s]);
   }
-  __shared__ unsigned long long warp_max[kThreads / 32];
-  unsigned long long b = bits_of(d);
-  for (int o = 16; o > 0; o >>= 1)
-    b = max(b, __shfl_down_sync(0xffffffffu, b, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = b;
-  __syncthreads();
+  const unsigned long long b = cpr::block_max_bits(bits_of(d));
   if (threadIdx.x != 0) return;
-  for (int w = 1; w < kThreads / 32; ++w) b = max(b, warp_max[w]);
   atomicMax(&dbits[(int64_t)g * steps + j], b);
 }
 

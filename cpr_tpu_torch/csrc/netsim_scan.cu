@@ -334,19 +334,15 @@ cudaError_t launch_ks(const ScanArgs& a, const Planes& pl, const Out& out,
   return launch<kConst, 8, NS>(a, pl, out, stream);
 }
 
+// The node buckets of the scan: 1 slot a thread up to 32 nodes, else the
+// 8-slot build (33-256 nodes, the unused slots empty), which keeps the
+// instantiations, and nvcc's time, down.
 template <bool kConst>
 cudaError_t launch_ns(const ScanArgs& a, const Planes& pl, const Out& out,
                       cudaStream_t stream) {
-  switch (cpr::netsim::node_slots(pl.n)) {
-    case 1:
-      return launch_ks<kConst, 1>(a, pl, out, stream);
-    case 2:
-      return launch_ks<kConst, 2>(a, pl, out, stream);
-    case 4:
-      return launch_ks<kConst, 4>(a, pl, out, stream);
-    default:
-      return launch_ks<kConst, 8>(a, pl, out, stream);
-  }
+  if (cpr::netsim::node_slots(pl.n) == 1)
+    return launch_ks<kConst, 1>(a, pl, out, stream);
+  return launch_ks<kConst, 8>(a, pl, out, stream);
 }
 
 }  // namespace

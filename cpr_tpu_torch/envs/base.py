@@ -537,13 +537,17 @@ class TorchEnv:
         reference), the stats cells once a call from the per-lane means
         and `n_episodes`, each fold one K17 launch on the card (the last
         chunk's and the stats' together), and the chunk loop reads
-        nothing back."""
+        nothing back.
+
+        `mesh` splits the episode batch over the mesh axis `mesh_axis`
+        (`cpr_tpu_torch.parallel`): shard b runs lanes [b·L/n,
+        (b+1)·L/n) on its device, one stream launch a shard a chunk; the
+        per-lane stats are concatenated in lane order on the first
+        shard's device, and the metrics fold the concatenated values, so
+        the accumulator is the unsharded call's. The batch must divide
+        the axis (`parallel.check_even_shards`)."""
         if chunk is not None and chunk <= 0:
             raise ValueError(f"chunk must be positive, got {chunk}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded episode streams are not ported yet "
-                "(ROADMAP item 13)")
         if chunk is None or chunk >= n_steps:
             lengths = (n_steps,)
         else:
@@ -556,23 +560,45 @@ class TorchEnv:
             stat_keys = tuple(sorted(EPISODE_KEYS))
             spec = dm.episode_stats_spec(stat_keys)
 
+        def shards(keys):
+            """[(device, lo, hi, keys, params)] of the batch's shards."""
+            n = keys.shape[0]
+            if mesh is None:
+                return [(keys.device, 0, n, keys, params)]
+            from cpr_tpu_torch.parallel.lanes import lane_slices, split_params
+            return [(dev, lo, hi, keys[lo:hi].to(dev),
+                     split_params(params, n, lo, hi, dev))
+                    for dev, lo, hi in lane_slices(n, mesh, mesh_axis,
+                                                   "episode streams")]
+
         def fn(keys):
-            carry, totals, n_done, acc = None, None, None, None
+            parts = shards(keys)
+            dev0 = parts[0][0]
+            carries = [None] * len(parts)
+            totals, n_done, acc = None, None, None
             if spec is not None:
-                acc = spec.init(keys.device)
+                acc = spec.init(dev0)
             for i, length in enumerate(lengths):
-                first = carry is None
-                carry, sums, d, _ = self._stream(
-                    carry, keys, 1 if first else 0, length, params, policy,
-                    True)
+                first = i == 0
+                sums, done = [], []
+                for b, (dev, _, _, kb, pb) in enumerate(parts):
+                    carries[b], s_b, d_b, _ = self._stream(
+                        carries[b], kb, 1 if first else 0, length, pb,
+                        policy, True)
+                    sums.append(s_b.to(dev0))
+                    done.append(d_b.to(dev0))
+                sums = sums[0] if len(parts) == 1 else torch.cat(sums, 1)
+                d = done[0] if len(parts) == 1 else torch.cat(done)
                 totals = sums if first else totals + sums
                 n_done = d if first else n_done + d
                 if spec is not None:
                     # per chunk, before the next launch updates the obs
+                    obs = (carries[0][1] if len(parts) == 1 else torch.cat(
+                        [c[1].to(dev0) for c in carries]))
                     bounds = [dm.count_op("env_steps", keys.shape[0],
                                           length),
                               dm.nonfinite_op("nonfinite_obs_boundary",
-                                              carry[1])]
+                                              obs)]
                     if i + 1 < len(lengths):
                         spec.fold(acc, bounds)
             nd = torch.clamp(n_done, min=1)

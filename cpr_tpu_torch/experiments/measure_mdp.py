@@ -7,7 +7,9 @@ wall-times (models over 1M transitions are skipped, as there).
 
 One row per (model, alpha, gamma): state/transition counts, compile and
 solve wall-times, optimal revenue. The solve runs on the card (K4, or K7
-for `measure_rows_grid`) unless `device="cpu"` is given.
+for `measure_rows_grid`) unless `device="cpu"` is given; with `mesh=`
+on the mesh's devices (`parallel.sharded_value_iteration`, K16-psum;
+the grid over the mesh, K7 a shard).
 """
 
 from __future__ import annotations
@@ -50,11 +52,10 @@ def model_battery(alphas=(0.25, 0.33, 0.4), gamma=0.5, *, native=True,
 def measure_rows(battery=None, *, horizon=100, stop_delta=1e-6,
                  max_transitions=1_000_000, mesh=None, device=None):
     """Compile + solve each model; skip those over `max_transitions`
-    (measure-ours.py:14-21 filter)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded solves are not ported yet: ROADMAP item 13")
-    dev = _device.resolve(device)
+    (measure-ours.py:14-21 filter). `mesh` solves each table
+    transition-sharded over it (`sharded_value_iteration`)."""
+    dev = (mesh.devices.reshape(-1)[0] if mesh is not None and device is None
+           else _device.resolve(device))
     rows = []
     if battery is None:
         battery = model_battery()
@@ -73,7 +74,11 @@ def measure_rows(battery=None, *, horizon=100, stop_delta=1e-6,
             continue
         tm = mdp.tensor(device=dev)
         t0 = now()
-        vi = tm.value_iteration(stop_delta=stop_delta)
+        if mesh is not None:
+            from cpr_tpu_torch.parallel import sharded_value_iteration
+            vi = sharded_value_iteration(tm, mesh, stop_delta=stop_delta)
+        else:
+            vi = tm.value_iteration(stop_delta=stop_delta)
         row["vi_s"] = now() - t0
         row["vi_iter"] = int(vi["vi_iter"])
         prog = tm.start_value(vi["vi_progress"])
@@ -112,10 +117,7 @@ def measure_rows_grid(groups=None, *, alphas=(0.25, 0.33, 0.4),
     from cpr_tpu_torch.mdp.grid import (compile_protocol,
                                         grid_value_iteration, param_ptmdp)
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded solves are not ported yet: ROADMAP item 13")
-    dev = _device.resolve(device)
+    dev = None if mesh is not None else _device.resolve(device)
     if groups is None:
         groups = battery_groups()
     rows = []
@@ -133,8 +135,9 @@ def measure_rows_grid(groups=None, *, alphas=(0.25, 0.33, 0.4),
                          for a in alphas])
             continue
         vi = grid_value_iteration(pm, alphas, gammas,
-                                  stop_delta=stop_delta, protocol=protocol,
-                                  cutoff=cutoff, device=dev)
+                                  stop_delta=stop_delta, mesh=mesh,
+                                  protocol=protocol, cutoff=cutoff,
+                                  device=dev)
         n = len(vi["grid_points"])
         for i, (a, _) in enumerate(vi["grid_points"]):
             rows.append(dict(

@@ -43,7 +43,7 @@ SOURCES = ("random.cu", "nakamoto_stream.cu", "mdp_sweep.cu", "rtdp.cu",
            "quorum_check.cu:full", "bk_stream.cu:full",
            "ethereum_stream.cu:lift", "tailstorm_stream.cu:full",
            "stree_stream.cu:full", "spar_stream.cu:full",
-           "sdag_stream.cu:full")
+           "sdag_stream.cu:full", "shard_sweep.cu")
 # A source `name.cu:mode` is name.cu compiled in a full DAG mode of
 # csrc/dag.cuh (`CPR_DAG_MODE`): full capacity, or full with lifting.
 DAG_MODES = {"ring": 0, "full": 1, "lift": 2}
@@ -64,14 +64,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (csrc/netsim_event_{bk,eth,spar}.cu). Past 32 nodes every netsim kernel
 # counts under its name and node bucket, `<name>-n64`, `-n128`, `-n256`
 # (`netsim.engine.kernel_name`: the instantiation with 2, 4 or 8 node
-# slots a thread). K15 (csrc/exp_ring.cuh) runs
+# slots a thread; K12-scan has the 8-slot one only, `K12-scan-n256`). K15 (csrc/exp_ring.cuh) runs
 # inside K14 too: a burst launch with the experience rings adds one to it
 # as well as to K14, and so does each launch of its check kernel
 # (csrc/exp_check.cu); a burst launch with a net adds one to K11-act.
 # K14-dag-<lib> (and -full off a ring) counts the DAG envs' burst
 # launches (csrc/dag_env.cuh `dag_burst_kernel` in the K10 library
 # `<lib>`), which count on K15 and K11-act as K14's do. K17 counts the
-# device-metrics folds (csrc/metrics.cu), one a fold call.
+# device-metrics folds (csrc/metrics.cu), one a fold call. K16-state,
+# K16-psum and K16-grid (csrc/shard_sweep.cu) count a launch a shard a
+# sweep (K16-psum: the shards' partial launches and the backup's).
 launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K8": 0, "K9": 0, "K10-bk": 0, "K10-eth": 0, "K10-ts": 0,
             "K10-stree": 0, "K10-spar": 0, "K10-sdag": 0, "K8-full": 0,
@@ -82,10 +84,12 @@ launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
             "K11-adam": 0, "K12-scan": 0, "K12-event": 0, "K13": 0,
             "K12-event-bk": 0, "K12-event-eth": 0, "K12-event-spar": 0,
             **{f"{k}-n{w}": 0
-               for k in ("K12-scan", "K12-event", "K13", "K12-event-bk",
+               for k in ("K12-event", "K13", "K12-event-bk",
                          "K12-event-eth", "K12-event-spar")
                for w in (64, 128, 256)},
+            "K12-scan-n256": 0,
             "K14": 0, "K15": 0, "K17": 0,
+            "K16-state": 0, "K16-psum": 0, "K16-grid": 0,
             **{f"K14-dag-{lib}{m}": 0
                for lib in ("bk", "eth", "ts", "stree", "spar", "sdag")
                for m in ("", "-full")}}
@@ -149,11 +153,16 @@ def library_paths() -> dict[str, Path]:
     return out
 
 
+# CPU seconds (user + system) of the nvcc processes this process ran, by
+# source (`build`)
+nvcc_cpu_s: dict[str, float] = {}
+
+
 def build(sources=SOURCES) -> dict[str, Path]:
     """Compile every one of `sources` (all by default) whose library is
     missing, all at once; the compiler's `-Xptxas -v` report goes beside
-    each library as `.log`. Returns {source: library path} of every
-    source."""
+    each library as `.log`, its CPU seconds into `nvcc_cpu_s`. Returns
+    {source: library path} of every source."""
     paths = library_paths()
     todo = {s: p for s, p in paths.items()
             if s in sources and not p.exists()}
@@ -172,7 +181,9 @@ def build(sources=SOURCES) -> dict[str, Path]:
                                        stderr=subprocess.STDOUT), log, tmp)
     failed = []
     for src, (proc, log, tmp) in procs.items():
-        rc = proc.wait()
+        _, status, ru = os.wait4(proc.pid, 0)
+        rc = proc.returncode = os.waitstatus_to_exitcode(status)
+        nvcc_cpu_s[src] = ru.ru_utime + ru.ru_stime
         log.close()
         if rc != 0:
             failed.append(src)
@@ -266,6 +277,17 @@ class _LoopCtl(ctypes.Structure):
     _fields_ = [("ctl", _p), ("delta", _p), ("resid", _p),
                 ("resid_len", ctypes.c_int32), ("can_stop", ctypes.c_int32),
                 ("stop_delta", ctypes.c_double), ("max_iter", _i64)]
+
+
+class _StateShard(ctypes.Structure):  # csrc/shard_sweep.cu
+    _fields_ = [("tb", _SweepTable), ("off", _i64), ("dbits", _p)]
+
+
+class _GridShard(ctypes.Structure):  # csrc/shard_sweep.cu
+    _fields_ = [("tb", _SweepTable), ("probs", _p), ("valid", _p),
+                ("live", _p), ("n_live", ctypes.c_int32),
+                ("pad", ctypes.c_int32), ("n_rows", _i64), ("n_seg", _i64),
+                ("g0", _i64), ("off", _i64), ("dbits", _p)]
 
 
 _MAX_WINDOW = 128  # csrc/dag.cuh kNS = 4 slots per thread in a ring
@@ -396,27 +418,8 @@ def _load() -> dict[str, ctypes.CDLL]:
         nak.cpr_k14_burst_staged.restype = _int
         nak.cpr_k23_error_string.argtypes = [_int]
         nak.cpr_k23_error_string.restype = ctypes.c_char_p
-        mdp = ctypes.CDLL(str(paths["mdp_sweep.cu"]))
-        tp, cp = ctypes.POINTER(_SweepTable), ctypes.POINTER(_LoopCtl)
-        mdp.cpr_k4_vi_sweeps.argtypes = [tp, cp, ctypes.c_double, _p, _p, _p,
-                                         _p, _p, _i64, _int, _p]
-        mdp.cpr_k4_vi_sweeps.restype = _int
-        mdp.cpr_k5_pe_sweeps.argtypes = [tp, cp, _p, ctypes.c_double, _p, _p,
-                                         _p, _p, _i64, _int, _p]
-        mdp.cpr_k5_pe_sweeps.restype = _int
-        mdp.cpr_k7_grid_sweeps.argtypes = [tp, _p, _p, _p, _int, _i64, _i64,
-                                           ctypes.c_double, _p, _p, _p, _p,
-                                           _p, _p, _int, _p]
-        mdp.cpr_k7_grid_sweeps.restype = _int
-        mdp.cpr_k45_error_string.argtypes = [_int]
-        mdp.cpr_k45_error_string.restype = ctypes.c_char_p
-        rt = ctypes.CDLL(str(paths["rtdp.cu"]))
-        rt.cpr_k6_rtdp.argtypes = [tp, ctypes.POINTER(_RtdpArgs), _int, _int,
-                                   _p]
-        rt.cpr_k6_rtdp.restype = _int
-        rt.cpr_k6_error_string.argtypes = [_int]
-        rt.cpr_k6_error_string.restype = ctypes.c_char_p
-        _libs.update(random=rnd, nakamoto=nak, mdp=mdp, rtdp=rt)
+        _libs.update(random=rnd, nakamoto=nak)
+        _libs.update(_load_mdp(paths))
         _libs.update(_load_dag(paths))
         act = ctypes.CDLL(str(paths["actor_check.cu"]))
         act.cpr_k11_actor_check.argtypes = [npp, _p, _int, _p, _p, _i64,
@@ -457,6 +460,47 @@ def _load() -> dict[str, ctypes.CDLL]:
         _libs["metrics"] = _metrics_lib(paths["metrics.cu"])
         _loaded.set()
         return _libs
+
+
+def _load_mdp(paths) -> dict[str, ctypes.CDLL]:
+    """The MDP libraries (K4, K5, K7; K6; K16) from their built paths,
+    their entry points typed."""
+    mdp = ctypes.CDLL(str(paths["mdp_sweep.cu"]))
+    tp, cp = ctypes.POINTER(_SweepTable), ctypes.POINTER(_LoopCtl)
+    mdp.cpr_k4_vi_sweeps.argtypes = [tp, cp, ctypes.c_double, _p, _p, _p,
+                                     _p, _p, _i64, _int, _p]
+    mdp.cpr_k4_vi_sweeps.restype = _int
+    mdp.cpr_k5_pe_sweeps.argtypes = [tp, cp, _p, ctypes.c_double, _p, _p,
+                                     _p, _p, _i64, _int, _p]
+    mdp.cpr_k5_pe_sweeps.restype = _int
+    mdp.cpr_k7_grid_sweeps.argtypes = [tp, _p, _p, _p, _int, _i64, _i64,
+                                       ctypes.c_double, _p, _p, _p, _p,
+                                       _p, _p, _int, _p]
+    mdp.cpr_k7_grid_sweeps.restype = _int
+    mdp.cpr_k45_error_string.argtypes = [_int]
+    mdp.cpr_k45_error_string.restype = ctypes.c_char_p
+    rt = ctypes.CDLL(str(paths["rtdp.cu"]))
+    rt.cpr_k6_rtdp.argtypes = [tp, ctypes.POINTER(_RtdpArgs), _int, _int,
+                               _p]
+    rt.cpr_k6_rtdp.restype = _int
+    rt.cpr_k6_error_string.argtypes = [_int]
+    rt.cpr_k6_error_string.restype = ctypes.c_char_p
+    shard = ctypes.CDLL(str(paths["shard_sweep.cu"]))
+    shard.cpr_k16_state_sweeps.argtypes = [
+        ctypes.POINTER(_StateShard), _int, _int, ctypes.c_double, _p, _p,
+        _p, _p, _p, _i64, _int, _p]
+    shard.cpr_k16_psum_sweeps.argtypes = [
+        tp, cp, _p, _int, _int, _int, _i64, ctypes.c_double, _p, _p, _p,
+        _p, _p, _p, _p, _i64, _int, _p]
+    shard.cpr_k16_grid_sweeps.argtypes = [
+        ctypes.POINTER(_GridShard), _int, _int, _i64, ctypes.c_double,
+        _p, _p, _p, _p, _p, _i64, _int, _int, _p]
+    for fn in ("cpr_k16_state_sweeps", "cpr_k16_psum_sweeps",
+               "cpr_k16_grid_sweeps"):
+        getattr(shard, fn).restype = _int
+    shard.cpr_k16_error_string.argtypes = [_int]
+    shard.cpr_k16_error_string.restype = ctypes.c_char_p
+    return dict(mdp=mdp, rtdp=rt, shard=shard)
 
 
 K10_SOURCES = {"bk": "bk_stream.cu", "eth": "ethereum_stream.cu",
@@ -1129,6 +1173,164 @@ def grid_vi_sweeps(table, probs, valid, live, discount: float, value, prog,
             _stream(dev))
     _check(rc, lib, "cpr_k45_error_string", "K7 grid_sweep")
     launches["K7"] += steps
+
+
+# -- K16 ----------------------------------------------------------------------
+
+def _one_device(tensors, what):
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} takes CUDA tensors")
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"{what}: tensors on {t.device} and {dev}")
+    return dev
+
+
+def _pair(pair, name, dt, shape, dev):
+    for j, t in enumerate(pair):
+        _want(t, f"{name}[{j}]", dt, shape, dev)
+
+
+def state_block_sweeps(blocks, discount: float, value, prog, policy, dbits,
+                       first: int, count: int):
+    """K16-state: enqueue `count` sweeps of the state shards `blocks`
+    (`parallel.state_shard.Block`s on one card), the i-th being sweep j =
+    first + i of a chunk: every shard reads (value[j % 2], prog[j % 2]),
+    the replicated [n_vec] vectors, and writes its slice [off, off +
+    s_blk) of the other buffer of each pair and of `policy` [n_vec]
+    int32, and its max |V'-V| as float bits into dbits[k, j] (int64
+    [len(blocks), steps], zeroed by the caller). One launch a shard a
+    sweep."""
+    dev = _one_device([b.table.prob for b in blocks], "K16-state")
+    dt, n_vec = blocks[0].table.prob.dtype, value[0].shape[0]
+    _pair(value, "value", dt, (n_vec,), dev)
+    _pair(prog, "prog", dt, (n_vec,), dev)
+    _want(policy, "policy", torch.int32, (n_vec,), dev)
+    _want(dbits, "dbits", torch.int64, (len(blocks), dbits.shape[1]), dev,
+          align=8)
+    if first + count > dbits.shape[1]:
+        raise ValueError(f"dbits: {dbits.shape[1]} slots for sweeps "
+                         f"{first}..{first + count - 1}")
+    arr = (_StateShard * len(blocks))()
+    for k, b in enumerate(blocks):
+        if b.table.prob.dtype != dt:
+            raise ValueError("K16-state: blocks of two dtypes")
+        if not 0 <= b.off <= n_vec - b.n_states:
+            raise ValueError(f"K16-state: block [{b.off}, {b.off} + "
+                             f"{b.n_states}) outside [0, {n_vec})")
+        arr[k] = _StateShard(_sweep_table(b.table, "K16-state"), b.off,
+                             dbits[k].data_ptr())
+    lib = _load()["shard"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k16_state_sweeps(
+            arr, len(blocks), int(dt == torch.float64), float(discount),
+            value[0].data_ptr(), value[1].data_ptr(), prog[0].data_ptr(),
+            prog[1].data_ptr(), policy.data_ptr(), first, count,
+            _stream(dev))
+    _check(rc, lib, "cpr_k16_error_string", "K16-state sweep")
+    launches["K16-state"] += count * sum(b.n_states > 0 for b in blocks)
+
+
+PSUM_MAX_SHARDS = 8  # csrc/shard_sweep.cu `Planes`
+
+
+def psum_sweeps(table, ranges, lead: bool, chunk: int, discount: float, qv,
+                qp, value, prog, policy, ctl, delta, resid, resid_len: int,
+                first: int, count: int, *, stop_delta: float, max_iter: int,
+                can_stop: bool):
+    """K16-psum: enqueue `count` transition-sharded sweeps over `table`
+    (the sorted TensorMDP on this card). `ranges` lists the shards on this
+    card as (b, r0, r1, k0, k1): shard b's rows [r0, r1) and the segments
+    [k0, k1) they touch; its partial planes are qv[b], qp[b] ([n_seg]
+    each, zero where its rows touch no segment). Each sweep launches (a)
+    a partial a shard; with `lead`, then (b) the backup, which sums the
+    planes of all len(qv) shards (shard b's rows [b * chunk, (b + 1) *
+    chunk)) and runs K4's backup, delta and loop control; buffers, ctl,
+    delta and resid as `vi_sweeps`. Without `lead` only the partials run
+    (a card that holds none of the backup)."""
+    tb = _sweep_table(table, "K16-psum")
+    dev, dt = table.prob.device, table.prob.dtype
+    S, n_seg = table.n_states, table.n_segments
+    n = len(qv)
+    if not 1 <= n <= PSUM_MAX_SHARDS or len(qp) != n:
+        raise ValueError(f"K16-psum: {n} shards, 1..{PSUM_MAX_SHARDS} "
+                         "supported")
+    _pair(value, "value", dt, (S,), dev)
+    _pair(prog, "prog", dt, (S,), dev)
+    _want(policy, "policy", torch.int32, (S,), dev)
+    here = [int(r[0]) for r in ranges]
+    for b in range(n):
+        if lead or b in here:
+            _want(qv[b], f"qv[{b}]", dt, (n_seg,), dev)
+            _want(qp[b], f"qp[{b}]", dt, (n_seg,), dev)
+    c = _loop_ctl(ctl, delta, resid, resid_len, can_stop, stop_delta,
+                  max_iter, dt, dev)
+    rng = torch.tensor([[int(x) for x in r] for r in ranges],
+                       dtype=torch.int64).reshape(-1, 5)
+    planes_v = (_p * n)(*[q.data_ptr() if q is not None else None
+                          for q in qv])
+    planes_p = (_p * n)(*[q.data_ptr() if q is not None else None
+                          for q in qp])
+    lib = _load()["shard"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k16_psum_sweeps(
+            ctypes.byref(tb), ctypes.byref(c), rng.data_ptr(), len(ranges),
+            int(lead), n, chunk, float(discount), planes_v, planes_p,
+            value[0].data_ptr(), value[1].data_ptr(), prog[0].data_ptr(),
+            prog[1].data_ptr(), policy.data_ptr(), first, count,
+            _stream(dev))
+    _check(rc, lib, "cpr_k16_error_string", "K16-psum sweep")
+    launches["K16-psum"] += count * (sum(r[4] > r[3] for r in ranges)
+                                     + int(lead))
+
+
+def grid_block_sweeps(shards, discount: float, value, prog, policy,
+                      first: int, count: int, steps: int):
+    """K16-grid: enqueue `count` sweeps (sweeps first.. of a chunk of
+    `steps`) of the grid x state shards on this card, each given as
+    (block table, probs [G_blk, t_blk] in its row order, valid [G_blk,
+    n_seg] uint8, live [n_live] int32 local point ids, g0, off, dbits
+    int64 [G_blk, steps]). Sweep j reads (value[j % 2], prog[j % 2])
+    [G, n_vec] and writes, for each live point, the shard's state block of
+    the other buffers and of `policy` [G, n_vec] int32, and the point's
+    block max |V'-V| as float bits into dbits[gl, j]. One launch a shard
+    a sweep (none for a shard without live points)."""
+    dev = _one_device([sh[0].prob for sh in shards], "K16-grid")
+    dt = shards[0][0].prob.dtype
+    G, n_vec = value[0].shape
+    _pair(value, "value", dt, (G, n_vec), dev)
+    _pair(prog, "prog", dt, (G, n_vec), dev)
+    _want(policy, "policy", torch.int32, (G, n_vec), dev)
+    arr = (_GridShard * len(shards))()
+    n_launch = 0
+    for k, (tbl, probs, valid, live, g0, off, dbits) in enumerate(shards):
+        T, n_seg = int(tbl.prob.shape[0]), tbl.n_segments
+        G_blk = int(probs.shape[0])
+        _want(probs, "probs", dt, (G_blk, T), dev)
+        _want(valid, "valid", torch.uint8, (G_blk, n_seg), dev, align=1)
+        _want(live, "live", torch.int32, (live.shape[0],), dev)
+        _want(dbits, "dbits", torch.int64, (G_blk, steps), dev, align=8)
+        if not (0 <= g0 <= G - G_blk and 0 <= off <= n_vec - tbl.n_states):
+            raise ValueError(f"K16-grid: shard at point {g0}, state {off} "
+                             f"outside [{G}, {n_vec}]")
+        arr[k] = _GridShard(_sweep_table(tbl, "K16-grid"), probs.data_ptr(),
+                            valid.data_ptr(), live.data_ptr(),
+                            int(live.shape[0]), 0, T, n_seg, g0, off,
+                            dbits.data_ptr())
+        n_launch += int(live.shape[0] > 0 and tbl.n_states > 0)
+    if first + count > steps:
+        raise ValueError(f"K16-grid: sweeps {first}..{first + count - 1} "
+                         f"of a chunk of {steps}")
+    lib = _load()["shard"]
+    with torch.cuda.device(dev):
+        rc = lib.cpr_k16_grid_sweeps(
+            arr, len(shards), int(dt == torch.float64), n_vec,
+            float(discount), value[0].data_ptr(), value[1].data_ptr(),
+            prog[0].data_ptr(), prog[1].data_ptr(), policy.data_ptr(), first,
+            count, steps, _stream(dev))
+    _check(rc, lib, "cpr_k16_error_string", "K16-grid sweep")
+    launches["K16-grid"] += count * n_launch
 
 
 # -- K6 -----------------------------------------------------------------------

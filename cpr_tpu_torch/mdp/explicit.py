@@ -63,15 +63,17 @@ class PaddedLayoutTooLarge(MemoryError):
 # + [S, A] Q planes + the [S] value/progress/policy vectors.  0 (the
 # default) disables the guard; a card with a known memory budget sets it
 # so an over-sized single-device solve refuses by name instead of
-# running out of memory mid-sweep.
+# running out of memory mid-sweep.  The state-sharded solver checks its
+# per-shard working set against the same ceiling.
 VI_BYTES_ENV_VAR = "CPR_VI_BYTES"
 _VI_BYTES_DEFAULT = 0
 
 
 class ViWorkingSetTooLarge(MemoryError):
     """A VI solve's per-device working set exceeds the CPR_VI_BYTES
-    ceiling.  Raise the ceiling explicitly (a state-sharded solver is
-    not ported yet, ROADMAP item 13)."""
+    ceiling.  Shard the state axis over more devices
+    (cpr_tpu_torch.parallel.sharded_state_value_iteration) or raise the
+    ceiling explicitly."""
 
 
 def vi_working_set_bytes(T: int, S: int, A: int, dtype, *,
@@ -102,9 +104,11 @@ def check_vi_working_set(T: int, S: int, A: int, dtype, *,
         raise ViWorkingSetTooLarge(
             f"VI working set needs {need:,} bytes per device at "
             f"{label} (T={T:,} transition rows/shard, S={S:,}, A={A}, "
-            f"dtype={np.dtype(dtype)}), over the {VI_BYTES_ENV_VAR} "
-            f"ceiling of {ceiling:,}; raise the ceiling explicitly (a "
-            f"state-sharded solver is not ported yet, ROADMAP item 13)")
+            f"dtype={_np_dtype(dtype)}), over the {VI_BYTES_ENV_VAR} "
+            f"ceiling of {ceiling:,}; shard the state axis over more "
+            f"devices (cpr_tpu_torch.parallel."
+            f"sharded_state_value_iteration) or raise the ceiling "
+            f"explicitly")
 
 
 
@@ -1213,8 +1217,9 @@ class TensorMDP:
 
     def _check_segment_width(self):
         assert self.n_states * self.n_actions < 2**31, (
-            "state-action space exceeds int32 segment ids; a state-"
-            "sharded solver is not ported yet (ROADMAP item 13)"
+            "state-action space exceeds int32 segment ids; shard the "
+            "state axis (cpr_tpu_torch.parallel."
+            "sharded_state_value_iteration)"
         )
 
     def _cast(self, x: float) -> float:

@@ -21,12 +21,13 @@ each entry is a monomial in alpha, 1-alpha, gamma, 1-gamma. So:
 
 `check_revalue_parity` guards the tracer against fresh compiles;
 `solve_grid_cached` keeps whole solved grids in a sealed JSON cache
-keyed by the ParamMDP's content fingerprint.
+keyed by the ParamMDP's content fingerprint. `mesh=` and `state_axis=`
+shard the grid over a mesh (`cpr_tpu_torch.parallel`: K7 a shard, or
+K16-grid over grid x state).
 
 Not ported: the Python generic model (`compile_protocol("bitcoin" |
-"ghostdag", native=False)` raises; ROADMAP slice 3, item 7c), grid
-checkpoints (ROADMAP item 6) and the `mesh=`/`state_axis=` sharded
-solves (K16, ROADMAP item 13).
+"ghostdag", native=False)` raises; ROADMAP slice 3, item 7c) and grid
+checkpoints (ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -420,6 +421,14 @@ def grid_value_iteration(pm: ParamMDP, alphas, gammas, *,
     stop rule at chunk granularity; a converged point is frozen (value,
     progress, policy untouched) while the rest keep sweeping.
 
+    `mesh` splits the [G] grid axis over its `axis`
+    (`parallel.make_grid_chunk_step`: K7 a shard; G must divide the
+    axis). `state_axis` names a second axis of a 2-D mesh over which each
+    point's states are split too (`parallel.make_grid_state_chunk_step`,
+    K16-grid; n_states must divide it). Either is refused up front by
+    name, and so is `state_axis` without a 2-D mesh. With a mesh the
+    solve runs on its devices (`device` is not read).
+
     Emits one `mdp_solve` event; returns a dict of grid-major numpy
     arrays (`grid_value`, `grid_progress`, `grid_policy`, `grid_start`,
     `grid_revenue`, `grid_delta`, `grid_iter`, `grid_converged`) plus
@@ -428,14 +437,17 @@ def grid_value_iteration(pm: ParamMDP, alphas, gammas, *,
     from cpr_tpu_torch.mdp.explicit import run_grid_chunk_driver
     from cpr_tpu_torch.parallel.grid import make_grid_chunk_step
 
-    if mesh is not None or state_axis is not None:
-        raise NotImplementedError(
-            "mesh-sharded grid solves (mesh=, state_axis=) are not ported "
-            "yet: they need K16, ROADMAP item 13")
     if checkpoint_path is not None:
         raise NotImplementedError(
             "grid VI checkpoints (checkpoint_path=) are not ported yet: "
             "they need the resilience checkpoints, ROADMAP item 6")
+    if state_axis is not None and mesh is None:
+        raise ValueError(
+            "state_axis requires a 2-D mesh whose axes are "
+            f"({axis!r}, {state_axis!r}); got mesh=None")
+    if mesh is not None:
+        device = (mesh.grid_devices(axis, state_axis)[0, 0]
+                  if state_axis is not None else mesh.axis_devices(axis)[0])
     dtype = torch.float32 if dtype is None else dtype
     alphas, gammas, points = grid_points(alphas, gammas)
     G = len(points)
@@ -448,11 +460,21 @@ def grid_value_iteration(pm: ParamMDP, alphas, gammas, *,
     t0 = now()
     probs = np.stack([pm.revalue(a, g) for a, g in points])
     starts = np.stack([pm.start_vector(a, g) for a, g in points])
-    chunk_step, place = make_grid_chunk_step(tm, G, discount=discount)
     probs_dev = tm.sort_rows(torch.from_numpy(probs).to(dtype))
+    state_shards = 1
+    if state_axis is not None:
+        from cpr_tpu_torch.parallel.state_shard import (
+            make_grid_state_chunk_step)
+        state_shards = int(mesh.shape[state_axis])
+        step, place = make_grid_state_chunk_step(
+            tm, G, probs_dev, discount=discount, mesh=mesh, axis=axis,
+            state_axis=state_axis)
+    else:
+        chunk_step, place = make_grid_chunk_step(tm, G, discount=discount,
+                                                 mesh=mesh, axis=axis)
 
-    def step(carry, frozen, steps):
-        return chunk_step(carry, probs_dev, frozen, steps)
+        def step(carry, frozen, steps):
+            return chunk_step(carry, probs_dev, frozen, steps)
 
     value, prog, policy, delta, conv_it, converged, it, resid = \
         run_grid_chunk_driver(
@@ -460,6 +482,8 @@ def grid_value_iteration(pm: ParamMDP, alphas, gammas, *,
             max_iter if max_iter > 0 else (1 << 30), chunk=chunk,
             device=tm.device)
     vi_time = now() - t0
+    from cpr_tpu_torch.parallel.state_shard import state_halo_bytes
+    halo = state_halo_bytes(pm.n_states, state_shards, dtype)
     # per-point revenue from the point's own start distribution
     num = (starts * value).sum(axis=1)
     den = (starts * prog).sum(axis=1)
@@ -470,7 +494,8 @@ def grid_value_iteration(pm: ParamMDP, alphas, gammas, *,
         grid=[len(alphas), len(gammas)], sweeps=int(it),
         converged=int(converged.sum()), points=G,
         n_states=pm.n_states, n_transitions=pm.n_transitions,
-        n_devices=1, state_shards=1, halo_bytes=0,
+        n_devices=mesh.size if mesh is not None else 1,
+        state_shards=state_shards, halo_bytes=int(halo),
         solve_s=round(vi_time, 6),
         points_per_sec=round(G / vi_time, 3) if vi_time > 0 else None,
         states_per_sec=(round(pm.n_states * int(it) / vi_time, 3)
@@ -551,10 +576,6 @@ def solve_grid_cached(protocol: str, *, cutoff: int, alphas, gammas,
     import cpr_tpu_torch
     from cpr_tpu_torch import integrity, resilience
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded grid solves are not ported yet: K16, ROADMAP "
-            "item 13")
     alphas, gammas, points = grid_points(alphas, gammas)
     pm = param_ptmdp(
         compile_protocol(protocol, cutoff=cutoff, k=k, native=native),
@@ -578,8 +599,9 @@ def solve_grid_cached(protocol: str, *, cutoff: int, alphas, gammas,
             integrity.quarantine(path, kind="mdp_grid_cache",
                                  reason="truncated", action="regenerated")
     vi = grid_value_iteration(pm, alphas, gammas, discount=discount,
-                              stop_delta=stop_delta, protocol=protocol,
-                              cutoff=cutoff, device=device)
+                              stop_delta=stop_delta, mesh=mesh,
+                              protocol=protocol, cutoff=cutoff,
+                              device=device)
     value = dict(
         protocol=protocol, cutoff=int(cutoff), horizon=int(horizon),
         stop_delta=float(stop_delta), discount=float(discount),

@@ -19,9 +19,9 @@ The whole loop is one launch of kernel K6 on the card (its stop rule
 decided on the device), the plain twin `explicit._rtdp_plain` on the
 CPU. The same key walks the same states as the reference.
 
-`rtdp_sharded_polish` needs the state-sharded solver (K16) and raises;
-on one card the handoff is `rtdp_graph` followed by
-`explicit.run_chunk_driver(value0=, prog0=)`.
+`rtdp_sharded_polish` hands the walked table to the state-sharded
+chunked VI (`parallel.sharded_state_value_iteration`, K16-state) as its
+warm start.
 """
 
 from __future__ import annotations
@@ -63,10 +63,36 @@ def rtdp_graph(tm: TensorMDP, key, *, max_steps: int, batch: int = 256,
                 rtdp_batch=batch, rtdp_time=now() - t0)
 
 
-def rtdp_sharded_polish(*args, **kwargs):
-    """The reference hands the RTDP table to the state-sharded solver;
-    that solver is not ported (K16)."""
-    raise NotImplementedError(
-        "rtdp_sharded_polish needs the state-sharded VI (K16), not "
-        "ported yet: ROADMAP item 13; on one card use rtdp_graph and "
-        "run_chunk_driver(value0=, prog0=)")
+def rtdp_sharded_polish(tm: TensorMDP, mesh, key, *, rtdp_steps: int,
+                        batch: int = 256, buffer: int = 1024,
+                        eps: float = 0.2, restart_p: float = 0.5,
+                        rtdp_stop_delta: float = 0.0,
+                        discount: float = 1.0,
+                        stop_delta: float | None = None,
+                        vi_eps: float | None = None, max_iter: int = 0,
+                        axis: str = "d", chunk: int = 64,
+                        pad_states: bool = False,
+                        checkpoint_path: str | None = None,
+                        checkpoint_every: int = 1,
+                        protocol: str | None = None,
+                        cutoff: int | None = None) -> dict:
+    """Explore on the device, polish exactly: `rtdp_graph` (K6) hands its
+    partly converged (value, progress) to the state-sharded chunked VI
+    (K16-state) as a warm start, so the exact solve sweeps from near the
+    fixpoint instead of zero. The dict of
+    `sharded_state_value_iteration` plus the rtdp_* entries of
+    `rtdp_graph`."""
+    from cpr_tpu_torch.parallel import sharded_state_value_iteration
+
+    r = rtdp_graph(tm, key, max_steps=rtdp_steps, batch=batch,
+                   buffer=buffer, eps=eps, restart_p=restart_p,
+                   discount=discount, stop_delta=rtdp_stop_delta)
+    vi = sharded_state_value_iteration(
+        tm, mesh, axis=axis, max_iter=max_iter, discount=discount,
+        eps=vi_eps, stop_delta=stop_delta, chunk=chunk,
+        checkpoint_path=checkpoint_path,
+        checkpoint_every=checkpoint_every,
+        value0=r["rtdp_value"], progress0=r["rtdp_progress"],
+        pad_states=pad_states, protocol=protocol, cutoff=cutoff)
+    vi.update((k, v) for k, v in r.items() if k.startswith("rtdp_"))
+    return vi

@@ -1057,8 +1057,12 @@ def node_slots(n: int) -> int:
 
 def kernel_name(base: str, n: int) -> str:
     """The launch counter of kernel `base` on n nodes: `base` up to 32
-    nodes, `base-n<32 * slots>` past them (K13-n128 for 101 nodes)."""
+    nodes, `base-n<32 * slots>` past them (K13-n128 for 101 nodes).
+    K12-scan has one build past 32 nodes, its 8-slot one
+    (csrc/netsim_scan.cu): K12-scan-n256 from 33 nodes."""
     s = node_slots(n)
+    if base == "K12-scan" and s > 1:
+        s = KERNEL_NODE_SLOTS[-1]
     return base if s == 1 else f"{base}-n{32 * max(s, 1)}"
 
 

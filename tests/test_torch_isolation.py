@@ -284,6 +284,39 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.dag_script(D.empty(4, 16, 3, ring=True, anc_masks=True), ops,
                            torch.from_numpy(args), torch.from_numpy(fargs))
+    # K16: the sharded VI kernels, on the blocks and table of a small MDP
+    from cpr_tpu_torch.mdp import Compiler, ptmdp
+    from cpr_tpu_torch.mdp.explicit import _Ctl
+    from cpr_tpu_torch.mdp.models import Fc16BitcoinSM
+    from cpr_tpu_torch.parallel import partition_by_state_block, psum_ranges
+    from cpr_tpu_torch.parallel.state_shard import make_blocks
+    tm = ptmdp(Compiler(Fc16BitcoinSM(alpha=0.3, gamma=0.5,
+                                      maximum_fork_length=3)).mdp(),
+               horizon=10).tensor(device="cpu")
+    S, cpu = tm.n_states, torch.device("cpu")
+    cols, _, t_blk = partition_by_state_block(tm, 1)
+    blocks = make_blocks(cols, 1, t_blk, S, tm.n_actions, [cpu])
+    v = [torch.zeros(S), torch.zeros(S)]
+    pol = torch.zeros(S, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.state_block_sweeps(blocks, 1.0, v, v, pol,
+                                   torch.zeros((1, 1), dtype=torch.int64), 0,
+                                   1)
+    rows, ranges = psum_ranges(tm, 1)
+    c = _Ctl(torch.float32, cpu, 0)
+    q = [torch.zeros(tm.n_segments)]
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.psum_sweeps(tm, ranges, True, rows, 1.0, q, q, v, v, pol,
+                            c.ctl, c.delta, None, 0, 0, 1, stop_delta=0.0,
+                            max_iter=1, can_stop=False)
+    probs = tm.prob[None].clone()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.grid_block_sweeps(
+            [(blocks[0].table, probs, torch.ones((1, tm.n_segments),
+                                                 dtype=torch.uint8),
+              torch.zeros(1, dtype=torch.int32), 0, 0,
+              torch.zeros((1, 1), dtype=torch.int64))], 1.0,
+            [x[None] for x in v], [x[None] for x in v], pol[None], 0, 1, 1)
     assert kernels.launches == before
 
 
@@ -328,7 +361,9 @@ for mod in ("cpr_tpu_torch.telemetry", "cpr_tpu_torch.native",
             "cpr_tpu_torch.mdp.frontier", "cpr_tpu_torch.mdp.grid",
             "cpr_tpu_torch.mdp.rtdp", "cpr_tpu_torch.mdp.rtdp_graph",
             "cpr_tpu_torch.mdp.explorer", "cpr_tpu_torch.parallel",
-            "cpr_tpu_torch.parallel.grid",
+            "cpr_tpu_torch.parallel.grid", "cpr_tpu_torch.parallel.mesh",
+            "cpr_tpu_torch.parallel.lanes",
+            "cpr_tpu_torch.parallel.state_shard",
             "cpr_tpu_torch.experiments.break_even",
             "cpr_tpu_torch.experiments.measure_rtdp"):
     importlib.import_module(mod)
@@ -339,6 +374,14 @@ tm = ptmdp(Compiler(Fc16BitcoinSM(alpha=0.3, gamma=0.5,
            horizon=10).tensor(device="cpu")
 vi = tm.value_iteration(stop_delta=1e-5)
 assert vi["vi_iter"] > 0 and (vi["vi_policy"] >= -1).all()
+from cpr_tpu_torch.parallel import (default_mesh, sharded_state_value_iteration,
+                                    sharded_value_iteration)
+mesh = default_mesh(devices=["cpu"] * 2)
+chunked = tm.value_iteration(stop_delta=1e-5, impl="chunked")
+got = sharded_state_value_iteration(tm, mesh, stop_delta=1e-5, pad_states=True)
+assert (got["vi_value"] == chunked["vi_value"]).all()
+got = sharded_value_iteration(tm, mesh, stop_delta=1e-5)
+assert abs(got["vi_value"] - vi["vi_value"]).max() <= 1e-5
 print("mdp-isolated-ok")
 """
 

@@ -314,7 +314,6 @@ def test_measure_rows_matches_reference():
 
 def test_unported_options_raise(tables):
     from cpr_tpu_torch.mdp import grid as G
-    from cpr_tpu_torch.mdp.rtdp_graph import rtdp_sharded_polish
     _, _, tm, _, _ = tables
     with pytest.raises(NotImplementedError, match="item 6"):
         tm.value_iteration(stop_delta=1e-3, impl="chunked",
@@ -322,14 +321,20 @@ def test_unported_options_raise(tables):
     with pytest.raises(NotImplementedError, match="item 6"):
         E.run_grid_chunk_driver(None, None, 1, 1, torch.float32, 1e-3, 1,
                                 checkpoint_path="grid.ckpt")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        measure_mdp.measure_rows([], mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        measure_mdp.measure_rows_grid([], mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        G.grid_value_iteration(None, (0.3,), (0.5,), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        rtdp_sharded_polish(tm, None, None, rtdp_steps=1)
+    # the mesh= paths are ported (K16): they take a mesh and refuse what
+    # the reference refuses
+    from cpr_tpu_torch.parallel import (default_mesh,
+                                        sharded_state_value_iteration)
+    mesh = default_mesh(devices=[CPU] * 2)
+    assert measure_mdp.measure_rows([], mesh=mesh) == []
+    assert measure_mdp.measure_rows_grid([], mesh=mesh) == []
+    with pytest.raises(ValueError, match="2-D mesh"):
+        G.grid_value_iteration(None, (0.3,), (0.5,), state_axis="s")
+    # rtdp_sharded_polish polishes on the state-sharded chunked solve,
+    # which refuses the while impl by name
+    with pytest.raises(ValueError, match="impl='chunked'"):
+        sharded_state_value_iteration(tm, mesh, impl="while",
+                                      stop_delta=1e-3)
     with pytest.raises(NotImplementedError, match="item 7c"):
         measure_mdp.model_battery(native=False)
     with pytest.raises(NotImplementedError, match="item 7c"):

@@ -299,8 +299,12 @@ def test_driver_option_errors():
     pol = tenv.policies["honest"]
     with pytest.raises(ValueError, match="chunk must be positive"):
         tenv.make_episode_stats_fn(tp, pol, 10, chunk=0)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tenv.make_episode_stats_fn(tp, pol, 10, mesh=object())
+    # mesh= is ported (K16): a batch that does not divide it is refused
+    from cpr_tpu_torch.parallel import default_mesh
+    sharded = tenv.make_episode_stats_fn(
+        tp, pol, 10, mesh=default_mesh(devices=["cpu"] * 4))
+    with pytest.raises(ValueError, match=r"2 episode streams.*4 devices"):
+        sharded(rnd.split(rnd.PRNGKey(0, "cpu"), 2))
     # device metrics (K17) are ported: both options return an accumulator
     fn = tenv.make_episode_stats_fn(tp, pol, 10, collect_metrics=True)
     stats, acc = fn(rnd.split(rnd.PRNGKey(0, "cpu"), 2))
